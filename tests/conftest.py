@@ -43,6 +43,11 @@ def pytest_configure(config):
         "markers", "shard: exercises sharded giant-grid execution "
                    "(repro.shard: partitioner, halo transport, shard_map "
                    "executor; multi-device runs fork a subprocess)")
+    config.addinivalue_line(
+        "markers", "port: exercises the PyTorch port (repro_torch) against "
+                   "the JAX reference")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (and nvcc); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
