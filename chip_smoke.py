@@ -21,7 +21,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
      output must match ``"torch"``; both are timed with CUDA events (median
      of 10 runs after a warm-up) beside the bound of the bytes they must
      move over the card's memory rate, and so is the one PyTorch call that
-     computes the same function where there is one (:func:`library_call`).
+     computes the same function where there is one (:func:`library_call`);
+  5. gradient sweep: the 19 cases at three times the test sizes, float32,
+     ``torch.autograd.grad`` of a cosine-projection loss through
+     ``res.run(env)`` against autograd of the float64 baseline program
+     within ``grad``; every adjoint spec's backend and probe codes are
+     printed, and each spec the probe admits must launch the kernel once in
+     the backward (refused adjoints print their code and take autograd);
+  6. gradient at full size: the four cells of phase 4, the backward through
+     ``res.run`` timed (CUDA events, median of 10 after a warm-up), its
+     kernel launches counted (zeroed just before), the gradients held
+     against the same adjoint plans on ``"torch"`` within ``plan``, and the
+     adjoint kernels timed beside their bound and their ``"torch"`` time;
+  7. fused cross-entropy (K4) at the reference's test shapes, float32 and
+     bfloat16: the kernel against its plain version, and ``fused_ce``'s
+     gradients against autograd of the dense loss;
+  8. K4 at the LM head of qwen2-7b (T=4096, D=3584, V=152064, bfloat16):
+     ``fused_ce`` forward and backward once with the launch count zeroed
+     just before, then the kernel timed beside its plain version, the
+     library route (``F.cross_entropy`` of ``torch.matmul``) and its bound.
 
 The last lines are the kernel table as JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of the JAX
@@ -37,12 +55,21 @@ import sys
 import time
 from pathlib import Path
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
-#: flop/s per dtype
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core
+#: flop/s per dtype, and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BF16_TC_FLOPS = 989e12
 SWEEP_SCALE = 3
 REPS = 10
+#: where phases 5-8 put their tensors
+DEVICE = "cuda"
+#: the LM head of qwen2-7b (src/repro/configs/qwen2_7b.py): one sequence
+CE_FULL = dict(T=4096, D=3584, V=152064)
+#: the reference's fused-CE test shapes (tests/test_fused_ce.py) plus one
+#: whose T and V are no multiple of the kernel's tile
+CE_SWEEP = [(64, 32, 256, 64), (32, 16, 100, 25), (48, 64, 512, 512),
+            (128, 8, 64, 16), (100, 40, 1000, None)]
 
 
 def _nvidia_smi() -> str:
@@ -97,6 +124,315 @@ def library_call(case, env):
     return lambda: {"j27": F.conv3d(x, w)[0, 0]}
 
 
+def plan_work(plan, env, itemsize: int) -> tuple:
+    """``(bytes, operations)`` one run of ``plan`` must do: every kernel
+    operand read once, every output written once; every body and aux
+    operation once per point of its box."""
+    from repro_torch.core.ir import count_ops
+    from repro_torch.lowering.geometry import analyze_plan
+
+    arrays = analyze_plan(plan).arrays
+    n_in = sum(env[k].numel() for k in arrays) * itemsize
+    vol = plan.program.volume()
+    n_out = vol * len(plan.body) * itemsize
+    ops = sum(sum(count_ops(st.rhs).values()) for st in plan.body) * vol
+    for a in plan.aux_order:
+        avol = 1
+        for lo, hi in plan.ranges[a.name].values():
+            avol *= hi - lo + 1
+        ops += sum(count_ops(plan.aux_exprs[a.name]).values()) * avol
+    return n_in + n_out, ops
+
+
+def bound_of(nbytes: float, ops: float, peak_flops: float) -> tuple:
+    """``(bound ms, "bytes" or "operations")``: the larger of the two."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / peak_flops * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def cos_weights(outs: dict, torch) -> dict:
+    """The fixed projection of the gradient checks: output element ``i``
+    weighs ``cos(i)``, in the output's dtype."""
+    return {k: torch.cos(torch.arange(v.numel(), device=v.device,
+                                      dtype=torch.float64)).to(v.dtype)
+            .reshape(v.shape) for k, v in outs.items()}
+
+
+def adjoint_sources(case, res, dt) -> list:
+    """Kernel sources of the case's adjoint plans that ``"auto"`` sends to
+    the kernel at the case's full shapes, built ahead of the backward."""
+    import numpy as np
+
+    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.backend import select_backend
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.lowering.emit import specialize_stencil
+
+    shapes = required_shapes(case.program)
+    dname = np.dtype(dt).name
+    out = []
+    for spec in adjoint_build(case.program).specs:
+        plan = spec.result().plan
+        adj = adjoint_env_shapes(spec, case.program, shapes)
+        if select_backend(plan, "auto", [dname]).backend == "hopper":
+            out.append(specialize_stencil(
+                plan, adj, {k: dname for k in adj}).source)
+    return out
+
+
+def adjoint_executors(program, env, g) -> list:
+    """``(spec, adjoint env, executor)`` for each adjoint plan, as the
+    backward fetches them from the executor cache (default backend)."""
+    from repro_torch import compile_plan
+    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
+
+    out = []
+    for spec in adjoint_build(program).specs:
+        adj_env = assemble_adjoint_env(spec, env, g)
+        out.append((spec, adj_env,
+                    compile_plan(spec.result().plan, adj_env)))
+    return out
+
+
+def grad_sweep(sweep_cases, torch) -> list:
+    """Phase 5; returns the failures."""
+    import numpy as np
+
+    from repro_torch.core.adjoint import adjoint_build
+    from repro_torch.core.codegen import interior
+    from repro_torch.testing import (build_env, default_tolerances,
+                                     env_to_torch, rel_err)
+
+    failures = []
+    for case, res in sweep_cases:
+        tol = default_tolerances(np.float32)["grad"]
+        env = env_to_torch(build_env(case, np.float32, seed=1), DEVICE)
+        keys = sorted(k for k, v in env.items() if v.is_floating_point())
+        p = {k: env[k].clone().requires_grad_() for k in keys}
+        out = res.run({**env, **p}, device=DEVICE)
+        g = cos_weights(out, torch)
+        build = adjoint_build(case.program)
+        adj = adjoint_executors(case.program, env, g)
+        before = [ex.kernel_launches for _, _, ex in adj]
+        grads = torch.autograd.grad([out[k] for k in g],
+                                    [p[k] for k in keys],
+                                    [g[k] for k in g], allow_unused=True)
+        torch.cuda.synchronize()
+        env64 = {k: v.double().requires_grad_() if k in keys else v
+                 for k, v in env.items()}
+        base = interior(res.plan, res.baseline_evaluator()(env64))
+        want = torch.autograd.grad([base[k] for k in g],
+                                   [env64[k] for k in keys],
+                                   [g[k].double() for k in g],
+                                   allow_unused=True)
+        zero = torch.zeros((), device=DEVICE)
+        err = rel_err({k: zero if v is None else v
+                       for k, v in zip(keys, grads)},
+                      {k: zero if v is None else v
+                       for k, v in zip(keys, want)})
+        specs = []
+        ok = err <= tol
+        for (spec, _, ex), b in zip(adj, before):
+            launched = ex.kernel_launches - b
+            codes = ",".join(r.code for r in ex.selection.capability.reasons)
+            specs.append(f"{spec.input}:{ex.backend}"
+                         f"[{codes or 'eligible'}] launches {launched}")
+            ok &= launched == (1 if ex.backend == "hopper" else 0)
+        adjoint = ("adjoint " + "; ".join(specs) if build.ok
+                   else f"autodiff fallback: {build.reason}")
+        line = (f"grad {case.name} r{case.reassociate} float32: grads vs "
+                f"float64 baseline {err:.2e} (<= {tol:.0e}); {adjoint} "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+    return failures
+
+
+def grad_full_size(case, dt, res, torch) -> dict:
+    """Phase 6 for one cell; returns its kernel line (the adjoint plans'
+    kernels) and prints the backward's time and launches."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+    from repro_torch.core.adjoint import backward
+    from repro_torch.testing import build_env, default_tolerances, rel_err
+
+    dname = np.dtype(dt).name
+    outs = {st.lhs.name for st in case.program.body}
+    env = {k: torch.as_tensor(v, device=DEVICE)
+           for k, v in build_env(case, dt, seed=0).items() if k not in outs}
+    keys = sorted(k for k, v in env.items() if v.is_floating_point())
+    p = {k: env[k].clone().requires_grad_() for k in keys}
+    out = res.run({**env, **p}, device=DEVICE)
+    g = cos_weights(out, torch)
+    adj = adjoint_executors(case.program, env, g)
+    kern = [(spec, a, ex) for spec, a, ex in adj if ex.backend == "hopper"]
+    for _, _, ex in kern:
+        ex.spec.launches = 0
+
+    def bwd():
+        return torch.autograd.grad([out[k] for k in g],
+                                   [p[k] for k in keys],
+                                   [g[k] for k in g], retain_graph=True,
+                                   allow_unused=True)
+
+    grads = bwd()
+    torch.cuda.synchronize()
+    launches = sum(ex.kernel_launches for _, _, ex in kern)
+    if not kern or launches != len(kern):
+        raise SystemExit(f"{case.name}: the backward launched {launches} "
+                         f"kernels for {len(kern)} admitted adjoint plans")
+    plain = backward(case.program, env, g, backend="torch")
+    e_plan = rel_err({k: v for k, v in zip(keys, grads) if v is not None},
+                     {k: plain[k] for k, v in zip(keys, grads)
+                      if v is not None})
+    max_abs = max(float((v.double() - plain[k].double()).abs().max())
+                  for k, v in zip(keys, grads) if v is not None)
+    tol = default_tolerances(dt)["plan"]
+    if e_plan > tol:
+        raise SystemExit(f"{case.name}: backward vs torch adjoint plans "
+                         f"{e_plan:.2e} > {tol:.0e}")
+    del grads, plain
+    backward_ms = _time_ms(bwd, torch)
+    plain_backward_ms = _time_ms(
+        lambda: backward(case.program, env, g, backend="torch"), torch)
+    kernel_ms = torch_ms = 0.0
+    nbytes = ops = 0
+    itemsize = np.dtype(dt).itemsize
+    for spec, a, ex in kern:
+        kernel_ms += _time_ms(lambda: ex(a), torch)
+        ex_t = compile_plan(spec.result().plan, a, "torch")
+        torch_ms += _time_ms(lambda: ex_t(a), torch)
+        b, o = plan_work(spec.result().plan, a, itemsize)
+        nbytes, ops = nbytes + b, ops + o
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
+    on_torch = [f"{spec.input}[{','.join(r.code for r in ex.selection.capability.reasons)}]"
+                for spec, _, ex in adj if ex.backend != "hopper"]
+    print(f"grad-main {case.name} {dname}: adjoint specs {len(adj)}, on the "
+          f"kernel {len(kern)}, on torch {on_torch or 'none'}; backward "
+          f"launches {launches}, backward_ms {backward_ms:.4f} (torch "
+          f"adjoint plans {plain_backward_ms:.4f}); adjoint kernels "
+          f"kernel_ms {kernel_ms:.4f}, torch_ms {torch_ms:.4f}, bytes "
+          f"{nbytes}, bound_ms {bound_ms:.4f} ({by}), share of bound "
+          f"{bound_ms / kernel_ms:.3f}; grads vs torch {e_plan:.2e} (<= "
+          f"{tol:.0e}), max_abs_err {max_abs:.3e}", flush=True)
+    return dict(name=f"race_stencil[{case.name} adjoint]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273", launches=launches,
+                max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def ce_sweep(torch) -> list:
+    """Phase 7; returns the failures."""
+    from repro_torch.kernels import fused_ce as fc
+
+    failures = []
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for T, D, V, v_blk in CE_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            h = torch.randn(T, D, generator=gen, device=DEVICE).to(dt)
+            w = (torch.randn(D, V, generator=gen, device=DEVICE)
+                 * 0.05).to(dt)
+            labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
+                                   dtype=torch.int32)
+            before = fc.KERNEL.launches
+            got = fc.fused_ce_forward(h, w, labels, v_blk=v_blk)
+            launched = fc.KERNEL.launches - before
+            want = fc.fused_ce_forward_ref(h, w, labels, v_blk=v_blk)
+            hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+            loss = fc.fused_ce(hg, wg, labels, v_blk=v_blk)
+            dh, dw = torch.autograd.grad(loss, (hg, wg))
+            hd, wd = h.clone().requires_grad_(), w.clone().requires_grad_()
+            dense = fc._ce_ref(hd, wd, labels)
+            rh, rw = torch.autograd.grad(dense, (hd, wd))
+            torch.cuda.synchronize()
+            e_fwd = float((got - want).abs().max() / want.abs().max())
+            e_loss = abs(float(loss.detach()) - float(dense.detach())) / abs(
+                float(dense.detach()))
+            e_grad = max(float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max())
+                         for a, b in ((dh, rh), (dw, rw)))
+            # f32 sums over D in another order: 1e-5; the mean against the
+            # dense loss likewise; gradients are the same recompute
+            ok = (launched == 1 and e_fwd <= 1e-5 and e_loss <= 1e-5
+                  and e_grad <= 1e-5)
+            line = (f"ce {T}x{D}x{V} v_blk={v_blk} {str(dt)[6:]}: launches "
+                    f"{launched} kernel-vs-plain {e_fwd:.2e} (<= 1e-05) "
+                    f"loss-vs-dense {e_loss:.2e} grads-vs-dense "
+                    f"{e_grad:.2e} {'ok' if ok else 'FAIL'}")
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+    return failures
+
+
+def ce_full_width(torch) -> dict:
+    """Phase 8; returns K4's kernel line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_ce as fc
+
+    T, D, V = CE_FULL["T"], CE_FULL["D"], CE_FULL["V"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    h = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn(D, V, generator=gen, device=DEVICE)
+         * 0.05).to(torch.bfloat16)
+    labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
+                           dtype=torch.int32)
+    hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+    fc.KERNEL.launches = 0
+    loss = fc.fused_ce(hg, wg, labels)
+    dh, dw = torch.autograd.grad(loss, (hg, wg))
+    torch.cuda.synchronize()
+    launches = fc.KERNEL.launches
+    if launches != 1:
+        raise SystemExit(f"fused_ce launched the kernel {launches} times")
+    if not (torch.isfinite(loss) and bool(torch.isfinite(dh).all())
+            and bool(torch.isfinite(dw).all())):
+        raise SystemExit("fused_ce: non-finite loss or gradients")
+    del hg, wg, dh, dw
+    got = fc.fused_ce_forward(h, w, labels)
+    want = fc.fused_ce_forward_ref(h, w, labels, t_blk=T)
+    lib = F.cross_entropy(torch.matmul(h, w).float(), labels.long(),
+                          reduction="none")
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    e_plain = max_abs / float(want.abs().max())
+    e_lib = float((lib - got).abs().max() / got.abs().max())
+    del want, lib
+    # plain: the same split and f32 products, summed in another order:
+    # 1e-5; library: bf16 logits from a bf16 GEMM, the reference's bf16
+    # tolerance 2e-2
+    if e_plain > 1e-5 or e_lib > 2e-2:
+        raise SystemExit(f"fused_ce full width: kernel vs plain "
+                         f"{e_plain:.2e} (<= 1e-05), library vs kernel "
+                         f"{e_lib:.2e} (<= 2e-02)")
+    kernel_ms = _time_ms(lambda: fc.fused_ce_forward(h, w, labels), torch)
+    plain_ms = _time_ms(lambda: fc.fused_ce_forward_ref(h, w, labels,
+                                                        t_blk=T), torch)
+    library_ms = _time_ms(lambda: F.cross_entropy(
+        torch.matmul(h, w).float(), labels.long(), reduction="none"), torch)
+    nbytes = (h.numel() + w.numel()) * 2 + T * 4 + T * 4
+    bound_ms, by = bound_of(nbytes, 2 * T * D * V, PEAK_BF16_TC_FLOPS)
+    print(f"ce-main T={T} D={D} V={V} bfloat16: split width "
+          f"{fc.split_width(T, V)}, launches {launches}, kernel_ms "
+          f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
+          f"{library_ms:.4f}, bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
+          f"share of bound {bound_ms / kernel_ms:.4f}, kernel-vs-plain "
+          f"{e_plain:.2e}, library-vs-kernel {e_lib:.2e}, max_abs_err "
+          f"{max_abs:.3e}", flush=True)
+    return dict(name="fused_ce", route="cuda",
+                source="src/repro_torch/csrc/fused_ce.cu",
+                replaces="src/repro/kernels/fused_ce.py:75",
+                launches=launches, max_abs_err=max_abs, ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=library_ms)
+
+
 def main() -> int:
     import torch
 
@@ -116,8 +452,7 @@ def main() -> int:
     from repro_torch.apps import CASES, get_case
     from repro_torch.apps.paper_kernels import pop_hdifft_gm
     from repro_torch.core.codegen import interior, required_shapes
-    from repro_torch.core.ir import count_ops
-    from repro_torch.kernels.build import compile_sources
+    from repro_torch.kernels.build import compile_sources, csrc_source
     from repro_torch.lowering.emit import specialize_stencil
     from repro_torch.lowering.geometry import analyze_plan
     from repro_torch.testing import (SWEEP_SIZES, build_env,
@@ -144,6 +479,9 @@ def main() -> int:
                   (pop_hdifft_gm(8192, 8192), np.float32)]
     main_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
                  for case, dt in main_cases]
+    # the gradient sweep runs each case at its default level, in float32
+    grad_cases = [(case, res) for case, lvl, dt, res in sweep
+                  if lvl == case.reassociate and dt is np.float32]
 
     # ---- phase 2: build ----------------------------------------------------
     sources = []
@@ -151,6 +489,11 @@ def main() -> int:
         shapes = required_shapes(case.program)
         sources.append(specialize_stencil(
             res.plan, shapes, {k: np.dtype(dt).name for k in shapes}).source)
+    for case, res in grad_cases:
+        sources += adjoint_sources(case, res, np.float32)
+    for case, dt, res in main_runs:
+        sources += adjoint_sources(case, res, dt)
+    sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
     print(f"build: {len(set(sources))} kernel sources compiled in "
@@ -230,27 +573,14 @@ def main() -> int:
         torch_ms = _time_ms(lambda: ex_t(env), torch)
         library_ms = None if lib is None else _time_ms(lib, torch)
         arrays = analyze_plan(res.plan).arrays
-        itemsize = np.dtype(dt).itemsize
-        n_in = sum(env[k].numel() for k in arrays) * itemsize
-        vol = res.plan.program.volume()
-        n_out = vol * len(res.plan.body) * itemsize
-        ops = sum(sum(count_ops(st.rhs).values()) for st in res.plan.body) * vol
-        for a in res.plan.aux_order:
-            rng = res.plan.ranges[a.name]
-            avol = 1
-            for lo, hi in rng.values():
-                avol *= hi - lo + 1
-            ops += sum(count_ops(res.plan.aux_exprs[a.name]).values()) * avol
-        bytes_ms = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / PEAK_FLOPS[dname] * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
+        nbytes, ops = plan_work(res.plan, env, np.dtype(dt).itemsize)
+        bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
         geo = ex.spec.tp.geometry
         print(f"main {case.name} {dname} {tuple(env[next(iter(arrays))].shape)}"
               f": selection hopper, launches {launches}, tile {geo.tile}, "
               f"smem {ex.spec.tp.smem_bytes} B, kernel_ms {kernel_ms:.4f}, "
               f"torch_ms {torch_ms:.4f}, library_ms {library_ms}, "
-              f"bytes {n_in + n_out}, bound_ms "
-              f"{bound_ms:.4f} ({'bytes' if bytes_ms >= ops_ms else 'ops'}), "
+              f"bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
               f"share of bound {bound_ms / kernel_ms:.3f}, max_abs_err "
               f"{max_abs:.3e}, rel_err {e_plan:.2e}", flush=True)
         kernels.append(dict(
@@ -258,11 +588,28 @@ def main() -> int:
             source="src/repro_torch/lowering/emit.py",
             replaces="src/repro/lowering/emit.py:273",
             launches=launches, max_abs_err=max_abs, ms=kernel_ms,
-            plain_ms=torch_ms, bound_ms=bound_ms,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            plain_ms=torch_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=library_ms))
         del env, ex, ex_t, lib
         torch.cuda.empty_cache()
+
+    # ---- phase 5: gradient sweep -------------------------------------------
+    failures = grad_sweep(grad_cases, torch)
+    if failures:
+        raise SystemExit("phase 5 failed:\n" + "\n".join(failures))
+
+    # ---- phase 6: gradient at full size ------------------------------------
+    for case, dt, res in main_runs:
+        kernels.append(grad_full_size(case, dt, res, torch))
+        torch.cuda.empty_cache()
+
+    # ---- phase 7: fused cross-entropy sweep --------------------------------
+    failures = ce_sweep(torch)
+    if failures:
+        raise SystemExit("phase 7 failed:\n" + "\n".join(failures))
+
+    # ---- phase 8: fused cross-entropy at full width ------------------------
+    kernels.append(ce_full_width(torch))
 
     print(f"total seconds: {time.time() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))

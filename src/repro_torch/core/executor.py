@@ -15,7 +15,11 @@ specialization (and, on the card, the kernel build) once.
     signature, backend, block config, device)``: the torch evaluator, or the
     Hopper kernel's wrapper (:class:`~repro_torch.lowering.emit.
     LoweredStencil`).  Torch runs eagerly, so there is no jit to reuse and no
-    ``donate_argnums``: outputs are fresh tensors on every call;
+    ``donate_argnums``: outputs are fresh tensors on every call.  On both
+    backends a run differentiates: when autograd records and an input
+    requires grad, the call goes through :class:`_RaceFunction`, whose
+    backward runs the adjoint-stencil plans (:mod:`.adjoint`); otherwise it
+    calls the bare core;
   * :class:`ExecutorCache` — thread-safe LRU with hit/miss/eviction stats;
     :func:`compile_plan` is the front door.
 """
@@ -191,6 +195,32 @@ class ExecutorKey:
 # ---------------------------------------------------------------------------
 
 
+class _RaceFunction(torch.autograd.Function):
+    """Autograd node of one executor call; port of the reference's
+    ``make_custom_vjp``.  ``apply`` tracks positional tensors only, so the
+    env comes flattened in ``names`` order and the outputs go back as a
+    tuple in ``ex.out_names`` order."""
+
+    @staticmethod
+    def forward(ctx, ex, names, *tensors):
+        ctx.ex, ctx.names = ex, names
+        ctx.save_for_backward(*tensors)
+        outs = ex._core(dict(zip(names, tensors)))
+        return tuple(outs[nm] for nm in ex.out_names)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gouts):
+        from .adjoint import backward
+
+        ex, names = ctx.ex, ctx.names
+        wrt = [nm for nm, need in zip(names, ctx.needs_input_grad[2:])
+               if need]
+        grads = backward(ex.plan.program, dict(zip(names, ctx.saved_tensors)),
+                         dict(zip(ex.out_names, gouts)), wrt=wrt)
+        return (None, None) + tuple(grads[nm] for nm in names)
+
+
 class CompiledRace:
     """One specialization of a plan: the torch evaluator or the kernel's
     wrapper, built once per :class:`ExecutorKey`.  ``calls`` counts runs and
@@ -205,6 +235,7 @@ class CompiledRace:
         self.backend = selection.backend
         self.device = device
         self.calls = 0
+        self.out_names = tuple(dict.fromkeys(st.lhs.name for st in plan.body))
         if self.backend == "hopper":
             from ..lowering.emit import specialize_stencil
 
@@ -225,8 +256,15 @@ class CompiledRace:
         return self.spec.launches if self.spec is not None else 0
 
     def run(self, env: Mapping) -> dict:
-        """Execute; returns interior-convention outputs."""
+        """Execute; returns interior-convention outputs.  Differentiable
+        when autograd records and some input requires grad; the primal
+        values are the bare core's either way."""
         self.calls += 1
+        if torch.is_grad_enabled() and any(v.requires_grad
+                                           for v in env.values()):
+            names = tuple(nm for nm, _, _ in self.env_sig)
+            outs = _RaceFunction.apply(self, names, *(env[nm] for nm in names))
+            return dict(zip(self.out_names, outs))
         return self._core(env)
 
     __call__ = run
@@ -286,6 +324,11 @@ class ExecutorCache:
         with self._lock:
             self._entries.clear()
             self.stats = CacheStats()
+
+    def keys(self) -> list:
+        """The cached :class:`ExecutorKey` s, least recently used first."""
+        with self._lock:
+            return list(self._entries)
 
     def stats_snapshot(self) -> dict:
         """Hit/miss/eviction counts read together under the lock."""

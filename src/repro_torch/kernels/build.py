@@ -1,27 +1,31 @@
-"""Build and bind the generated CUDA kernels: nvcc into a shared library with
-a plain C interface, loaded with ctypes.
+"""Build and bind the CUDA kernels: nvcc into a shared library with a plain
+C interface, loaded with ctypes.
 
-Each rendered source is written to ``build/repro_torch/<sha256>.cu`` at the
-root of the checkout and compiled at first use with
+Every source, whether rendered per plan (the stencil kernel) or kept in
+``csrc/`` (``fused_ce.cu``), is written to ``build/repro_torch/<sha256>.cu``
+at the root of the checkout and compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -I src/repro_torch/csrc
 
-into ``<sha256>.so`` beside it; the digest covers the source, the shared
-header and the flags, so a library is reused exactly while they are
+into ``<sha256>.so`` beside it.  The digest covers the source, every header
+of ``csrc/`` it includes (``#include "..."``, followed into nested
+includes) and the flags, so a library is reused exactly while they are
 unchanged.  :func:`compile_sources` builds many sources at once, one nvcc
-process each, all started together.  Nothing here includes PyTorch's
-headers, so a build takes seconds, not minutes.
+process each, all started together; :func:`load` binds the C symbols a
+caller names.  Nothing here includes PyTorch's headers, so a build takes
+seconds, not minutes.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Iterable, Mapping, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,17 +34,40 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: loaded libraries by path (a library is loaded once per process)
 _LIBS: dict = {}
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 class BuildError(RuntimeError):
     """nvcc is missing or refused a source; carries its output."""
 
 
+def included_headers(source: str) -> list:
+    """The ``csrc/`` headers a source includes with ``#include "..."``,
+    nested includes too, each once, in the order first met."""
+    found: list = []
+    todo = _INCLUDE.findall(source)
+    while todo:
+        name = todo.pop(0)
+        path = CSRC / name
+        if path in found or not path.is_file():
+            continue  # not ours: nvcc's own search path resolves it
+        found.append(path)
+        todo.extend(_INCLUDE.findall(path.read_text()))
+    return found
+
+
 def _digest(source: str) -> str:
     h = hashlib.sha256(source.encode())
-    h.update((CSRC / "race_stencil.cuh").read_bytes())
+    for path in included_headers(source):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
+
+
+def csrc_source(name: str) -> str:
+    """The text of a static source kept in ``csrc/``."""
+    return (CSRC / name).read_text()
 
 
 def library_path(source: str) -> Path:
@@ -106,18 +133,17 @@ def compile_sources(sources: Iterable[str],
     return paths
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of one rendered source, built if needed."""
+def load(source: str, symbols: Mapping[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of one source, built if needed, with each C
+    function of ``symbols`` bound: ``{name: (restype, [argtypes])}``.
+    Pointers and the stream are ``ctypes.c_void_p``: a bare Python int would
+    pass as a 32-bit int and cut them."""
     (path,) = compile_sources([source])
     lib = _LIBS.get(path)
     if lib is None:
-        lib = ctypes.CDLL(str(path))
-        lib.race_stencil_launch.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-            ctypes.c_void_p]
-        lib.race_stencil_launch.restype = ctypes.c_int
-        lib.race_stencil_error.argtypes = [ctypes.c_int]
-        lib.race_stencil_error.restype = ctypes.c_char_p
-        _LIBS[path] = lib
+        lib = _LIBS[path] = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in symbols.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
     return lib

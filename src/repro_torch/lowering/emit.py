@@ -521,6 +521,15 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
 # ---------------------------------------------------------------------------
 
 
+#: the C interface of a rendered source (see :func:`render_cuda`)
+_SYMBOLS = {
+    "race_stencil_launch": (ctypes.c_int, [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]),
+    "race_stencil_error": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
 class LoweredStencil:
     """One plan specialized for one environment signature: the kernel's
     wrapper.
@@ -565,7 +574,7 @@ class LoweredStencil:
         if self._lib is None:
             from ..kernels.build import load
 
-            self._lib = load(self.source)
+            self._lib = load(self.source, _SYMBOLS)
         # the launcher's runtime calls act on the thread's current device
         with torch.cuda.device(dev):
             scal = None

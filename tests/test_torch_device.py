@@ -1,9 +1,13 @@
-"""Devices and the executor of the PyTorch port: cuda unless the CPU is
-asked for, no hidden fallback, the executor cache, and (on a card) the
-kernel against the torch evaluator.  Imports no jax, so the ``cuda`` test
-runs on a machine with a card: ``python -m pytest -m cuda
+"""Devices, the executor and the kernel build of the PyTorch port: cuda
+unless the CPU is asked for, no hidden fallback, the executor cache, the
+content-addressed build and its ctypes binding, and (on a card) the kernels
+against their plain versions, forward and backward.  Imports no jax, so the
+``cuda`` tests run on a machine with a card: ``python -m pytest -m cuda
 tests/test_torch_device.py``."""
+import ctypes
 import importlib.util
+import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -12,8 +16,10 @@ import torch
 
 import repro_torch
 from repro_torch.apps import get_case
-from repro_torch.core import executor
+from repro_torch.core import adjoint, executor
+from repro_torch.core.codegen import interior
 from repro_torch.kernels import build
+from repro_torch.kernels import fused_ce as fc
 from repro_torch.testing import (SWEEP_SIZES, build_env, default_tolerances,
                                  env_to_torch, rel_err)
 
@@ -105,6 +111,51 @@ def test_kernel_library_is_content_addressed():
     assert a.parent == build.BUILD_DIR and a.suffix == ".so"
 
 
+def test_digest_covers_included_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when any ``csrc/`` header its source includes,
+    directly or through another header, changes its bytes."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    src = '#include "a.cuh"\n#include <cuda_runtime.h>\n'
+    assert build.included_headers(src) == [tmp_path / "a.cuh",
+                                           tmp_path / "b.cuh"]
+    before = build.library_path(src)
+    (tmp_path / "b.cuh").write_text("// b, changed\n")
+    assert build.library_path(src) != before
+    assert build.library_path("// includes nothing\n") == build.library_path(
+        "// includes nothing\n")
+
+
+def test_sources_include_their_headers():
+    case = get_case("j3d27pt", 12)
+    res = repro_torch.race(case.program, reassociate=3)
+    env = env_to_torch(build_env(case), "cpu")
+    ex = repro_torch.compile_plan(res.plan, env, "hopper",
+                                  cache=executor.ExecutorCache())
+    assert build.included_headers(ex.spec.source) == [
+        build.CSRC / "race_stencil.cuh"]
+    assert build.included_headers(build.csrc_source("fused_ce.cu")) == []
+
+
+@pytest.mark.skipif(shutil.which("gcc") is None, reason="needs gcc")
+def test_load_binds_the_symbols_it_is_given(tmp_path, monkeypatch):
+    """``load`` binds each library's own C symbols; a library already in the
+    build directory is loaded without nvcc (built here by gcc, standing in
+    for nvcc's output)."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    src = "long scaled(long x, int k) { return x * k; }\n"
+    so = build.library_path(src)
+    c = tmp_path / "scaled.c"
+    c.write_text(src)
+    subprocess.run(["gcc", "-shared", "-fPIC", "-o", str(so), str(c)],
+                   check=True)
+    lib = build.load(src, {"scaled": (ctypes.c_long,
+                                      [ctypes.c_long, ctypes.c_int])})
+    assert lib.scaled(1 << 40, 3) == 3 << 40
+    assert build.load(src, {}) is lib
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -166,3 +217,59 @@ def test_kernel_launches_on_its_operands_device():
     torch.cuda.synchronize(1)
     assert {t.device for t in got.values()} == {torch.device("cuda:1")}
     assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Kernel vs its plain version on the card, f32 sums on both sides in
+    another order: 1e-5 of the largest loss."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for T, D, V, v_blk in [(64, 32, 256, 64), (32, 16, 100, 25),
+                           (48, 64, 512, 512), (100, 40, 1000, None)]:
+        h = torch.randn(T, D, generator=gen, device=cuda_device).to(dtype)
+        w = (torch.randn(D, V, generator=gen, device=cuda_device)
+             * 0.05).to(dtype)
+        labels = torch.randint(0, V, (T,), generator=gen, device=cuda_device,
+                               dtype=torch.int32)
+        labels[0] = V  # out of range: gold logit 0
+        before = fc.KERNEL.launches
+        got = fc.fused_ce_forward(h, w, labels, v_blk=v_blk)
+        assert fc.KERNEL.launches == before + 1
+        want = fc.fused_ce_forward_ref(h, w, labels, v_blk=v_blk)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
+    """``torch.autograd.grad`` through ``res.run`` on the card: the adjoint
+    plans the probe admits run on the Hopper kernel, and the gradients
+    match autograd of the float64 baseline within ``grad``."""
+    case = get_case("psinv", 16)
+    res = repro_torch.race(case.program, reassociate=3)
+    env = env_to_torch(build_env(case), cuda_device)
+    keys = ["R", "U", "w0", "w1", "w2", "w3"]
+    p = {k: env[k].clone().requires_grad_() for k in keys}
+    out = res.run({**env, **p})
+    g = {k: torch.cos(torch.arange(v.numel(), device=cuda_device,
+                                   dtype=v.dtype)).reshape(v.shape)
+         for k, v in out.items()}
+    build_ = adjoint.adjoint_build(case.program)
+    adj = [repro_torch.compile_plan(
+        s.result().plan, adjoint.assemble_adjoint_env(s, env, g))
+        for s in build_.specs]
+    assert all(ex.backend == "hopper" for ex in adj)
+    before = [ex.kernel_launches for ex in adj]
+    grads = torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
+                                [g[k] for k in g])
+    torch.cuda.synchronize()
+    assert [ex.kernel_launches - b for ex, b in zip(adj, before)] == [1] * len(
+        adj)
+    env64 = {k: v.double().requires_grad_() for k, v in env.items()}
+    base = interior(res.plan, res.baseline_evaluator()(env64))
+    want = torch.autograd.grad([base[k] for k in g], [env64[k] for k in keys],
+                               [g[k].double() for k in g])
+    tol = default_tolerances(np.float32)["grad"]
+    assert rel_err(dict(zip(keys, grads)), dict(zip(keys, want))) <= tol

@@ -15,8 +15,9 @@ from repro.testing.differential import _x64_ctx
 import repro_torch
 from repro_torch.apps import get_case
 from repro_torch.core.codegen import build_baseline_evaluator, interior
-from repro_torch.testing import (SWEEP_SIZES, build_env, default_tolerances,
-                                 env_to_torch, rel_err)
+from repro_torch.testing import (SWEEP_SIZES, build_env, coverage_matrix,
+                                 default_tolerances, env_to_torch, rel_err,
+                                 run_case, sweep_registry)
 
 pytestmark = pytest.mark.port
 
@@ -53,3 +54,22 @@ def test_baseline_evaluator_matches_reference(name):
     got = interior(res.plan, build_baseline_evaluator(pc.program)(
         env_to_torch(env, "cpu")))
     assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]
+
+
+def test_sweep_registry_holds_both_backends_against_the_baseline():
+    """``run_case`` over both backends: each against the float64 baseline
+    within ``baseline``, the (emulated) kernel against ``"torch"`` on the
+    same plan within ``plan``; a refused dtype is a named fallback."""
+    reports = sweep_registry(["hdifft_gm", "rprj3", "blocked4d"],
+                             reassociate_levels=(0, 3), device="cpu")
+    assert not [f for r in reports for f in r.failures()]
+    hopper = [c for r in reports for c in r.combos if c.backend == "hopper"]
+    assert len(hopper) == 6 and all(c.ok for c in hopper)
+    assert all(c.max_rel_err_plan <= default_tolerances(np.float32)["plan"]
+               for c in hopper)
+    assert "ok" in coverage_matrix(reports)
+    half = run_case(get_case("smooth1d", 24), reassociate_levels=(3,),
+                    dtype=np.float16, device="cpu")
+    (fb,) = [c for c in half.combos if c.backend == "hopper"]
+    assert fb.status == "fallback" and fb.reason.startswith("hopper-dtype")
+    assert "torch[hopper-dtype]" in coverage_matrix([half])
