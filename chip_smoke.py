@@ -21,13 +21,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
      output must match ``"torch"``; both are timed with CUDA events (median
      of 10 runs after a warm-up) beside the bound of the bytes they must
      move over the card's memory rate, and so is the one PyTorch call that
-     computes the same function where there is one (:func:`library_call`);
+     computes the same function where there is one (:func:`library_call`).
+     The kernel's schedule is printed: stream level, plane tile, segment
+     length, ring depths, shared memory per block and aux evaluations per
+     output point (worked out from the tile program, not measured);
   5. gradient sweep: the 19 cases at three times the test sizes, float32,
      ``torch.autograd.grad`` of a cosine-projection loss through
      ``res.run(env)`` against autograd of the float64 baseline program
      within ``grad``; every adjoint spec's backend and probe codes are
-     printed, and each spec the probe admits must launch the kernel once in
-     the backward (refused adjoints print their code and take autograd);
+     printed, every spec must be on the kernel and launch it once in the
+     backward (refused adjoint builds print their code and take autograd);
   6. gradient at full size: the four cells of phase 4, the backward through
      ``res.run`` timed (CUDA events, median of 10 after a warm-up), its
      kernel launches counted (zeroed just before), the gradients held
@@ -41,9 +44,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
      just before, then the kernel timed beside its plain version, the
      library route (``F.cross_entropy`` of ``torch.matmul``) and its bound.
 
-The last lines are the kernel table as JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of the JAX
+The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
+the kernel table as JSON, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Imports no jax and nothing of the JAX
 package ``repro``.
+
+    python3 chip_smoke.py --tile-sweep
+
+times the stencil kernel instead at forced plane tiles (and, for the 2-D
+cell, segment lengths) on the full-size cells of
+phase 4, each checked against ``"torch"`` first: the sweep the tile chooser
+(``lowering/blocks.py``) is set from.
 """
 from __future__ import annotations
 
@@ -70,6 +81,19 @@ CE_FULL = dict(T=4096, D=3584, V=152064)
 #: whose T and V are no multiple of the kernel's tile
 CE_SWEEP = [(64, 32, 256, 64), (32, 16, 100, 25), (48, 64, 512, 512),
             (128, 8, 64, 16), (100, 40, 1000, None)]
+#: ``--tile-sweep``: (block_rows, block_cols, block_inner) per cell; 0
+#: leaves a level to the chooser.  On the 3-D cells rows and cols set the
+#: plane tile (levels 1 and 2), on hdifft_gm rows sets the row tile and
+#: inner the segment length.
+TILE_SWEEP = {
+    "j3d27pt": [(32, 8, 0), (32, 16, 0), (32, 32, 0), (16, 64, 0),
+                (64, 16, 0)],
+    "poisson": [(32, 8, 0), (32, 16, 0), (32, 32, 0), (64, 16, 0)],
+    "derivative": [(32, 4, 0), (32, 8, 0), (16, 8, 0), (16, 16, 0),
+                   (16, 4, 0), (8, 16, 0)],
+    "hdifft_gm": [(256, 0, 0), (512, 0, 0), (1024, 0, 0), (2048, 0, 0),
+                  (1024, 0, 32)],
+}
 
 
 def _nvidia_smi() -> str:
@@ -129,9 +153,9 @@ def plan_work(plan, env, itemsize: int) -> tuple:
     operand read once, every output written once; every body and aux
     operation once per point of its box."""
     from repro_torch.core.ir import count_ops
-    from repro_torch.lowering.geometry import analyze_plan
+    from repro_torch.lowering.geometry import kernel_analysis
 
-    arrays = analyze_plan(plan).arrays
+    arrays = kernel_analysis(plan).arrays
     n_in = sum(env[k].numel() for k in arrays) * itemsize
     vol = plan.program.volume()
     n_out = vol * len(plan.body) * itemsize
@@ -206,6 +230,7 @@ def grad_sweep(sweep_cases, torch) -> list:
                                      env_to_torch, rel_err)
 
     failures = []
+    on_kernel = 0
     for case, res in sweep_cases:
         tol = default_tolerances(np.float32)["grad"]
         env = env_to_torch(build_env(case, np.float32, seed=1), DEVICE)
@@ -239,7 +264,8 @@ def grad_sweep(sweep_cases, torch) -> list:
             codes = ",".join(r.code for r in ex.selection.capability.reasons)
             specs.append(f"{spec.input}:{ex.backend}"
                          f"[{codes or 'eligible'}] launches {launched}")
-            ok &= launched == (1 if ex.backend == "hopper" else 0)
+            ok &= ex.backend == "hopper" and launched == 1
+            on_kernel += ex.backend == "hopper"
         adjoint = ("adjoint " + "; ".join(specs) if build.ok
                    else f"autodiff fallback: {build.reason}")
         line = (f"grad {case.name} r{case.reassociate} float32: grads vs "
@@ -248,6 +274,7 @@ def grad_sweep(sweep_cases, torch) -> list:
         print(line, flush=True)
         if not ok:
             failures.append(line)
+    print(f"grad sweep: {on_kernel} adjoint specs on the kernel", flush=True)
     return failures
 
 
@@ -302,8 +329,11 @@ def grad_full_size(case, dt, res, torch) -> dict:
     kernel_ms = torch_ms = 0.0
     nbytes = ops = 0
     itemsize = np.dtype(dt).itemsize
+    per_spec = []
     for spec, a, ex in kern:
-        kernel_ms += _time_ms(lambda: ex(a), torch)
+        ms = _time_ms(lambda: ex(a), torch)
+        kernel_ms += ms
+        per_spec.append(f"{spec.input} {ms:.4f}")
         ex_t = compile_plan(spec.result().plan, a, "torch")
         torch_ms += _time_ms(lambda: ex_t(a), torch)
         b, o = plan_work(spec.result().plan, a, itemsize)
@@ -318,7 +348,8 @@ def grad_full_size(case, dt, res, torch) -> dict:
           f"kernel_ms {kernel_ms:.4f}, torch_ms {torch_ms:.4f}, bytes "
           f"{nbytes}, bound_ms {bound_ms:.4f} ({by}), share of bound "
           f"{bound_ms / kernel_ms:.3f}; grads vs torch {e_plan:.2e} (<= "
-          f"{tol:.0e}), max_abs_err {max_abs:.3e}", flush=True)
+          f"{tol:.0e}), max_abs_err {max_abs:.3e}; per spec ms: "
+          f"{', '.join(per_spec)}", flush=True)
     return dict(name=f"race_stencil[{case.name} adjoint]", route="cuda",
                 source="src/repro_torch/lowering/emit.py",
                 replaces="src/repro/lowering/emit.py:273", launches=launches,
@@ -433,6 +464,83 @@ def ce_full_width(torch) -> dict:
                 library_ms=library_ms)
 
 
+def full_size_cells():
+    """The four cells of phases 4 and 6: (case, dtype)."""
+    import numpy as np
+
+    from repro_torch.apps import get_case
+    from repro_torch.apps.paper_kernels import pop_hdifft_gm
+
+    return [(get_case("j3d27pt", 512), np.float32),
+            (get_case("poisson", 512), np.float32),
+            (get_case("derivative", 256), np.float64),
+            (pop_hdifft_gm(8192, 8192), np.float32)]
+
+
+def tile_sweep(torch) -> None:
+    """``--tile-sweep``: the stencil kernel of each full-size cell at the
+    plane tiles of :data:`TILE_SWEEP`, each checked against ``"torch"``
+    within ``plan``, then timed (median of 10 after a warm-up)."""
+    import numpy as np
+
+    from repro_torch import compile_plan, race
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.kernels.build import compile_sources
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.lowering.facts import LoweringError
+    from repro_torch.testing import build_env, default_tolerances, rel_err
+
+    runs = []
+    for case, dt in full_size_cells():
+        res = race(case.program, reassociate=case.reassociate)
+        shapes = required_shapes(case.program)
+        dname = np.dtype(dt).name
+        for rows, cols, inner in TILE_SWEEP[case.name]:
+            try:
+                spec = specialize_stencil(res.plan, shapes,
+                                          {k: dname for k in shapes}, rows,
+                                          cols, inner)
+            except LoweringError as e:
+                print(f"tile-sweep {case.name} {(rows, cols, inner)}: "
+                      f"refused ({e})", flush=True)
+                continue
+            runs.append((case, dt, res, spec))
+    t0 = time.time()
+    compile_sources([spec.source for *_, spec in runs])
+    print(f"tile-sweep build: {len(runs)} sources in {time.time() - t0:.1f} "
+          f"s", flush=True)
+    failures = 0
+    for name in TILE_SWEEP:
+        group = [r for r in runs if r[0].name == name]
+        case, dt, res = group[0][:3]
+        outs = {st.lhs.name for st in case.program.body}
+        env = {k: torch.as_tensor(v, device=DEVICE)
+               for k, v in build_env(case, dt, seed=0).items()
+               if k not in outs}
+        plain = compile_plan(res.plan, env, "torch")(env)
+        tol = default_tolerances(dt)["plan"]
+        for *_, spec in group:
+            got = spec(env)
+            torch.cuda.synchronize()
+            err = rel_err(got, plain)
+            del got
+            g, tp = spec.tp.geometry, spec.tp
+            ms = _time_ms(lambda: spec(env), torch)
+            ok = err <= tol
+            failures += not ok
+            print(f"tile-sweep {name} {np.dtype(dt).name}: plane tile "
+                  f"{tuple(g.tile[l - 1] for l in g.order)} (levels "
+                  f"{g.order}), segment {g.seg}, "
+                  f"blocks {g.n_tiles}, threads {g.threads}, smem "
+                  f"{tp.smem_bytes} B, aux_evals_per_point "
+                  f"{tp.aux_evals_per_point:.3f}, kernel_ms {ms:.4f}, "
+                  f"vs torch {err:.2e} {'ok' if ok else 'FAIL'}", flush=True)
+        del env, plain
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"tile sweep: {failures} runs disagree with torch")
+
+
 def main() -> int:
     import torch
 
@@ -450,11 +558,10 @@ def main() -> int:
 
     from repro_torch import compile_plan, race
     from repro_torch.apps import CASES, get_case
-    from repro_torch.apps.paper_kernels import pop_hdifft_gm
     from repro_torch.core.codegen import interior, required_shapes
     from repro_torch.kernels.build import compile_sources, csrc_source
     from repro_torch.lowering.emit import specialize_stencil
-    from repro_torch.lowering.geometry import analyze_plan
+    from repro_torch.lowering.geometry import kernel_analysis
     from repro_torch.testing import (SWEEP_SIZES, build_env,
                                      default_tolerances, env_to_torch,
                                      rel_err)
@@ -463,6 +570,11 @@ def main() -> int:
     smi = _nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--tile-sweep"]:
+        tile_sweep(torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(smi)
+        return 0
 
     # ---- plans of phases 3 and 4 ------------------------------------------
     sweep = []  # (case, level, dtype, RaceResult)
@@ -473,12 +585,8 @@ def main() -> int:
                        rewrite_div=case.rewrite_div)
             for dt in (np.float32, np.float64):
                 sweep.append((case, lvl, dt, res))
-    main_cases = [(get_case("j3d27pt", 512), np.float32),
-                  (get_case("poisson", 512), np.float32),
-                  (get_case("derivative", 256), np.float64),
-                  (pop_hdifft_gm(8192, 8192), np.float32)]
     main_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
-                 for case, dt in main_cases]
+                 for case, dt in full_size_cells()]
     # the gradient sweep runs each case at its default level, in float32
     grad_cases = [(case, res) for case, lvl, dt, res in sweep
                   if lvl == case.reassociate and dt is np.float32]
@@ -527,7 +635,7 @@ def main() -> int:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
 
     # ---- phase 4: main path at full size ----------------------------------
-    kernels = []
+    kernels, schedules = [], []
     for case, dt, res in main_runs:
         dname = np.dtype(dt).name
         outs = {st.lhs.name for st in case.program.body}
@@ -572,13 +680,20 @@ def main() -> int:
         kernel_ms = _time_ms(lambda: ex(env), torch)
         torch_ms = _time_ms(lambda: ex_t(env), torch)
         library_ms = None if lib is None else _time_ms(lib, torch)
-        arrays = analyze_plan(res.plan).arrays
+        arrays = kernel_analysis(res.plan).arrays
         nbytes, ops = plan_work(res.plan, env, np.dtype(dt).itemsize)
         bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
-        geo = ex.spec.tp.geometry
+        tp = ex.spec.tp
+        geo = tp.geometry
         print(f"main {case.name} {dname} {tuple(env[next(iter(arrays))].shape)}"
-              f": selection hopper, launches {launches}, tile {geo.tile}, "
-              f"smem {ex.spec.tp.smem_bytes} B, kernel_ms {kernel_ms:.4f}, "
+              f": selection hopper, launches {launches}, stream level "
+              f"{geo.s_level}, plane tile "
+              f"{tuple(geo.tile[l - 1] for l in geo.order)} (levels "
+              f"{geo.order}), segment {geo.seg}, warm-up {-geo.k0}, blocks "
+              f"{geo.n_tiles}, ring depths "
+              f"{ {r.name: r.depth for r in geo.rings} }, smem "
+              f"{tp.smem_bytes} B, aux_evals_per_point "
+              f"{tp.aux_evals_per_point:.3f}, kernel_ms {kernel_ms:.4f}, "
               f"torch_ms {torch_ms:.4f}, library_ms {library_ms}, "
               f"bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
               f"share of bound {bound_ms / kernel_ms:.3f}, max_abs_err "
@@ -590,6 +705,13 @@ def main() -> int:
             launches=launches, max_abs_err=max_abs, ms=kernel_ms,
             plain_ms=torch_ms, bound_ms=bound_ms, bound_by=by,
             library_ms=library_ms))
+        schedules.append(dict(
+            name=f"race_stencil[{case.name}]", s_level=geo.s_level,
+            plane_tile=[geo.tile[l - 1] for l in geo.order],
+            plane_levels=list(geo.order), segment=geo.seg,
+            ring_depths={r.name: r.depth for r in geo.rings},
+            smem_bytes=tp.smem_bytes,
+            aux_evals_per_point=tp.aux_evals_per_point))
         del env, ex, ex_t, lib
         torch.cuda.empty_cache()
 
@@ -612,6 +734,9 @@ def main() -> int:
     kernels.append(ce_full_width(torch))
 
     print(f"total seconds: {time.time() - t_start:.1f}")
+    # the schedule each phase-4 kernel ran, from its TileProgram (worked
+    # out, not measured)
+    print(json.dumps({"schedule": schedules}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,14 @@ Two realizations exist for an executable :class:`~.depgraph.Plan`:
 ``"auto"`` picks ``"hopper"`` when the probe passes and ``"torch"``
 otherwise; the :class:`Selection` carries the structured reasons either way.
 
-The probe starts from :func:`~repro_torch.lowering.geometry.analyze_plan`,
+The probe starts from :func:`~repro_torch.lowering.geometry.kernel_analysis`,
 the analysis the kernel is built from, and adds what the card refuses:
-aux tiles that overflow shared memory even at a one-point tile
+aux rings that overflow shared memory even at a one-point plane tile
 (``hopper-smem``) and operand dtypes the kernel is not instantiated for
-(``hopper-dtype``).  It never drops a reference code.
+(``hopper-dtype``).  It drops one reference code: ``scalar-aux``, since the
+kernel evaluates rank-0 aux once per thread into registers
+(:func:`~repro_torch.lowering.geometry.analyze_plan` keeps reporting it as
+the reference does).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Iterable, Optional
 from ..lowering.blocks import choose_tile
 from ..lowering.emit import KERNEL_DTYPES, dtype_reasons
 from ..lowering.facts import FallbackReason, LoweringError, LoweringFact
-from ..lowering.geometry import analyze_plan
+from ..lowering.geometry import kernel_analysis
 from .depgraph import Plan
 
 BACKENDS = ("torch", "hopper", "auto")
@@ -82,16 +85,17 @@ def probe_hopper(plan: Plan, dtypes: Optional[Iterable[str]] = None
 
     Without ``dtypes`` the shared-memory check assumes 8-byte operands, the
     widest the kernel takes."""
-    a = analyze_plan(plan)
+    a = kernel_analysis(plan)
     reasons = list(a.reasons)
     if a.eligible:
         dtypes = tuple(dtypes or ())
         reasons += dtype_reasons(dtypes)
-        itemsize = max((KERNEL_DTYPES.get(d, 0) for d in dtypes), default=8)
-        try:  # the tile chooser owns the shared-memory refusal
-            choose_tile(plan, a, itemsize)
-        except LoweringError as e:
-            reasons += e.reasons
+        if not reasons:
+            itemsize = max((KERNEL_DTYPES[d] for d in dtypes), default=8)
+            try:  # the tile chooser owns the shared-memory refusal
+                choose_tile(plan, itemsize)
+            except LoweringError as e:
+                reasons += e.reasons
     return Capability(eligible=not reasons, reasons=tuple(reasons),
                       facts=a.facts)
 

@@ -36,7 +36,7 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
-from ..lowering.geometry import analyze_plan
+from ..lowering.geometry import kernel_analysis
 from .backend import BACKENDS, Selection, select_backend
 from .depgraph import Plan
 from .ir import Const, Expr, FuncName, Node, Program, Ref
@@ -361,7 +361,7 @@ def compile_plan(plan: Plan, env: Mapping, backend: Optional[str] = None, *,
     if len(devices) != 1:
         raise ValueError(f"env tensors lie on several devices: {devices}")
     (device,) = devices
-    arrays = analyze_plan(plan).arrays
+    arrays = kernel_analysis(plan).arrays
     base = [dt for nm, _, dt in sig if nm in arrays]
     sel = select_backend(plan, backend or default_backend(), base)
     blocks = ((block_rows, block_cols, block_inner)

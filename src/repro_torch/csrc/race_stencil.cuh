@@ -11,17 +11,22 @@
 // card's memory rate.  float64 runs at a fraction of float32's rate on this
 // card, but the kernel stays bound by memory at both widths.
 //
-// What the design does about it:
+// What the design does about it (a 2.5-D streaming kernel):
+//   * a block owns a tile of the plane of every level but one and marches
+//     along that stream level, one plane per step;
 //   * every auxiliary array RACE materialises lives only in shared memory,
-//     over its tile widened by its per-level extension, and is read back at
-//     shifted offsets by its consumers: no aux ever touches device memory;
-//   * operands are read in place through affine indices (a*i + b per array
-//     dimension, a < 0 for mirrored axes, repeated levels and constant dims
-//     included) and outputs are written in their own dimension order: no
-//     transpose, flip, pad or halo copy of any operand (the Pallas path made
-//     those on every call to feed BlockSpec);
-//   * every global load is guarded (outside the array reads 0) and every
-//     store is guarded to the statement extents.
+//     as a ring of planes over its exact one-sided range, and each of its
+//     planes is evaluated once per step: no aux ever touches device memory
+//     and none is recomputed in a halo of another tile's plane;
+//   * each operand read at unit positive coefficients is staged one plane
+//     window per step with cp.async (zero-filled outside the array), the
+//     next steps' planes in flight while this step computes; other operands
+//     (strided, mirrored, gathered) are read in place through affine
+//     indices with guarded loads;
+//   * outputs are written in their own dimension order: no transpose, flip,
+//     pad or halo copy of any operand (the Pallas path made those on every
+//     call to feed BlockSpec);
+//   * every store is guarded to the statement extents.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +55,31 @@ __device__ __forceinline__ float race_tanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double race_tanh(double x) { return tanh(x); }
 __device__ __forceinline__ float race_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double race_abs(double x) { return fabs(x); }
+
+// cp.async of one element into shared memory; with ok false, no byte is
+// read from src and the element is zero-filled.
+__device__ __forceinline__ void race_cp_async(float* dst, const float* src,
+                                              bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void race_cp_async(double* dst, const double* src,
+                                              bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void race_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void race_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 extern "C" const char* race_stencil_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

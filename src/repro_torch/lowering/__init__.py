@@ -4,9 +4,10 @@
     with the capability probe (own copy of the reference's, plus the codes
     of what Hopper refuses);
   * :mod:`.geometry` — plan analysis: eligibility and per-aux tile
-    extensions (own copy of the reference's);
-  * :mod:`.blocks`   — the kernel's launch geometry: tile shape, grid,
-    shared-memory footprint;
+    extensions (own copy of the reference's), plus the kernel's own view:
+    :func:`~.geometry.kernel_analysis` and the exact one-sided aux ranges;
+  * :mod:`.blocks`   — the kernel's launch geometry and march schedule:
+    stream level, plane tile, segments, rings, shared-memory footprint;
   * :mod:`.emit`     — the per-plan tile program, its CUDA C++ rendering,
     its CPU emulator and :class:`~.emit.LoweredStencil`, the wrapper.
 """

@@ -6,39 +6,45 @@ with the in-kernel gather ``repro/lowering/gather.py:gather_ref``).  As in
 Pallas, a kernel is generated for each plan, in two layers:
 
   * :func:`tile_program` turns ``(plan, analysis, launch geometry)`` into a
-    :class:`TileProgram`: the aux arrays in topological order, each with its
-    levels, per-level extension ``ext`` and place in shared memory; each base
-    reference as an affine index ``a·i + b`` per dimension of the array's own
-    layout; the scalars; the outputs in their own dimension order; and the
-    expression trees;
+    :class:`TileProgram`: the launch geometry with the march's schedule
+    (:mod:`.blocks`: rings, their depths, leads and first steps, and the
+    ring slot and offset of every shifted read), each base reference as an
+    affine index ``a·i + b`` per dimension of the array's own layout, the
+    scalars and rank-0 aux, the outputs in their own dimension order, and
+    the expression trees;
   * :func:`render_cuda` renders it as one ``__global__`` function, templated
     on ``scalar_t`` and instantiated for ``float`` and ``double``, plus an
     ``extern "C"`` launcher (built by :mod:`repro_torch.kernels.build`);
-    :func:`emulate` runs the same program tile by tile with torch on the CPU
-    — same extensions, shifts and guarded loads — as the kernel's plain
-    version.
+    :func:`emulate` runs the same march with torch on the CPU — same rings,
+    slots, warm-up, segment ends, staged planes and guarded loads — as the
+    kernel's plain version.
 
 What bounds it on the H100: device-memory bytes.  A stencil does a few
 operations per element it reads, far below the card's balance, so the least
 time is the bytes of the inputs read once and the outputs written once over
 3.35 TB/s.  float64 runs at a fraction of float32's arithmetic rate on this
 card, but the kernel stays bound by memory, so the design is the same for
-both.  What the design does about the bytes:
+both.  What the design does about the bytes (a 2.5-D streaming kernel):
 
-  * one thread block computes one output tile.  For each aux, in order, its
-    threads stride over the tile widened by ``2·ext`` and evaluate the aux
-    into dynamic shared memory; the consumers read it back at their shifts.
-    No aux array is ever written to device memory — RACE's reuse is realised
-    as shared-memory hits, never as recomputation;
-  * operands are read in place through their affine indices — a negative
-    coefficient is just ``a < 0``, a repeated level or a constant dimension
-    is just another affine index — and outputs are written straight into
-    their own dimension order.  The per-call transposes, flips, pads and
-    ``3**k`` halo copies the Pallas path made to feed BlockSpec (each a full
-    pass over device memory) do not exist here;
-  * every global load is guarded (outside the array reads 0: such cells lie
-    only in tile overhang and in aux corners no consumer reads) and every
-    store is guarded to the statement extents; offsets are 64-bit;
+  * a block owns a tile of the plane of every level but the stream level
+    and marches along a segment of it, one plane per step.  Each aux that
+    covers the stream level is a ring of planes in shared memory over its
+    exact one-sided range; each step evaluates every aux's leading plane
+    once, then one output plane.  No aux array is ever written to device
+    memory, and no aux value is recomputed in another plane's halo beyond
+    the plane tile's own — RACE's reuse is realised as shared-memory hits;
+  * operands read at unit positive coefficients are staged one plane
+    window per step with ``cp.async`` (zero-filled outside the array),
+    one step ahead (double buffering); the rest (strided, mirrored,
+    gathered) are read in place through their affine indices with guarded
+    64-bit loads.
+    Outputs are written straight into their own dimension order.  The
+    per-call transposes, flips, pads and ``3**k`` halo copies the Pallas
+    path made to feed BlockSpec do not exist here;
+  * rank-0 aux (loop-invariant; the reference's ``scalar-aux``) are
+    evaluated once per thread into registers at the top of the kernel;
+  * in-plane offsets are 32-bit where they fit, plane bases 64-bit, and
+    each ring's slot base rotates once per step;
   * constants are emitted at full double precision as ``scalar_t(<repr>)``
     (the reference Pallas kernel rounds every constant to float32).
 
@@ -49,7 +55,6 @@ tolerance (float32 1e-5, float64 1e-12), so no flag disables it.
 from __future__ import annotations
 
 import ctypes
-import itertools
 from dataclasses import dataclass
 from math import isfinite, prod
 from typing import Mapping
@@ -58,9 +63,9 @@ import torch
 
 from ..core.depgraph import Plan
 from ..core.ir import Const, Expr, Node, Ref, expr_refs
-from .blocks import LaunchGeometry, build_geometry
+from .blocks import BODY, LaunchGeometry, build_geometry
 from .facts import R_HOPPER_DTYPE, FallbackReason, LoweringError
-from .geometry import analyze_plan, aux_shift
+from .geometry import kernel_analysis
 
 #: operand dtypes the kernel is instantiated for, with their byte widths;
 #: the launcher's dtype code is the position in this table
@@ -98,6 +103,8 @@ class Operand:
     name: str
     shape: tuple
     strides: tuple  # element strides of the contiguous layout
+    dims: tuple  # loop level of each array dimension (0: constant)
+    ring: int = -1  # its staged ring in the geometry; -1: device memory
 
 
 @dataclass(frozen=True)
@@ -110,41 +117,42 @@ class Output:
 
 
 @dataclass(frozen=True)
-class AuxTile:
-    """One aux array's tile in shared memory."""
-
-    name: str
-    levels: tuple  # covered loop levels, ascending
-    ext: tuple  # per-level tile extension (m entries)
-    widths: tuple  # per-level box width: tile + 2·ext, 1 where uncovered
-    strides: tuple  # per-level element stride in the box, 0 where uncovered
-    offset: int  # first element in shared memory
-
-    @property
-    def size(self) -> int:
-        return prod(self.widths)
-
-
-@dataclass(frozen=True)
 class TileProgram:
-    """Everything the CUDA rendering and the CPU emulator share."""
+    """Everything the CUDA rendering and the CPU emulator share.  The
+    schedule (rings, their depths, leads and first steps, and the ring slot
+    and offset of every shifted read) is ``geometry.rings`` and
+    ``geometry.reads``."""
 
     geometry: LaunchGeometry
     dtype: str  # "float32" | "float64"
     operands: tuple  # Operand, sorted by name
-    scalars: tuple  # scalar names, sorted
+    scalars: tuple  # env scalar names, sorted
+    scalar_aux: tuple  # (name, Expr) of the rank-0 aux, topological
     outputs: tuple  # Output, one per body statement
-    aux: tuple  # AuxTile, topological (producers first)
-    aux_exprs: tuple  # Expr per aux
+    aux_exprs: tuple  # Expr per aux ring (the first rings of the geometry)
     body: tuple  # Expr per output
 
     @property
+    def aux(self) -> tuple:
+        return self.geometry.rings[:len(self.aux_exprs)]
+
+    @property
     def smem_elems(self) -> int:
-        return sum(a.size for a in self.aux)
+        return self.geometry.smem_elems
 
     @property
     def smem_bytes(self) -> int:
         return self.smem_elems * KERNEL_DTYPES[self.dtype]
+
+    @property
+    def aux_evals_per_point(self) -> float:
+        """Aux values a block evaluates per output point it owns (the
+        floor is one per aux): each ring's plane once per step from its
+        first step, each box once."""
+        g = self.geometry
+        evals = sum(r.plane * (g.seg - r.start if r.streamed else 1)
+                    for r in self.aux)
+        return evals / (g.plane_points * g.seg)
 
 
 def affine(ref: Ref) -> tuple:
@@ -169,7 +177,7 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
     to dtype names.  Raises :class:`LoweringError` with the probe's structured
     reasons when the plan, its dtypes or its aux footprint are out of reach.
     """
-    analysis = analyze_plan(plan)
+    analysis = kernel_analysis(plan)
     if not analysis.eligible:
         raise LoweringError(analysis.reasons)
     names = tuple(sorted(analysis.arrays))
@@ -180,6 +188,9 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
     if reasons:
         raise LoweringError(reasons)
     dtype = str(dtypes[names[0]])
+    geo = build_geometry(plan, KERNEL_DTYPES[dtype], block_rows, block_cols,
+                         block_inner)
+    staged = {r.name: k for k, r in enumerate(geo.rings) if r.operand}
     operands = []
     for nm in names:
         shape = tuple(shapes[nm])
@@ -187,39 +198,28 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
             raise ValueError(
                 f"{nm}: environment array has rank {len(shape)}, plan "
                 f"references rank {analysis.arrays[nm].ndim}")
-        operands.append(Operand(nm, shape, _contiguous_strides(shape)))
+        operands.append(Operand(nm, shape, _contiguous_strides(shape),
+                                analysis.arrays[nm].dims,
+                                staged.get(nm, -1)))
 
-    geo = build_geometry(plan, analysis, KERNEL_DTYPES[dtype], block_rows,
-                         block_cols, block_inner)
-    m = geo.m
-    aux, offset = [], 0
-    for a in plan.aux_order:
-        ext = analysis.ext[a.name]
-        widths = [1] * m
-        strides = [0] * m
-        acc = 1
-        for l in geo.order:
-            if l in a.levels:
-                widths[l - 1] = geo.tile[l - 1] + 2 * ext[l - 1]
-                strides[l - 1] = acc
-                acc *= widths[l - 1]
-        t = AuxTile(a.name, tuple(sorted(a.levels)), tuple(ext),
-                    tuple(widths), tuple(strides), offset)
-        aux.append(t)
-        offset += t.size
-
-    aux_exprs = tuple(plan.aux_exprs[a.name] for a in plan.aux_order)
+    scalar_aux = tuple((a.name, plan.aux_exprs[a.name])
+                       for a in plan.aux_order if not a.levels)
+    aux_exprs = tuple(plan.aux_exprs[a.name]
+                      for a in plan.aux_order if a.levels)
     body = tuple(st.rhs for st in plan.body)
-    scalars = tuple(sorted({r.name for e in aux_exprs + body
-                            for r in expr_refs(e) if not r.subs}))
+    rank0 = {nm for nm, _ in scalar_aux}
+    scalars = tuple(sorted(
+        {r.name for e in aux_exprs + body + tuple(e for _, e in scalar_aux)
+         for r in expr_refs(e) if not r.subs} - rank0))
     outputs = []
     for st in plan.body:
         levels = tuple(s.s for s in st.lhs.subs)
         outputs.append(Output(st.lhs.name, levels,
                               tuple(geo.extents[l - 1] for l in levels)))
     return TileProgram(geometry=geo, dtype=dtype, operands=tuple(operands),
-                       scalars=scalars, outputs=tuple(outputs),
-                       aux=tuple(aux), aux_exprs=aux_exprs, body=body)
+                       scalars=scalars, scalar_aux=scalar_aux,
+                       outputs=tuple(outputs), aux_exprs=aux_exprs,
+                       body=body)
 
 
 # ---------------------------------------------------------------------------
@@ -227,14 +227,60 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
 # ---------------------------------------------------------------------------
 
 
-class _Region:
-    """Code for one region of a tile: an aux box or the output tile."""
+def _fits32(shape: tuple, strides: tuple, dims) -> bool:
+    """Whether offsets over array dimensions ``dims`` fit a 32-bit int."""
+    return sum((shape[d] - 1) * strides[d] for d in dims) < 2 ** 31
 
-    def __init__(self, tp: TileProgram, ext: tuple):
-        self.tp = tp
-        self.ext = ext
+
+def _offset(terms: list, small: bool) -> str:
+    """Sum of ``(index, stride)`` terms, in 32 bits when ``small``."""
+    cast = "" if small else "(long long)"
+    return " + ".join(f"{cast}({ix}) * {st}" for ix, st in terms) or "0"
+
+
+class _Box:
+    """Code for one box of a step (an aux plane, an aux box evaluated once
+    per block, or the output plane) or, with ``key=None``, for the rank-0
+    aux at the top of the kernel."""
+
+    def __init__(self, tp: TileProgram, key):
+        g = tp.geometry
+        self.tp, self.key = tp, key
+        if key == BODY:
+            self.levels = tuple(range(1, g.m + 1))
+            self.lo, self.lead = (0,) * g.m, 0
+            self.widths = tuple(g.tile[l - 1] if l in g.order else 1
+                                for l in range(1, g.m + 1))
+            self.streamed = bool(g.s_level)
+        elif key is not None:
+            r = g.rings[key]
+            self.levels, self.lo, self.lead = r.levels, r.lo, r.lead
+            self.widths, self.streamed = r.widths, r.streamed
+        self.rank0 = [nm for nm, _ in tp.scalar_aux]
         self.loads: dict = {}  # base Ref -> local variable name
         self.lines: list = []
+
+    def header(self) -> list:
+        """Loop header: a thread-strided sweep of the box, fastest level
+        first, with each covered level's index ``i<l>``."""
+        g = self.tp.geometry
+        plane = [l for l in g.order if l in self.levels]
+        size = prod(self.widths[l - 1] for l in plane)
+        lines = [f"    for (int e = threadIdx.x; e < {size}; "
+                 f"e += {g.threads}) {{", "      int q = e;"]
+        for k, l in enumerate(plane):
+            if k == len(plane) - 1:
+                lines.append(f"      const int p{l} = q;")
+            else:
+                lines.append(f"      const int p{l} = q % "
+                             f"{self.widths[l - 1]}; q /= "
+                             f"{self.widths[l - 1]};")
+            lines.append(f"      const int i{l} = t{l} + ({self.lo[l - 1]} "
+                         f"+ p{l});")
+        if self.streamed:
+            lines.append(f"      const int i{g.s_level} = z + {self.lead};")
+        lines.append("      (void)q;")
+        return lines
 
     def expr(self, e: Expr) -> str:
         tp = self.tp
@@ -244,13 +290,12 @@ class _Region:
             return f"scalar_t({float(e.val)!r})"
         if isinstance(e, Ref):
             if not e.subs:
+                if e.name in self.rank0:
+                    return f"ra{self.rank0.index(e.name)}"
                 return f"sc{tp.scalars.index(e.name)}"
-            aux = next((a for a in tp.aux if a.name == e.name), None)
-            if aux is not None:
-                sh = aux_shift(e)
-                terms = [f"(p{l} + {sh.get(l, 0) + aux.ext[l - 1] - self.ext[l - 1]}) * {aux.strides[l - 1]}"
-                         for l in aux.levels]
-                return f"smem[{aux.offset} + " + " + ".join(terms) + "]"
+            rd = tp.geometry.reads.get((self.key, e))
+            if rd is not None:
+                return self._read(rd)
             return self._load(e)
         if isinstance(e, Node):
             if e.op == "call":
@@ -265,7 +310,17 @@ class _Region:
                     f"{self.expr(e.kids[1])})")
         raise TypeError(e)
 
+    def _read(self, rd) -> str:
+        g = self.tp.geometry
+        r = g.rings[rd.ring]
+        base = f"b{rd.ring}_{rd.back}" if r.streamed else str(r.offset)
+        terms = [f"(p{l} + {rd.offset[l - 1]}) * {r.strides[l - 1]}"
+                 for l in g.order if l in r.levels]
+        return f"smem[{base} + " + (" + ".join(terms) or "0") + "]"
+
     def _load(self, ref: Ref) -> str:
+        """A guarded read from device memory (outside the array reads 0),
+        in 64-bit index arithmetic."""
         var = self.loads.get(ref)
         if var is not None:
             return var
@@ -277,38 +332,62 @@ class _Region:
         for d, (a, s, b) in enumerate(affine(ref)):
             dv = f"{var}_{d}"
             rhs = f"{b}LL" if s == 0 else f"{a}LL * i{s} + ({b}LL)"
-            idx.append(f"      const long long {dv} = {rhs};")
+            idx.append(f"        const long long {dv} = {rhs};")
             guard.append(f"{dv} >= 0 && {dv} < {op.shape[d]}LL")
             off.append(f"{dv} * {op.strides[d]}LL")
-        self.lines.append(f"    scalar_t {var} = scalar_t(0);")
-        self.lines.append("    {")
+        self.lines.append(f"      scalar_t {var} = scalar_t(0);")
+        self.lines.append("      {")
         self.lines.extend(idx)
-        self.lines.append(f"      if ({' && '.join(guard) or 'true'}) "
+        self.lines.append(f"        if ({' && '.join(guard) or 'true'}) "
                           f"{var} = in{k}[{' + '.join(off) or '0'}];")
-        self.lines.append("    }")
+        self.lines.append("      }")
         return var
 
 
-def _region_loop(tp: TileProgram, levels: tuple, widths: dict, ext: tuple,
-                 guard_hi: bool) -> list:
-    """Loop header: thread-strided sweep of a box, fastest level first."""
+def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
+    """Copy one operand plane window into its ring slot with ``cp.async``
+    (reads 0 outside the array): the plane of step ``step``.  Threads run
+    the operand's own contiguous level fastest, so that a warp's loads
+    coalesce whatever the ring's element order."""
     g = tp.geometry
-    order = [l for l in g.order if l in levels]
-    size = prod(widths[l] for l in order)
-    lines = [f"  for (int e = threadIdx.x; e < {size}; e += {g.threads}) {{",
-             "    int q = e;"]
-    for k, l in enumerate(order):
-        if k == len(order) - 1:
-            lines.append(f"    const int p{l} = q;")
+    r = g.rings[k]
+    ix = next(i for i, o in enumerate(tp.operands) if o.ring == k)
+    op = tp.operands[ix]
+    ds = op.dims.index(g.s_level)
+    plane = [l for l in reversed(op.dims) if l in g.order]
+    inner = [d for d in range(len(op.dims)) if d != ds]
+    lines = [
+        "    {",
+        f"      const int zz = z0 + ({step}) + {r.lead};",
+        f"      const bool zok = zz >= 0 && zz < {op.shape[ds]};",
+        f"      const scalar_t* const src = zok ? in{ix} + (long long)zz * "
+        f"{op.strides[ds]}LL : in{ix};",
+        f"      scalar_t* const dst = smem + {r.offset} + ({slot}) * "
+        f"{r.plane};",
+        f"      for (int e = threadIdx.x; e < {r.plane}; "
+        f"e += {g.threads}) {{",
+        "        int q = e;",
+    ]
+    for n, l in enumerate(plane):
+        if n == len(plane) - 1:
+            lines.append(f"        const int p{l} = q;")
         else:
-            lines.append(f"    const int p{l} = q % {widths[l]}; "
-                         f"q /= {widths[l]};")
-        lines.append(f"    const long long i{l} = t{l} + "
-                     f"(p{l} - {ext[l - 1]});")
-    if guard_hi:
-        cond = " || ".join(f"i{l} > {g.hi[l - 1]}LL" for l in order)
-        lines.append(f"    if ({cond}) continue;")
-    lines.append("    (void)q;")
+            lines.append(f"        const int p{l} = q % {r.widths[l - 1]}; "
+                         f"q /= {r.widths[l - 1]};")
+        lines.append(f"        const int j{l} = t{l} + ({r.lo[l - 1]} + "
+                     f"p{l});")
+    guard = ["zok"] + [f"j{op.dims[d]} >= 0 && j{op.dims[d]} < {op.shape[d]}"
+                       for d in inner]
+    off = _offset([(f"j{op.dims[d]}", op.strides[d]) for d in inner],
+                  _fits32(op.shape, op.strides, inner))
+    pos = _offset([(f"p{l}", r.strides[l - 1]) for l in plane], True)
+    lines += [
+        "        (void)q;",
+        f"        const bool ok = {' && '.join(guard)};",
+        f"        race_cp_async(dst + {pos}, ok ? src + {off} : in{ix}, ok);",
+        "      }",
+        "    }",
+    ]
     return lines
 
 
@@ -319,13 +398,16 @@ def render_cuda(tp: TileProgram) -> str:
     ins, void* const* outs, const void* scalars, void* stream)``: dtype is 0
     for float and 1 for double; it returns ``cudaGetLastError()``."""
     g = tp.geometry
-    m = g.m
+    m, s = g.m, g.s_level
     n_in, n_out = len(tp.operands), len(tp.outputs)
+    n_aux = len(tp.aux_exprs)
+    staged = [k for k, r in enumerate(g.rings) if r.operand]
+    streamed = [k for k, r in enumerate(g.rings) if r.streamed]
     lines = [
         "// Generated by repro_torch.lowering.emit.render_cuda: the RACE "
         "stencil kernel",
-        f"// of one plan, depth {m}, tile {g.tile}, {len(tp.aux)} aux in "
-        f"shared memory.",
+        f"// of one plan, depth {m}, block {g.tile}, stream level {s}, "
+        f"{n_aux} aux and {len(staged)} staged operands in shared memory.",
         '#include "race_stencil.cuh"',
         "",
         "namespace {",
@@ -334,7 +416,7 @@ def render_cuda(tp: TileProgram) -> str:
         f"__global__ void __launch_bounds__({g.threads}) race_stencil_kernel(",
         f"    const RaceArgs<scalar_t, {n_in}, {n_out}> args) {{",
     ]
-    if tp.aux:
+    if g.rings:
         lines += [
             "  extern __shared__ __align__(16) unsigned char race_smem[];",
             "  scalar_t* const smem = reinterpret_cast<scalar_t*>(race_smem);",
@@ -346,38 +428,106 @@ def render_cuda(tp: TileProgram) -> str:
         lines.append(f"  scalar_t* const __restrict__ out{k} = args.out[{k}];")
     for k in range(len(tp.scalars)):
         lines.append(f"  const scalar_t sc{k} = args.scalars[{k}];")
-    lines.append("  long long bid = blockIdx.x;")
+    for k, (nm, e) in enumerate(tp.scalar_aux):
+        lines.append(f"  const scalar_t ra{k} = {_Box(tp, None).expr(e)};  "
+                     f"// {nm}")
+    lines.append("  int bid = blockIdx.x;")
     for l in g.order:
-        lines.append(f"  const long long t{l} = {g.lo[l - 1]}LL + "
-                     f"(bid % {g.nb[l - 1]}) * {g.tile[l - 1]}; "
-                     f"bid /= {g.nb[l - 1]};")
-    lines.append("  (void)bid;")
+        lines.append(f"  const int t{l} = {g.lo[l - 1]} + (bid % "
+                     f"{g.nb[l - 1]}) * {g.tile[l - 1]}; bid /= "
+                     f"{g.nb[l - 1]};")
+    lines.append(f"  const int z0 = {g.lo[s - 1] if s else 0} + bid * "
+                 f"{g.seg};")
+    lines.append("  (void)bid; (void)z0;")
 
-    for aux, expr in zip(tp.aux, tp.aux_exprs):
-        lines.append(f"  // aux {aux.name}: levels {aux.levels}, "
-                     f"ext {aux.ext}")
-        widths = {l: aux.widths[l - 1] for l in aux.levels}
-        lines += _region_loop(tp, aux.levels, widths, aux.ext, False)
-        reg = _Region(tp, aux.ext)
-        val = reg.expr(expr)
-        lines += reg.lines
-        pos = " + ".join(f"p{l} * {aux.strides[l - 1]}" for l in aux.levels)
-        lines.append(f"    smem[{aux.offset} + {pos}] = {val};")
-        lines.append("  }")
-        lines.append("  __syncthreads();")
+    def evaluate(key: int, dst: str) -> list:
+        box = _Box(tp, key)
+        val = box.expr(tp.aux_exprs[key])
+        return box.header() + box.lines + [f"      {dst} = {val};", "    }"]
 
-    levels = tuple(range(1, m + 1))
-    lines.append("  // body: one output tile")
-    lines += _region_loop(tp, levels, {l: g.tile[l - 1] for l in levels},
-                          (0,) * m, True)
-    reg = _Region(tp, (0,) * m)
-    vals = [reg.expr(e) for e in tp.body]
-    lines += reg.lines
+    for k in range(n_aux):
+        if not g.rings[k].streamed:
+            r = g.rings[k]
+            lines.append(f"  // aux {r.name}: one box, levels {r.levels}, "
+                         f"[{r.lo}, {r.hi}]")
+            lines += ["  {"] + evaluate(k, f"smem[{r.offset} + e]") + [
+                "  }", "  __syncthreads();"]
+
+    lines.append(f"  // the march: steps {g.k0}..{g.seg - 1}, output plane "
+                 f"z0 + k from step 0")
+    for k in streamed:
+        lines.append(f"  int r{k} = 0;  // ring {g.rings[k].name}: slot of "
+                     f"its lead, (k - {g.k0}) mod {g.rings[k].depth}")
+    if staged:  # the planes of the first step
+        for k in staged:
+            if g.rings[k].start <= g.k0:
+                lines += _stage(tp, k, str(g.k0), "0")
+        lines.append("  race_cp_async_commit();")
+    lines.append(f"  for (int k = {g.k0}; k < {g.seg}; ++k) {{")
+    if staged:  # this step's planes have landed
+        lines.append("    race_cp_async_wait<0>();")
+    lines.append("    __syncthreads();")
+    if s:
+        lines.append("    const int z = z0 + k;")
+    for ring, back in sorted({(rd.ring, rd.back) for rd in g.reads.values()
+                              if g.rings[rd.ring].streamed}):
+        r = g.rings[ring]
+        slot = (f"r{ring}" if back == 0 else
+                f"(r{ring} >= {back} ? r{ring} - {back} : r{ring} + "
+                f"{r.depth - back})")
+        lines.append(f"    const int b{ring}_{back} = {r.offset} + {slot} * "
+                     f"{r.plane};")
+    if staged:  # the planes of the next step, into the slot after the lead
+        lines.append(f"    if (k + 1 < {g.seg}) {{")
+        for k in staged:
+            r = g.rings[k]
+            if r.start > g.k0 + 1:
+                lines.append(f"    if (k + 1 >= {r.start})")
+            lines += _stage(tp, k, "k + 1",
+                            f"(r{k} + 1 == {r.depth} ? 0 : r{k} + 1)")
+        lines += ["    }", "    race_cp_async_commit();"]
+    phases = sorted({g.rings[k].phase for k in range(n_aux)
+                     if g.rings[k].streamed})
+    for ph in phases:
+        for k in range(n_aux):
+            r = g.rings[k]
+            if not r.streamed or r.phase != ph:
+                continue
+            lines.append(f"    // aux {r.name}: levels {r.levels}, [{r.lo}, "
+                         f"{r.hi}], ring of {r.depth}, lead {r.lead}, "
+                         f"phase {ph}")
+            lines.append(f"    if (k >= {r.start}) {{" if r.start > g.k0
+                         else "    {")
+            lines += evaluate(k, f"smem[{r.offset} + r{k} * {r.plane} + e]")
+            lines.append("    }")
+        lines.append("    __syncthreads();")
+
+    lines.append("    // body: one output plane")
+    cond = f"k >= 0 && z <= {g.hi[s - 1]}" if s else "k >= 0"
+    lines.append(f"    if ({cond}) {{")
+    box = _Box(tp, BODY)
+    lines += box.header()
+    plane = [l for l in g.order]
+    if plane:
+        lines.append("      if (" + " || ".join(
+            f"i{l} > {g.hi[l - 1]}" for l in plane) + ") continue;")
+    vals = [box.expr(e) for e in tp.body]
+    lines += box.lines
     for k, (out, val) in enumerate(zip(tp.outputs, vals)):
         strides = _contiguous_strides(out.shape)
-        off = " + ".join(f"(i{l} - {g.lo[l - 1]}LL) * {st}LL"
-                         for l, st in zip(out.levels, strides))
-        lines.append(f"    out{k}[{off}] = {val};")
+        inner = [d for d, l in enumerate(out.levels) if l != s]
+        off = _offset([(f"i{out.levels[d]} - {g.lo[out.levels[d] - 1]}",
+                        strides[d]) for d in inner],
+                      _fits32(out.shape, strides, inner))
+        if s:
+            ds = out.levels.index(s)
+            off = (f"(long long)(z - {g.lo[s - 1]}) * {strides[ds]}LL + "
+                   f"{off}")
+        lines.append(f"      out{k}[{off}] = {val};")
+    lines += ["    }", "    }"]
+    for k in streamed:
+        lines.append(f"    r{k} = r{k} + 1 == {g.rings[k].depth} ? 0 : "
+                     f"r{k} + 1;")
     lines += ["  }", "}", ""]
 
     smem = f"{tp.smem_elems} * sizeof(scalar_t)"
@@ -428,59 +578,79 @@ def render_cuda(tp: TileProgram) -> str:
 
 
 def emulate(tp: TileProgram, env: Mapping) -> dict:
-    """Run the tile program tile by tile with torch, as the kernel does.
+    """Run the tile program's march with torch, as the kernel does, every
+    block at once (one leading axis per block).
 
-    Each value carries one axis per loop level (size 1 where it does not
-    vary).  Aux boxes, their extensions and shifted reads, guarded loads and
-    guarded stores all follow :func:`render_cuda`."""
+    Values carry the block axis and one axis per loop level (size 1 where
+    they do not vary).  Rank-0 aux, boxes, rings, their slots, the warm-up,
+    segment ends, staged planes, guarded loads and guarded stores all follow
+    :func:`render_cuda` and read the schedule from ``tp.geometry``."""
     g = tp.geometry
-    m = g.m
+    m, s, B = g.m, g.s_level, g.n_tiles
     dt = _TORCH_DTYPES[tp.dtype]
     data = {o.name: env[o.name] for o in tp.operands}
     dev = data[tp.operands[0].name].device
+    zero = torch.zeros((), dtype=dt, device=dev)
     scal = {nm: torch.as_tensor(env[nm]).to(device=dev, dtype=dt)
             for nm in tp.scalars}
-    aux_of = {a.name: a for a in tp.aux}
-    outs = [torch.empty(o.shape, dtype=dt, device=dev) for o in tp.outputs]
+    org, bid = {}, torch.arange(B, device=dev)
+    for l in g.order + ((s,) if s else ()):
+        org[l] = (g.lo[l - 1] + (bid % g.nb[l - 1]) * g.tile[l - 1]).reshape(
+            [B] + [1] * m)
+        bid = bid // g.nb[l - 1]
 
-    def axis(l: int, vec):
-        shape = [1] * m
-        shape[l - 1] = vec.numel()
-        return vec.reshape(shape)
+    def along(l: int, start: int, n: int):
+        shape = [1] * (m + 1)
+        shape[l] = n
+        return (start + torch.arange(n, device=dev)).reshape(shape)
 
-    def load(ref: Ref, coords: dict):
-        arr = data[ref.name]
+    def coords(levels, lo, widths, plane):
+        """Index of each covered level over a box; ``plane`` on the stream
+        level (None when the box is not on a plane)."""
+        out = {l: org[l] + along(l, lo[l - 1], widths[l - 1])
+               for l in g.order if l in levels}
+        if plane is not None:
+            out[s] = org[s] + plane
+        return out
+
+    def load(arr, idx_of):
         idx, ok = [], True
-        for d, (a, s, b) in enumerate(affine(ref)):
-            ix = (torch.tensor(b, device=dev) if s == 0
-                  else axis(s, a * coords[s] + b))
+        for d, ix in enumerate(idx_of):
+            if not torch.is_tensor(ix):
+                ix = torch.tensor(ix, device=dev)
             ok = ok & (ix >= 0) & (ix < arr.shape[d])
             idx.append(ix.clamp(0, arr.shape[d] - 1))
-        val = torch.where(ok, arr[tuple(idx)], torch.zeros((), dtype=dt,
-                                                           device=dev))
-        return val.reshape([1] * m) if val.dim() == 0 else val
+        val = torch.where(ok, arr[tuple(idx)], zero)
+        return val.reshape([1] * (m + 1)) if val.dim() == 0 else val
 
-    def evaluate(e: Expr, coords: dict, ext: tuple, boxes: dict, memo: dict):
+    rings = [torch.zeros([r.depth, B] + list(r.widths), dtype=dt,
+                         device=dev) for r in g.rings]
+
+    def evaluate(e: Expr, key, box: dict, k):
+        memo: dict = {}
+
         def ev(x: Expr):
             if isinstance(x, Const):
                 return torch.tensor(x.val, dtype=dt, device=dev)
             if isinstance(x, Ref):
                 if not x.subs:
                     return scal[x.name]
-                if x.name in aux_of:
-                    aux, sh = aux_of[x.name], aux_shift(x)
-                    sl = []
-                    for l in range(1, m + 1):
-                        if l in aux.levels:
-                            s0 = sh.get(l, 0) + aux.ext[l - 1] - ext[l - 1]
-                            sl.append(slice(s0, s0 + g.tile[l - 1]
-                                            + 2 * ext[l - 1]))
-                        else:
-                            sl.append(slice(0, 1))
-                    return boxes[x.name][tuple(sl)]
+                rd = g.reads.get((key, x))
+                if rd is not None:
+                    r = g.rings[rd.ring]
+                    slot = (k - g.k0 - rd.back) % r.depth if r.streamed else 0
+                    sl = [slice(None)] + [
+                        slice(rd.offset[l - 1],
+                              rd.offset[l - 1] + box["widths"][l - 1])
+                        if l in r.levels and l != s else slice(0, 1)
+                        for l in range(1, m + 1)]
+                    return rings[rd.ring][slot][tuple(sl)]
                 val = memo.get(x)
                 if val is None:
-                    val = memo[x] = load(x, coords)
+                    c = box["coords"]
+                    val = memo[x] = load(data[x.name], [
+                        b if lv == 0 else a * c[lv] + b
+                        for a, lv, b in affine(x)])
                 return val
             if x.op == "call":
                 return getattr(torch, x.kids[0].name)(ev(x.kids[1]))
@@ -493,26 +663,55 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
 
         return ev(e)
 
-    for tix in itertools.product(*(range(n) for n in g.nb)):
-        t0 = [g.lo[k] + tix[k] * g.tile[k] for k in range(m)]
-        boxes: dict = {}
-        for aux, expr in zip(tp.aux, tp.aux_exprs):
-            coords = {l: t0[l - 1] - aux.ext[l - 1] + torch.arange(
-                aux.widths[l - 1], device=dev) for l in aux.levels}
-            val = evaluate(expr, coords, aux.ext, boxes, {})
-            shape = [aux.widths[l - 1] for l in range(1, m + 1)]
-            boxes[aux.name] = val.expand(shape)
-        coords = {l: t0[l - 1] + torch.arange(g.tile[l - 1], device=dev)
-                  for l in range(1, m + 1)}
-        keep = [min(g.tile[k], g.hi[k] - t0[k] + 1) for k in range(m)]
-        memo: dict = {}
+    def aux_box(k: int, step):
+        r = g.rings[k]
+        plane = step + r.lead if r.streamed else None
+        return {"widths": r.widths,
+                "coords": coords(r.levels, r.lo, r.widths, plane)}
+
+    for nm, e in tp.scalar_aux:
+        scal[nm] = evaluate(e, None, {}, None)
+    n_aux = len(tp.aux_exprs)
+    for k in range(n_aux):
+        if not g.rings[k].streamed:
+            rings[k][0] = evaluate(tp.aux_exprs[k], k, aux_box(k, None),
+                                   None).expand([B] + list(g.rings[k].widths))
+
+    body_widths = tuple(g.tile[l - 1] if l in g.order else 1
+                        for l in range(1, m + 1))
+    outs = [torch.zeros(o.shape, dtype=dt, device=dev) for o in tp.outputs]
+    for step in range(g.k0, g.seg):
+        for o in tp.operands:
+            r = g.rings[o.ring] if o.ring >= 0 else None
+            if r is None or step < r.start:
+                continue
+            c = coords(r.levels, r.lo, r.widths, step + r.lead)
+            rings[o.ring][(step - g.k0) % r.depth] = load(
+                data[o.name], [c[l] for l in o.dims]).expand(
+                    [B] + list(r.widths))
+        for k in sorted(range(n_aux), key=lambda k: g.rings[k].phase):
+            r = g.rings[k]
+            if r.streamed and step >= r.start:
+                rings[k][(step - g.k0) % r.depth] = evaluate(
+                    tp.aux_exprs[k], k, aux_box(k, step), step).expand(
+                        [B] + list(r.widths))
+        if step < 0:
+            continue
+        c = coords(range(1, m + 1), (0,) * m, body_widths,
+                   step if s else None)
+        keep = True
+        for l, ix in c.items():
+            keep = keep & (ix <= g.hi[l - 1])
+        keep = keep.expand([B] + list(body_widths))
+        box = {"widths": body_widths, "coords": c}
         for out, o, rhs in zip(outs, tp.outputs, tp.body):
-            val = evaluate(rhs, coords, (0,) * m, boxes, memo)
-            val = val.expand(list(g.tile))[tuple(slice(0, n) for n in keep)]
-            region = tuple(slice(t0[l - 1] - g.lo[l - 1],
-                                 t0[l - 1] - g.lo[l - 1] + keep[l - 1])
-                           for l in o.levels)
-            out[region] = val.permute([l - 1 for l in o.levels])
+            val = evaluate(rhs, BODY, box, step).expand(
+                [B] + list(body_widths))
+            strides = _contiguous_strides(o.shape)
+            flat = sum((c[l] - g.lo[l - 1]) * st
+                       for l, st in zip(o.levels, strides))
+            flat = flat.expand([B] + list(body_widths))
+            out.view(-1)[flat[keep]] = val[keep]
     return {o.name: out for o, out in zip(tp.outputs, outs)}
 
 

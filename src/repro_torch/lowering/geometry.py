@@ -8,7 +8,9 @@ probe (``repro_torch.core.backend.probe_hopper``) can delegate here at zero
 cost and — by construction — can never disagree with what the engine
 actually lowers.  The window/envelope vocabulary below is the reference's
 (it shaped Pallas BlockSpecs there); the Hopper kernel reads arrays through
-affine indices and uses only the eligibility verdicts and ``ext``.
+affine indices and uses only the eligibility verdicts, read through
+:func:`kernel_analysis`, and the exact one-sided ranges of :func:`aux_ranges`
+(both at the end of this module, the port's own).
 
 One :func:`analyze_plan` call classifies every base-array reference of a
 plan and produces:
@@ -38,7 +40,7 @@ far end of the axis) recenter instead of padding the whole array.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from fractions import Fraction
 
 from ..core.depgraph import Plan, _aux_ref_shifts
@@ -447,3 +449,75 @@ def plan_geometry(plan: Plan):
             p[l - 1] = max(i.off_hi[l], -i.off_lo[l], 0)
         pad_in[nm] = tuple(p)
     return a.ext, perms, levels_of, coefs, pad_in
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel's view of a plan (the port's own; not in the reference)
+# ---------------------------------------------------------------------------
+
+
+def kernel_memo(plan: Plan) -> dict:
+    """What the Hopper kernel derives from a plan, memoized per plan
+    instance (the probe asks on every ``"auto"`` call): its
+    :func:`kernel_analysis` under ``"analysis"`` and the tile choices of
+    :func:`~.blocks.choose_tile` under their arguments."""
+    return plan.__dict__.setdefault("_kernel_memo", {})
+
+
+def kernel_analysis(plan: Plan) -> LoweringAnalysis:
+    """:func:`analyze_plan` as the Hopper kernel reads it.
+
+    Equal to it, except that a plan whose only reasons are ``scalar-aux`` is
+    eligible when every rank-0 auxiliary is built from scalars, constants
+    and other rank-0 auxiliaries alone: it is then analysed without them
+    (``arrays`` and ``ext`` leave them out; the kernel evaluates them once
+    per thread into registers).  :func:`analyze_plan` itself keeps
+    reporting ``scalar-aux`` as the reference does.  Memoized in
+    :func:`kernel_memo`."""
+    memo = kernel_memo(plan)
+    if "analysis" not in memo:
+        a = analyze_plan(plan)
+        scalar = [x for x in plan.aux_order if not x.levels]
+        if (not a.eligible and a.reasons
+                and all(r.code == R_SCALAR_AUX for r in a.reasons)
+                and all(not r.subs for x in scalar
+                        for r in expr_refs(plan.aux_exprs[x.name]))):
+            ranked = [x for x in plan.aux_order if x.levels]
+            a = replace(_analyze(replace(plan, aux_order=ranked)), plan=plan)
+        memo["analysis"] = a
+    return memo["analysis"]
+
+
+def aux_ranges(plan: Plan) -> dict:
+    """Exact one-sided aux ranges: ``{aux name: ((lo, hi), ...)}``, one pair
+    per loop level, the shifts relative to the output point at which each
+    auxiliary of rank > 0 must exist so that the body can be evaluated at
+    ``(0, ..., 0)``.
+
+    The consumers' shifts are propagated backward from the body in reverse
+    topological order (consumers before producers): an aux's range is the
+    hull, over every reference to it, of the consumer's range moved by the
+    reference's shift.  Levels an aux does not cover stay ``(0, 0)``.  The
+    ranges lie inside the symmetric ``±ext`` box of :func:`analyze_plan`,
+    which applies the largest absolute shift on both sides."""
+    m = plan.program.depth
+    names = {a.name for a in plan.aux_order if a.levels}
+    hull: dict = {}
+
+    def visit(expr: Expr, own) -> None:
+        for nm, sh in _aux_ref_shifts(expr, names):
+            moved = [(lo + sh.get(l, 0), hi + sh.get(l, 0))
+                     for l, (lo, hi) in enumerate(own, 1)]
+            cur = hull.get(nm)
+            hull[nm] = moved if cur is None else [
+                (min(a[0], b[0]), max(a[1], b[1])) for a, b in zip(cur, moved)]
+
+    for st in plan.body:
+        visit(st.rhs, [(0, 0)] * m)
+    for a in reversed(plan.aux_order):
+        if a.name in hull:
+            visit(plan.aux_exprs[a.name], hull[a.name])
+    return {a.name: tuple(hull.get(a.name, [(0, 0)] * m)[l - 1]
+                          if l in a.levels else (0, 0)
+                          for l in range(1, m + 1))
+            for a in plan.aux_order if a.levels}

@@ -17,9 +17,9 @@ from repro_torch.core.backend import BackendUnavailable
 from repro_torch.core.codegen import required_shapes
 from repro_torch.lowering import (R_HOPPER_DTYPE, R_HOPPER_SMEM,
                                   LoweringError, analyze_plan)
-from repro_torch.lowering.blocks import (MAX_TILE_POINTS, SMEM_BUDGET,
-                                         SMEM_LIMIT, X_MIN, aux_footprint,
-                                         build_geometry)
+from repro_torch.lowering.blocks import (LINE_BYTES, MAX_PLANE_POINTS,
+                                         SMEM_BUDGET, SMEM_LIMIT,
+                                         build_geometry, schedule)
 from repro_torch.lowering.emit import (emulate, render_cuda,
                                        specialize_stencil, tile_program)
 from repro_torch.testing import (SWEEP_SIZES, build_env, default_tolerances,
@@ -40,7 +40,8 @@ def _ref_plan_output(rc, lvl, dt, env, backend="xla"):
 def test_emulator_matches_reference_xla(name, which, dtype):
     """The ``"hopper"`` backend on the CPU runs the tile emulator; it is held
     against the reference XLA plan output at the chooser's tiles and at small
-    forced tiles (many tiles, overhang on every level)."""
+    forced plane tiles and segments (many blocks, overhang on every level,
+    rings that wrap and segments that end inside the extent)."""
     dt = np.dtype(dtype).type
     rc, pc = ref_case(name, SWEEP_SIZES[name]), get_case(name, SWEEP_SIZES[name])
     lvl = 0 if which == "r0" else rc.reassociate
@@ -54,6 +55,13 @@ def test_emulator_matches_reference_xla(name, which, dtype):
     small = res.run(env, "hopper", device="cpu", block_rows=4, block_cols=2,
                     block_inner=3)
     assert rel_err(small, want) <= tol
+    shapes = required_shapes(pc.program)
+    g = tile_program(res.plan, shapes, {k: dtype for k in shapes}, 4, 2,
+                     3).geometry
+    if g.s_level:  # segments end inside the extent; aux rings wrap
+        assert g.nb[g.s_level - 1] > 1
+        assert all(g.seg - g.k0 > r.depth for r in g.rings
+                   if r.streamed and not r.operand)
 
 
 @pytest.mark.pallas
@@ -110,36 +118,39 @@ def test_render_cuda_keeps_constants_at_double_precision():
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_tile_chooser_respects_smem_budget(name):
-    """At the test sizes and at 512 points a side, for both dtypes: the aux
-    footprint fits the budget, the x-level gets a warp's 32 points where the
-    extent allows, and the tile stays within MAX_TILE_POINTS."""
+    """At the test sizes and at 512 points a side, for both dtypes: the
+    rings (aux and staged operands) fit the budget, the x-level's tile
+    spans a 128-byte line where the extent allows, the plane tile stays
+    within MAX_PLANE_POINTS, and the segments cover the stream level."""
     for n in (SWEEP_SIZES[name], 512 if name != "blocked4d" else 64):
         for which in ("r0", "default"):
             res, _ = _specs(name, which, n)
-            a = analyze_plan(res.plan)
             for itemsize in (4, 8):
-                g = build_geometry(res.plan, a, itemsize)
-                smem = aux_footprint(res.plan, a.ext, g.tile) * itemsize
+                g = build_geometry(res.plan, itemsize)
+                smem = g.smem_elems * itemsize
                 assert smem <= SMEM_BUDGET
-                assert np.prod(g.tile) <= MAX_TILE_POINTS
+                assert g.plane_points <= MAX_PLANE_POINTS
                 ext_x = g.extents[g.x_level - 1]
-                assert g.tile[g.x_level - 1] >= min(X_MIN, ext_x)
+                assert g.tile[g.x_level - 1] >= min(LINE_BYTES // itemsize,
+                                                    ext_x)
                 assert g.order[0] == g.x_level
                 assert g.n_tiles == np.prod(
                     [-(-e // t) for e, t in zip(g.extents, g.tile)])
+                if g.s_level:
+                    assert g.seg <= g.extents[g.s_level - 1]
 
 
 def test_x_level_is_the_contiguous_dimension():
     """Fortran-ordered 3-D cases (``u[i,k,j]`` under loops ``(j,k,i)``) put
     the x-level at loop level 1."""
     res, _ = _specs("j3d27pt", "default", 64)
-    g = build_geometry(res.plan, analyze_plan(res.plan), 4)
-    assert g.x_level == 1 and g.tile[0] == X_MIN
+    g = build_geometry(res.plan, 4)
+    assert g.x_level == 1 and g.tile[0] == LINE_BYTES // 4
 
 
 def _wide_reuse_program():
-    """u*v reused at shifts 0 and 120 on all three levels: its aux tile
-    spans 241 points a side even at a one-point tile."""
+    """u*v reused at shifts 0 and 120 on all three levels: its aux ring
+    spans 121 points a side even at a one-point plane tile."""
     loops, (i, j, k) = ir.loopnest(("i", 1, 8), ("j", 1, 8), ("k", 1, 8))
     u, v, o = ir.arr("u"), ir.arr("v"), ir.arr("o")
     far = (i + 120, j + 120, k + 120)
@@ -152,7 +163,9 @@ def test_smem_refusal_code():
     res = repro_torch.race(prog)
     a = analyze_plan(res.plan)
     assert a.eligible and len(res.plan.aux_order) == 1
-    assert aux_footprint(res.plan, a.ext, (1, 1, 1)) * 4 > SMEM_LIMIT
+    # the aux ring alone (no operand staged) at a one-point plane tile
+    assert schedule(res.plan, stage=False).footprint(
+        {1: 1, 2: 1, 3: 1}) * 4 > SMEM_LIMIT
     cap = res.capability()
     assert not cap.eligible
     assert [r.code for r in cap.reasons] == [R_HOPPER_SMEM]
