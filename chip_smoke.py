@@ -36,13 +36,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernel launches counted (zeroed just before), the gradients held
      against the same adjoint plans on ``"torch"`` within ``plan``, and the
      adjoint kernels timed beside their bound and their ``"torch"`` time;
-  7. fused cross-entropy (K4) at the reference's test shapes, float32 and
-     bfloat16: the kernel against its plain version, and ``fused_ce``'s
-     gradients against autograd of the dense loss;
-  8. K4 at the LM head of qwen2-7b (T=4096, D=3584, V=152064, bfloat16):
-     ``fused_ce`` forward and backward once with the launch count zeroed
-     just before, then the kernel timed beside its plain version, the
-     library route (``F.cross_entropy`` of ``torch.matmul``) and its bound.
+  7. fused cross-entropy (K4) at the reference's test shapes and at three
+     whose T, D and V are no multiple of the tensor-core kernel's tile,
+     float32 and bfloat16, each with one label out of range: the kernel
+     that ``fused_ce.variant`` picks (``"wgmma"``: tensor cores, TMA loads;
+     ``"ffma"``: float32 and bfloat16 rows TMA cannot describe) against its
+     plain version, that variant's launch count rising by one, and
+     ``fused_ce``'s gradients against autograd of the dense loss;
+  8. K4 at the LM head of qwen2-7b (T=4096, D=3584, V=152064), bfloat16 on
+     the tensor-core kernel and float32 on the FFMA kernel: ``fused_ce``
+     forward and backward once with the launch counts zeroed just before
+     (the dtype's variant must launch exactly once), then the kernel timed
+     beside its plain version, the library route (``F.cross_entropy`` of
+     ``torch.matmul``) and its bound, then run back to back for about a
+     second under ``torch.profiler`` (device time per kernel, the device's
+     idle share) with the host's enqueue time per call and
+     ``nvidia-smi``'s SM clock and power sampled meanwhile.  The built library's SASS must
+     hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
+     (``cuobjdump`` beside nvcc); their counts and the tensor-core kernel's
+     registers and stack are printed.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -64,6 +76,7 @@ import statistics
 import subprocess
 import sys
 import time
+from datetime import datetime
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core
@@ -77,10 +90,13 @@ REPS = 10
 DEVICE = "cuda"
 #: the LM head of qwen2-7b (src/repro/configs/qwen2_7b.py): one sequence
 CE_FULL = dict(T=4096, D=3584, V=152064)
-#: the reference's fused-CE test shapes (tests/test_fused_ce.py) plus one
-#: whose T and V are no multiple of the kernel's tile
+#: the reference's fused-CE test shapes (tests/test_fused_ce.py) plus four
+#: whose T, D and V are no multiple of the kernels' tiles, and one that
+#: fills a tensor-core tile (bfloat16 with V = 100 has 200-byte rows, which
+#: TMA cannot describe: the FFMA kernel takes it)
 CE_SWEEP = [(64, 32, 256, 64), (32, 16, 100, 25), (48, 64, 512, 512),
-            (128, 8, 64, 16), (100, 40, 1000, None)]
+            (128, 8, 64, 16), (100, 40, 1000, None), (200, 96, 1000, None),
+            (300, 136, 4104, None), (128, 64, 4096, 512)]
 #: ``--tile-sweep``: (block_rows, block_cols, block_inner) per cell; 0
 #: leaves a level to the chooser.  On the 3-D cells rows and cols set the
 #: plane tile (levels 1 and 2), on hdifft_gm rows sets the row tile and
@@ -370,10 +386,17 @@ def ce_sweep(torch) -> list:
                  * 0.05).to(dt)
             labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
                                    dtype=torch.int32)
-            before = fc.KERNEL.launches
-            got = fc.fused_ce_forward(h, w, labels, v_blk=v_blk)
-            launched = fc.KERNEL.launches - before
-            want = fc.fused_ce_forward_ref(h, w, labels, v_blk=v_blk)
+            # one label past V: its gold logit is 0 (the dense loss and the
+            # backward gather, so they take the labels in range)
+            oor = labels.clone()
+            oor[0] = V
+            kind = fc.variant(h, w)
+            before = dict(fc.KERNEL.launches_by_variant)
+            total = fc.KERNEL.launches
+            got = fc.fused_ce_forward(h, w, oor, v_blk=v_blk)
+            launched = fc.KERNEL.launches_by_variant[kind] - before[kind]
+            launched_all = fc.KERNEL.launches - total
+            want = fc.fused_ce_forward_ref(h, w, oor, v_blk=v_blk)
             hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
             loss = fc.fused_ce(hg, wg, labels, v_blk=v_blk)
             dh, dw = torch.autograd.grad(loss, (hg, wg))
@@ -387,81 +410,191 @@ def ce_sweep(torch) -> list:
             e_grad = max(float((a.float() - b.float()).abs().max()
                                / b.float().abs().max())
                          for a, b in ((dh, rh), (dw, rw)))
-            # f32 sums over D in another order: 1e-5; the mean against the
-            # dense loss likewise; gradients are the same recompute
-            ok = (launched == 1 and e_fwd <= 1e-5 and e_loss <= 1e-5
-                  and e_grad <= 1e-5)
-            line = (f"ce {T}x{D}x{V} v_blk={v_blk} {str(dt)[6:]}: launches "
-                    f"{launched} kernel-vs-plain {e_fwd:.2e} (<= 1e-05) "
-                    f"loss-vs-dense {e_loss:.2e} grads-vs-dense "
-                    f"{e_grad:.2e} {'ok' if ok else 'FAIL'}")
+            # products of bf16 or f32 inputs, summed in f32 over D in
+            # another order: 1e-5; the mean against the dense loss
+            # likewise; gradients are the same recompute
+            ok = (launched == 1 and launched_all == 1 and e_fwd <= 1e-5
+                  and e_loss <= 1e-5 and e_grad <= 1e-5)
+            line = (f"ce {T}x{D}x{V} v_blk={v_blk} {str(dt)[6:]}: variant "
+                    f"{kind}, launches {launched} kernel-vs-plain "
+                    f"{e_fwd:.2e} (<= 1e-05) loss-vs-dense {e_loss:.2e} "
+                    f"grads-vs-dense {e_grad:.2e} {'ok' if ok else 'FAIL'}")
             print(line, flush=True)
             if not ok:
                 failures.append(line)
     return failures
 
 
-def ce_full_width(torch) -> dict:
-    """Phase 8; returns K4's kernel line."""
+def sass_counts() -> dict:
+    """Instruction counts in the SASS of the built ``fused_ce.cu`` library
+    (``cuobjdump --dump-sass``) and the tensor-core kernel's resource line
+    (``--dump-resource-usage``)."""
+    from repro_torch.kernels import build
+
+    so = build.library_path(build.csrc_source("fused_ce.cu"))
+    tool = str(Path(build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    usage = subprocess.run([tool, "--dump-resource-usage", str(so)],
+                           capture_output=True, text=True, timeout=120,
+                           check=True).stdout.splitlines()
+    wgmma = [ln.strip() for i, ln in enumerate(usage[1:], 1)
+             if "fused_ce_wgmma_kernel" in usage[i - 1]]
+    ops = {op: sum(1 for ln in sass.splitlines()
+                   if f" {op}" in ln and "/*" in ln)
+           for op in ("HGMMA", "UTMALDG")}
+    return dict(ops, resources=wgmma[0] if wgmma else "not found")
+
+
+def sustained(fn, torch, ms_each: float) -> dict:
+    """About a second of back-to-back calls of ``fn`` under
+    ``torch.profiler``, with ``nvidia-smi`` sampling the SM clock (MHz) and
+    board power (W) every 50 ms (its process is stopped before returning;
+    only samples stamped inside the calls count): event ms per call, host
+    ms per call (the time to enqueue one while the device is busy), device
+    ms per call of each kernel, and the device's idle share of the window
+    (1 - the kernels' device time over the window's wall time, the final
+    synchronize included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = max(3, round(1000 / ms_each))
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0, wall0 = time.perf_counter(), time.time()
+            for _ in range(n):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3 / n
+            end.record()
+            end.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            wall1 = time.time()
+    finally:
+        smi.terminate()
+        samples, _ = smi.communicate(timeout=30)
+    kernels = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.split("(anonymous namespace)::")[-1].split("(")[0]
+            kernels[name] = e.self_device_time_total / n / 1e3
+    rows = []
+    for ln in samples.splitlines():
+        stamp, mhz, watts = ln.split(",")
+        at = datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
+        if wall0 <= at.timestamp() <= wall1:
+            rows.append((float(mhz), float(watts)))
+    clocks = [c for c, _ in rows]
+    power = [w for _, w in rows]
+    return dict(calls=n, ms=start.elapsed_time(end) / n, host_ms=host_ms,
+                samples=len(rows),
+                kernels=kernels,
+                idle=1 - sum(kernels.values()) * n / wall_ms,
+                sm_mhz=(min(clocks), statistics.median(clocks), max(clocks))
+                if clocks else None,
+                power_w=(statistics.median(power), max(power))
+                if power else None)
+
+
+def ce_full_width(torch) -> list:
+    """Phase 8; returns K4's kernel lines, bfloat16 (tensor cores) then
+    float32 (FFMA)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as fc
 
+    counts = sass_counts()
+    print(f"ce-sass fused_ce.cu: HGMMA {counts['HGMMA']}, UTMALDG "
+          f"{counts['UTMALDG']}; fused_ce_wgmma_kernel {counts['resources']}",
+          flush=True)
+    if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
+        raise SystemExit("fused_ce: no HGMMA or UTMALDG in the SASS")
     T, D, V = CE_FULL["T"], CE_FULL["D"], CE_FULL["V"]
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    h = torch.randn(T, D, generator=gen, device=DEVICE).to(torch.bfloat16)
-    w = (torch.randn(D, V, generator=gen, device=DEVICE)
-         * 0.05).to(torch.bfloat16)
-    labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
-                           dtype=torch.int32)
-    hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
-    fc.KERNEL.launches = 0
-    loss = fc.fused_ce(hg, wg, labels)
-    dh, dw = torch.autograd.grad(loss, (hg, wg))
-    torch.cuda.synchronize()
-    launches = fc.KERNEL.launches
-    if launches != 1:
-        raise SystemExit(f"fused_ce launched the kernel {launches} times")
-    if not (torch.isfinite(loss) and bool(torch.isfinite(dh).all())
-            and bool(torch.isfinite(dw).all())):
-        raise SystemExit("fused_ce: non-finite loss or gradients")
-    del hg, wg, dh, dw
-    got = fc.fused_ce_forward(h, w, labels)
-    want = fc.fused_ce_forward_ref(h, w, labels, t_blk=T)
-    lib = F.cross_entropy(torch.matmul(h, w).float(), labels.long(),
-                          reduction="none")
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    e_plain = max_abs / float(want.abs().max())
-    e_lib = float((lib - got).abs().max() / got.abs().max())
-    del want, lib
-    # plain: the same split and f32 products, summed in another order:
-    # 1e-5; library: bf16 logits from a bf16 GEMM, the reference's bf16
-    # tolerance 2e-2
-    if e_plain > 1e-5 or e_lib > 2e-2:
-        raise SystemExit(f"fused_ce full width: kernel vs plain "
-                         f"{e_plain:.2e} (<= 1e-05), library vs kernel "
-                         f"{e_lib:.2e} (<= 2e-02)")
-    kernel_ms = _time_ms(lambda: fc.fused_ce_forward(h, w, labels), torch)
-    plain_ms = _time_ms(lambda: fc.fused_ce_forward_ref(h, w, labels,
-                                                        t_blk=T), torch)
-    library_ms = _time_ms(lambda: F.cross_entropy(
-        torch.matmul(h, w).float(), labels.long(), reduction="none"), torch)
-    nbytes = (h.numel() + w.numel()) * 2 + T * 4 + T * 4
-    bound_ms, by = bound_of(nbytes, 2 * T * D * V, PEAK_BF16_TC_FLOPS)
-    print(f"ce-main T={T} D={D} V={V} bfloat16: split width "
-          f"{fc.split_width(T, V)}, launches {launches}, kernel_ms "
-          f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
-          f"{library_ms:.4f}, bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
-          f"share of bound {bound_ms / kernel_ms:.4f}, kernel-vs-plain "
-          f"{e_plain:.2e}, library-vs-kernel {e_lib:.2e}, max_abs_err "
-          f"{max_abs:.3e}", flush=True)
-    return dict(name="fused_ce", route="cuda",
-                source="src/repro_torch/csrc/fused_ce.cu",
-                replaces="src/repro/kernels/fused_ce.py:75",
-                launches=launches, max_abs_err=max_abs, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                library_ms=library_ms)
+    lines = []
+    for dt, want_kind, peak in ((torch.bfloat16, "wgmma", PEAK_BF16_TC_FLOPS),
+                                (torch.float32, "ffma", PEAK_FLOPS["float32"])):
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        h = torch.randn(T, D, generator=gen, device=DEVICE).to(dt)
+        w = (torch.randn(D, V, generator=gen, device=DEVICE) * 0.05).to(dt)
+        labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
+                               dtype=torch.int32)
+        kind = fc.variant(h, w)
+        hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+        fc.KERNEL.zero_counts()
+        loss = fc.fused_ce(hg, wg, labels)
+        dh, dw = torch.autograd.grad(loss, (hg, wg))
+        torch.cuda.synchronize()
+        launches = fc.KERNEL.launches_by_variant[want_kind]
+        if kind != want_kind or launches != 1 or fc.KERNEL.launches != 1:
+            raise SystemExit(f"fused_ce {dt}: variant {kind}, launches "
+                             f"{fc.KERNEL.launches_by_variant}; want one "
+                             f"{want_kind} launch")
+        if not (torch.isfinite(loss) and bool(torch.isfinite(dh).all())
+                and bool(torch.isfinite(dw).all())):
+            raise SystemExit(f"fused_ce {dt}: non-finite loss or gradients")
+        del hg, wg, dh, dw
+        got = fc.fused_ce_forward(h, w, labels)
+        want = fc.fused_ce_forward_ref(h, w, labels, t_blk=T)
+        lib = F.cross_entropy(torch.matmul(h, w).float(), labels.long(),
+                              reduction="none")
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        e_plain = max_abs / float(want.abs().max())
+        e_lib = float((lib - got).abs().max() / got.abs().max())
+        del want, lib
+        # plain: the same split and f32 products, summed in another order:
+        # 1e-5; library: bf16 logits from a bf16 GEMM, the reference's bf16
+        # tolerance 2e-2 (f32 logits in f32: well inside it)
+        if e_plain > 1e-5 or e_lib > 2e-2:
+            raise SystemExit(f"fused_ce full width {dt}: kernel vs plain "
+                             f"{e_plain:.2e} (<= 1e-05), library vs kernel "
+                             f"{e_lib:.2e} (<= 2e-02)")
+        call = lambda: fc.fused_ce_forward(h, w, labels)
+        kernel_ms = _time_ms(call, torch)
+        plain_ms = _time_ms(lambda: fc.fused_ce_forward_ref(h, w, labels,
+                                                            t_blk=T), torch)
+        library_ms = _time_ms(lambda: F.cross_entropy(
+            torch.matmul(h, w).float(), labels.long(), reduction="none"),
+            torch)
+        hot = sustained(call, torch, kernel_ms)
+        nbytes = (h.numel() + w.numel()) * h.element_size() + T * 4 + T * 4
+        bound_ms, by = bound_of(nbytes, 2 * T * D * V, peak)
+        width = fc.split_width(T, V, variant=kind)
+        print(f"ce-main T={T} D={D} V={V} {str(dt)[6:]}: variant {kind}, "
+              f"split width {width} ({-(-V // width)} splits), launches "
+              f"{launches}, kernel_ms {kernel_ms:.4f}, plain_ms "
+              f"{plain_ms:.4f}, library_ms {library_ms:.4f}, bytes {nbytes}, "
+              f"bound_ms {bound_ms:.4f} ({by}), share of bound "
+              f"{bound_ms / kernel_ms:.4f}, kernel-vs-plain {e_plain:.2e}, "
+              f"library-vs-kernel {e_lib:.2e}, max_abs_err {max_abs:.3e}",
+              flush=True)
+        print(f"ce-sustained {str(dt)[6:]}: {hot['calls']} calls back to "
+              f"back under torch.profiler, {hot['ms']:.4f} ms each (events), "
+              f"host {hot['host_ms']:.4f} ms each to enqueue; device ms per "
+              f"call: " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in hot["kernels"].items())
+              + f"; device idle share {hot['idle']:.4f}; SM clock MHz "
+              f"min/median/max {hot['sm_mhz']}, power W median/max "
+              f"{hot['power_w']} ({hot['samples']} nvidia-smi samples "
+              f"inside the calls)", flush=True)
+        name = "fused_ce" if dt == torch.bfloat16 else "fused_ce[float32]"
+        lines.append(dict(name=name, route="cuda", variant=kind,
+                          source="src/repro_torch/csrc/fused_ce.cu",
+                          replaces="src/repro/kernels/fused_ce.py:75",
+                          launches=launches, max_abs_err=max_abs,
+                          ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=by, library_ms=library_ms))
+        del h, w, labels, got, loss
+        torch.cuda.empty_cache()
+    return lines
 
 
 def full_size_cells():
@@ -731,7 +864,7 @@ def main() -> int:
         raise SystemExit("phase 7 failed:\n" + "\n".join(failures))
 
     # ---- phase 8: fused cross-entropy at full width ------------------------
-    kernels.append(ce_full_width(torch))
+    kernels += ce_full_width(torch)
 
     print(f"total seconds: {time.time() - t_start:.1f}")
     # the schedule each phase-4 kernel ran, from its TileProgram (worked

@@ -6,35 +6,69 @@
 // order on one core, and the online-logsumexp state (running max m, running
 // sum l, gold logit g) is carried across the vocab axis in VMEM scratch.
 // Blocks on the card run in parallel and in no order, so the vocab axis is
-// split instead:
+// split instead: one block takes a token tile and one vocab range (a
+// "split"), folds the logits of its range into (m, l, g) per token and
+// writes those partials, 3 floats per (split, token); then
+// fused_ce_combine_kernel, one thread per token, merges the splits:
+// M = max m, L = sum l * exp(m - M), G = sum g, loss = M + log(max(L, 1e-30)) - G.
 //
-//   fused_ce_partial_kernel  one block = 64 tokens x one vocab range (a
-//                            "split"); it loops over 64-column vocab tiles of
-//                            its range, each tile's logits computed in f32 from
-//                            32-deep slabs of h and w staged in shared memory,
-//                            and folds them into (m, l, g) per token; it writes
-//                            those partials, 3 floats per (split, token);
-//   fused_ce_combine_kernel  one thread per token merges its splits:
-//                            M = max m, L = sum l * exp(m - M), G = sum g,
-//                            loss = M + log(max(L, 1e-30)) - G.
+// Two partial kernels; the wrapper (kernels/fused_ce.py: variant) picks one
+// from dtype, shapes and pointer alignment before launch:
 //
-// The gold logit is taken by comparing the column index with the label, as
-// the TPU kernel does, never by a gather: a label outside [0, V) gives g = 0
-// and never an illegal address.
+//   fused_ce_wgmma_kernel   bf16 operands that TMA can describe (base
+//                           pointers 16-byte aligned, rows of h and w a
+//                           multiple of 16 bytes).  128 tokens x 256 vocab
+//                           columns per tile on the tensor cores (below);
+//   fused_ce_partial_kernel everything else: float32, and bf16 that TMA
+//                           cannot describe.  64 x 64 tiles, FFMA from
+//                           32-deep slabs staged in shared memory.  Float32
+//                           stays off the tensor cores: TF32 keeps about three
+//                           digits.
 //
 // Bound: operations.  2*T*D*V multiply-adds against reading h and w once; at
 // the LM head's shapes that is thousands of operations per byte, far above
-// the card's balance.  The least time is the work at the bf16 tensor-core
-// peak.  This first kernel multiplies with FFMA from shared-memory tiles
-// (4x4 outputs per thread), so it sits far below that bound: the tensor
-// cores (wgmma, TMA-fed tiles) are later work.  The products are exact in
-// f32 for bf16 inputs; only the sum order over D differs from a library GEMM.
+// the card's balance, so the least time is the work at the bf16 tensor-core
+// peak, which only wgmma fed from shared memory reaches.  The tensor-core
+// kernel is built for that:
 //
-// Ragged edges are masked: a token row past T loads zeros and is never
-// written; a vocab column past the split or V is left out of the max, the
-// sum and the gold test.
+//   * a block is 384 threads: two consumer warpgroups of 64 token rows each
+//     (wgmma's M) and one producer warpgroup, of which one thread issues
+//     the loads; setmaxnreg moves registers from the producer (40 a
+//     thread) to the consumers (232), whose logits take 128;
+//   * the producer keeps a ring of STAGES slabs in dynamic shared memory
+//     full: one slab is the 128 x 64 box of h and four 64 x 64 boxes of w
+//     (a K x 256 tile of w, 64 vocab columns a box: the 128-byte swizzle
+//     spans 64 bf16), loaded by TMA (cp.async.bulk.tensor) with the 128-byte
+//     swizzle; each stage has a "full" mbarrier (the TMA bytes) and an
+//     "empty" one (one arrival per consumer warp once its wgmma has read the
+//     slab).  TMA fills the ragged edges of T, D and V with zeros, so the
+//     main loop has no masks;
+//   * each consumer warpgroup issues wgmma.m64n256k16 four times per slab
+//     and keeps the 64 x 256 f32 logits in 128 registers a thread.  h is
+//     K-major (A plain); w is (D, V) with V contiguous, so B is MN-major:
+//     the transpose flag for B and an MN-major 128-byte-swizzle descriptor,
+//     whose leading byte offset steps between 64-column boxes (8 KB) and
+//     whose stride byte offset between groups of 8 k-rows (1 KB).  One
+//     wgmma group stays in flight while the next slab is awaited;
+//   * after each 256-column tile every thread folds the logits it holds
+//     straight into its (m, l, g): the m64nNk16 accumulator gives a thread
+//     rows 16*warp + lane/4 and that row + 8, columns 8*j + 2*(lane%4) +
+//     {0, 1}; the row max is reduced over the lane quad by shuffles, each
+//     lane keeps its own share of l and g (rescaled by the shared max), and
+//     the quad sums them once at the end.  No logits tile goes to shared
+//     memory.
+//
+// The products of bf16 inputs are exact in f32; only the order of the f32
+// sum over D differs from the plain version.  The gold logit is taken by
+// comparing the column index with the label, never by a gather: a label
+// outside [0, V) gives g = 0 and never an illegal address.  Columns at or
+// past the split's end are left out of the max, the sum and the gold test;
+// token rows past T are never written.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -171,6 +205,301 @@ __global__ void __launch_bounds__(THREADS) fused_ce_partial_kernel(
   }
 }
 
+// ---- the tensor-core kernel ------------------------------------------------
+
+constexpr int WG_TB = 128;     // tokens per block: two warpgroups of 64 rows
+constexpr int WG_VB = 256;     // vocab columns per tile: wgmma's N
+constexpr int WG_KB = 64;      // depth of one slab: 64 bf16 = one 128-byte row
+constexpr int STAGES = 4;      // slabs in the ring
+constexpr int WG_THREADS = 384;  // two consumer warpgroups + one producer
+constexpr int BOX_V = 64;      // vocab columns of one w box (128 bytes)
+constexpr int A_BYTES = WG_TB * WG_KB * 2;        // 16 KB
+constexpr int BOX_BYTES = WG_KB * BOX_V * 2;      // 8 KB
+constexpr int B_BYTES = (WG_VB / BOX_V) * BOX_BYTES;  // 32 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;    // 48 KB
+// the 128-byte swizzle repeats every 1024 bytes; TMA and the descriptors
+// assume stage buffers start on such a boundary, so 1 KB of slack aligns them
+constexpr int WG_SMEM = STAGES * STAGE_BYTES + 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 2-D TMA load of one box at (c0 innermost, c1) into shared memory,
+// completing on an mbarrier; out-of-bounds elements arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns the registers
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, f32) += A (64 x 16, K-major) * B (16 x 256, MN-major): the
+// scale-d predicate is set (accumulate), B's transpose flag too
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1) fused_ce_wgmma_kernel(
+    const __grid_constant__ CUtensorMap hmap,
+    const __grid_constant__ CUtensorMap wmap, const int* __restrict__ labels,
+    int T, int D, int V, int v_per_split, float* __restrict__ part) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;  // stage s: ring + s * 48 KB
+  const int t0 = blockIdx.x * WG_TB;
+  const int split = blockIdx.y;
+  const int vbeg = split * v_per_split;
+  const int vend = min(V, vbeg + v_per_split);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);      // the producer's expect_tx
+      mbar_init(smem_u32(&empty[s]), 8);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // one branch per role, never rejoined, so ptxas can honour setmaxnreg
+  if (warp >= 8) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == 8 && lane == 0) {
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&hmap))
+                   : "memory");
+      asm volatile("prefetch.tensormap [%0];" ::"l"(
+                       reinterpret_cast<uint64_t>(&wmap))
+                   : "memory");
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int v0 = vbeg; v0 < vend; v0 += WG_VB) {
+        for (int k0 = 0; k0 < D; k0 += WG_KB) {
+          mbar_wait(smem_u32(&empty[stage]), phase ^ 1);
+          const uint32_t bar = smem_u32(&full[stage]);
+          const uint32_t a = ring + stage * STAGE_BYTES;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(a, &hmap, bar, k0, t0);
+#pragma unroll
+          for (int j = 0; j < WG_VB / BOX_V; ++j)
+            tma_load(a + A_BYTES + j * BOX_BYTES, &wmap, bar, v0 + j * BOX_V,
+                     k0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns token rows 64 * wg .. 64 * wg + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = warp / 4;
+  const int q = lane % 4;
+  const int r0 = t0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and r0 + 8
+  const int lab0 = r0 < T ? labels[r0] : -1;
+  const int lab1 = r0 + 8 < T ? labels[r0 + 8] : -1;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f, g0 = 0.f, g1 = 0.f;
+  float d[128];
+  int stage = 0;
+  uint32_t phase = 0;
+
+  for (int v0 = vbeg; v0 < vend; v0 += WG_VB) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    int held = -1;  // the stage whose wgmma group may still be reading
+    for (int k0 = 0; k0 < D; k0 += WG_KB) {
+      mbar_wait(smem_u32(&full[stage]), phase);
+      const uint32_t a = ring + stage * STAGE_BYTES + wg * (64 * 128);
+      const uint32_t b = ring + stage * STAGE_BYTES + A_BYTES;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < WG_KB / 16; ++kk) {
+        // A: 16 k-columns are 32 bytes along each 128-byte row; rows step by
+        // 128 bytes, 8-row groups by 1024 (the leading offset is unused)
+        // B: 16 k-rows are 2048 bytes; 64-column boxes lie 8 KB apart
+        // (leading offset), 8-row groups 1 KB apart (stride offset)
+        wgmma_m64n256k16(d, gmma_desc(a + kk * 32, 16, 1024),
+                         gmma_desc(b + kk * 2048, BOX_BYTES, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (held >= 0 && lane == 0) mbar_arrive(smem_u32(&empty[held]));
+      held = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+    if (lane == 0) mbar_arrive(smem_u32(&empty[held]));
+
+    // fold this tile's logits into (m, l, g) of rows r0 and r0 + 8
+    const int cb = v0 + 2 * q;
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < WG_VB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = cb + 8 * j + e < vend;
+        mx0 = ok ? fmaxf(mx0, d[4 * j + e]) : mx0;
+        mx1 = ok ? fmaxf(mx1, d[4 * j + 2 + e]) : mx1;
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    const float nb0 = n0 * LOG2E, nb1 = n1 * LOG2E;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < WG_VB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cb + 8 * j + e;
+        const bool ok = col < vend;
+        const float x0 = d[4 * j + e], x1 = d[4 * j + 2 + e];
+        s0 += ok ? exp2f(fmaf(x0, LOG2E, -nb0)) : 0.f;
+        s1 += ok ? exp2f(fmaf(x1, LOG2E, -nb1)) : 0.f;
+        g0 += ok && col == lab0 ? x0 : 0.f;
+        g1 += ok && col == lab1 ? x1 : 0.f;
+      }
+    l0 = l0 * exp2f((m0 - n0) * LOG2E) + s0;
+    l1 = l1 * exp2f((m1 - n1) * LOG2E) + s1;
+    m0 = n0;
+    m1 = n1;
+  }
+
+  // the quad's lanes share m; their shares of l and g add up
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  g0 += __shfl_xor_sync(0xffffffffu, g0, 1);
+  g0 += __shfl_xor_sync(0xffffffffu, g0, 2);
+  g1 += __shfl_xor_sync(0xffffffffu, g1, 1);
+  g1 += __shfl_xor_sync(0xffffffffu, g1, 2);
+  if (q == 0) {
+    const size_t plane = static_cast<size_t>(gridDim.y) * T;
+    if (r0 < T) {
+      const size_t at = static_cast<size_t>(split) * T + r0;
+      part[at] = m0;
+      part[plane + at] = l0;
+      part[2 * plane + at] = g0;
+    }
+    if (r0 + 8 < T) {
+      const size_t at = static_cast<size_t>(split) * T + r0 + 8;
+      part[at] = m1;
+      part[plane + at] = l1;
+      part[2 * plane + at] = g1;
+    }
+  }
+}
+
 __global__ void fused_ce_combine_kernel(const float* __restrict__ part,
                                         int T, int n_split,
                                         float* __restrict__ loss) {
@@ -189,6 +518,13 @@ __global__ void fused_ce_combine_kernel(const float* __restrict__ part,
   loss[t] = M + logf(fmaxf(L, 1e-30f)) - G;
 }
 
+int combine(const float* part, int T, int n_split, float* loss,
+            cudaStream_t stream) {
+  fused_ce_combine_kernel<<<(T + 255) / 256, 256, 0, stream>>>(part, T,
+                                                               n_split, loss);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename in_t>
 int launch(const void* h, const void* w, const int* labels, int T, int D,
            int V, int v_per_split, int n_split, float* part, float* loss,
@@ -199,10 +535,55 @@ int launch(const void* h, const void* w, const int* labels, int T, int D,
       V, v_per_split, part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_ce_combine_kernel<<<(T + 255) / 256, 256, 0, stream>>>(part, T,
-                                                               n_split, loss);
-  return static_cast<int>(cudaGetLastError());
+  return combine(part, T, n_split, loss, stream);
 }
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no link against libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) bf16 matrix, boxes of box_rows x box_cols with
+// the 128-byte swizzle; returns a CUresult
+CUresult encode(EncodeTiled enc, CUtensorMap* map, const void* base,
+                uint64_t rows, uint64_t cols, uint32_t box_rows,
+                uint32_t box_cols) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// error codes of the launchers: cudaError_t values (> 0), or a CUresult of
+// cuTensorMapEncodeTiled as -(code + 1)
+int driver_code(CUresult res) { return -(static_cast<int>(res) + 1); }
 
 }  // namespace
 
@@ -224,6 +605,50 @@ extern "C" int fused_ce_launch(int dtype, const void* h, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The tensor-core kernel on bf16 h (T, D) and w (D, V), both contiguous with
+// 16-byte aligned bases and D, V multiples of 8; v_per_split a multiple of
+// 256.  Encodes the two tensor maps, sets the kernel's shared-memory limit
+// once per device, launches it and the combine.  Returns 0, a cudaError_t,
+// or -(CUresult + 1) when a tensor map is refused.
+extern "C" int fused_ce_wgmma_launch(const void* h, const void* w,
+                                     const void* labels, int T, int D, int V,
+                                     int v_per_split, int n_split, void* part,
+                                     void* loss, void* stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return driver_code(CUDA_ERROR_NOT_FOUND);
+  CUtensorMap hmap, wmap;
+  CUresult res = encode(enc, &hmap, h, T, D, WG_TB, WG_KB);
+  if (res != CUDA_SUCCESS) return driver_code(res);
+  res = encode(enc, &wmap, w, D, V, WG_KB, BOX_V);
+  if (res != CUDA_SUCCESS) return driver_code(res);
+
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(fused_ce_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WG_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  const dim3 grid((T + WG_TB - 1) / WG_TB, n_split);
+  fused_ce_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
+      hmap, wmap, static_cast<const int*>(labels), T, D, V, v_per_split, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return combine(p, T, n_split, static_cast<float*>(loss), s);
+}
+
 extern "C" const char* fused_ce_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code >= 0) return cudaGetErrorString(static_cast<cudaError_t>(code));
+  static thread_local char msg[96];
+  snprintf(msg, sizeof msg,
+           "cuTensorMapEncodeTiled or its entry point failed: CUresult %d",
+           -code - 1);
+  return msg;
 }

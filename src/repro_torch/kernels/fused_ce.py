@@ -10,15 +10,22 @@ the TPU.  :func:`fused_ce` is the mean loss as a ``torch.autograd.Function``
 whose backward recomputes the dense loss with autograd (:func:`_ce_ref`), as
 the reference's ``custom_vjp`` recomputes through XLA.
 
-On a CUDA tensor the forward launches the hand-written kernel of
+On a CUDA tensor the forward launches a hand-written kernel of
 ``csrc/fused_ce.cu`` (which replaces the TPU kernel
 ``repro/kernels/fused_ce.py:_kernel``); on CPU tensors it runs
-:func:`fused_ce_forward_ref`, the kernel's plain version, which follows the
+:func:`fused_ce_forward_ref`, the kernels' plain version, which follows the
 kernel's split of the vocabulary and its combine.  Nothing falls back from
 the card to the plain version.
 
+Two kernels, chosen by :func:`variant` before launch from dtype, shapes and
+pointer alignment alone: ``"wgmma"`` (tensor cores, operands loaded by TMA)
+for bfloat16 operands TMA can describe, ``"ffma"`` (CUDA cores) for float32
+and for bfloat16 that TMA cannot describe (a row of ``h`` or ``w`` that is
+no multiple of 16 bytes, a base pointer off 16 bytes).  A failed build or
+launch of either raises.
+
 The vocabulary is split because blocks on the card run in parallel: each
-block takes ``TILE_T`` tokens and one vocab range (a split), keeps the
+block takes a tile of tokens and one vocab range (a split), keeps the
 online-logsumexp state ``(m, l, g)`` of its range, and a second kernel
 merges the splits per token.  What bounds it and what the design does about
 it is in the source's header.
@@ -26,46 +33,87 @@ it is in the source's header.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from math import ceil
 
 import torch
 
-__all__ = ["KERNEL", "TILE_T", "TILE_V", "fused_ce", "fused_ce_forward",
-           "fused_ce_forward_ref", "split_width"]
+__all__ = ["KERNEL", "TILES", "fused_ce", "fused_ce_forward",
+           "fused_ce_forward_ref", "fused_ce_partials_ref", "split_width",
+           "variant"]
 
-#: the kernel's tile: tokens per block and vocab columns per inner step
-TILE_T = 64
-TILE_V = 64
-#: blocks the default split aims for: four for each of an H100 SXM's 132 SMs
-TARGET_BLOCKS = 4 * 132
-#: the launcher's dtype code is the position in this table
+#: each kernel's tile: tokens per block, vocab columns per inner step
+TILES = {"wgmma": (128, 256), "ffma": (64, 64)}
+#: blocks of each kernel that one SM holds at once (the wgmma kernel's ring
+#: takes 193 KB of shared memory)
+BLOCKS_PER_SM = {"wgmma": 1, "ffma": 4}
+#: an H100 SXM's streaming multiprocessors
+SMS = 132
+#: a block's fixed cost (filling its pipeline, writing its partials) in
+#: units of one vocab tile, for the split's makespan model
+FILL_TILES = 0.25
+#: the FFMA launcher's dtype code is the position in this table
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SPLITS = 65535  # CUDA's limit on gridDim.y
+#: TMA's alignment of base pointers and row strides, in bytes
+_TMA_ALIGN = 16
 
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _SYMBOLS = {
-    "fused_ce_launch": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "fused_ce_launch": (ctypes.c_int, [ctypes.c_int, *_ARGS]),
+    "fused_ce_wgmma_launch": (ctypes.c_int, _ARGS),
     "fused_ce_error": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-def split_width(T: int, V: int, v_blk=None) -> int:
-    """Vocab columns per split, a multiple of ``TILE_V``.
+def variant(h, w) -> str:
+    """The kernel that takes ``h (T, D)`` and ``w (D, V)``: ``"wgmma"`` for
+    bfloat16 whose base pointers are 16-byte aligned and whose rows (``2*D``
+    and ``2*V`` bytes) are multiples of 16 bytes, which TMA can describe;
+    ``"ffma"`` otherwise.  A pure function of dtype, shapes and alignment,
+    so the CPU (where it sets the plain version's split) and the card agree
+    on it."""
+    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return "ffma"
+    size = h.element_size()
+    aligned = all(t.data_ptr() % _TMA_ALIGN == 0 for t in (h, w))
+    rows = all(n * size % _TMA_ALIGN == 0 for n in (h.shape[1], w.shape[1]))
+    return "wgmma" if aligned and rows else "ffma"
 
-    ``v_blk`` given: rounded up to a multiple of ``TILE_V``.  ``None``: as
-    few columns as give the grid about ``TARGET_BLOCKS`` blocks.  The choice
-    depends on the shapes alone, so the CPU and the card split alike."""
-    n_vt = ceil(V / TILE_V)
-    if v_blk is None:
-        n_split = min(n_vt, max(1, ceil(TARGET_BLOCKS / ceil(T / TILE_T))))
-        tiles = ceil(n_vt / n_split)
-    else:
+
+def split_width(T: int, V: int, v_blk=None, *, variant: str) -> int:
+    """Vocab columns per split for ``variant``'s kernel, a multiple of its
+    tile width.
+
+    ``v_blk`` given: rounded up to a multiple of the tile width.  ``None``:
+    the tiles per split that give the least makespan when the blocks run
+    in waves of ``SMS * BLOCKS_PER_SM`` (waves x (tiles + ``FILL_TILES``)),
+    the fewest splits among equals; a whole number of waves where the
+    shape allows (at T=4096, V=152064 on ``"wgmma"``: 32 token tiles x 33
+    splits = 8 waves of 132).  The choice depends on the shapes alone, so
+    the CPU and the card split alike."""
+    tile_t, tile_v = TILES[variant]
+    if v_blk is not None:
         if v_blk < 1:
             raise ValueError(f"v_blk must be positive, got {v_blk}")
-        tiles = ceil(v_blk / TILE_V)
-    return tiles * TILE_V
+        return ceil(v_blk / tile_v) * tile_v
+    n_tt, n_vt = ceil(T / tile_t), ceil(V / tile_v)
+    return _tiles_per_split(n_tt, n_vt, SMS * BLOCKS_PER_SM[variant]) * tile_v
+
+
+@lru_cache(maxsize=256)
+def _tiles_per_split(n_tt: int, n_vt: int, wave: int) -> int:
+    """The search of :func:`split_width`, kept per shape: it runs on every
+    launch, between the caller's work and the kernel."""
+    def makespan(tiles):
+        n_split = ceil(n_vt / tiles)
+        if n_split > _MAX_SPLITS:
+            return float("inf")
+        return ceil(n_tt * n_split / wave) * (tiles + FILL_TILES)
+
+    return min(range(n_vt, 0, -1), key=makespan)
 
 
 def _check(h, w, labels):
@@ -97,38 +145,49 @@ def _combine(m, l, g):
     return M + torch.log(torch.clamp(L, min=1e-30)) - g.sum(0)
 
 
-def fused_ce_forward_ref(h, w, labels, t_blk: int = 128, v_blk=None):
-    """The kernel's plain version: per-split partials ``(m, l, g)`` over the
-    same vocab ranges as the kernel, then the same combine, in float32.
-
-    ``t_blk`` tokens are taken at a time, so the dense logits held at once
-    are at most ``t_blk`` x the split width."""
+def fused_ce_partials_ref(h, w, labels, t_blk: int = 128, v_blk=None):
+    """The partial kernels' plain version: ``(m, l, g)``, each
+    ``(n_split, T)`` float32, over the vocab ranges the kernel of
+    :func:`variant` takes.  ``t_blk`` tokens are taken at a time, so the
+    dense logits held at once are at most ``t_blk`` x the split width."""
     _check(h, w, labels)
     T, V = h.shape[0], w.shape[1]
-    width = split_width(T, V, v_blk)
-    out = torch.empty(T, dtype=torch.float32, device=h.device)
+    width = split_width(T, V, v_blk, variant=variant(h, w))
+    n_split = ceil(V / width)
+    m, l, g = torch.empty((3, n_split, T), dtype=torch.float32,
+                          device=h.device)
     for t0 in range(0, T, t_blk):
         hb = h[t0:t0 + t_blk].float()
         lab = labels[t0:t0 + t_blk, None].long()
-        parts = []
-        for v0 in range(0, V, width):
+        for s, v0 in enumerate(range(0, V, width)):
             z = hb @ w[:, v0:v0 + width].float()
-            m = z.amax(1)
+            mz = z.amax(1)
             cols = torch.arange(v0, v0 + z.shape[1], device=h.device)
-            parts.append((m, torch.exp(z - m[:, None]).sum(1),
-                          torch.where(cols == lab, z, 0.0).sum(1)))
-        m, l, g = (torch.stack(p) for p in zip(*parts))
-        out[t0:t0 + t_blk] = _combine(m, l, g)
-    return out
+            m[s, t0:t0 + t_blk] = mz
+            l[s, t0:t0 + t_blk] = torch.exp(z - mz[:, None]).sum(1)
+            g[s, t0:t0 + t_blk] = torch.where(cols == lab, z, 0.0).sum(1)
+    return m, l, g
+
+
+def fused_ce_forward_ref(h, w, labels, t_blk: int = 128, v_blk=None):
+    """The kernels' plain version: per-split partials ``(m, l, g)`` over the
+    same vocab ranges as the kernel (:func:`fused_ce_partials_ref`), then
+    the same combine, in float32."""
+    return _combine(*fused_ce_partials_ref(h, w, labels, t_blk, v_blk))
 
 
 class FusedCEKernel:
     """The wrapper of ``csrc/fused_ce.cu``.  ``launches`` counts its calls
-    of the launcher (each runs the partial kernel and the combine)."""
+    of a launcher (each runs a partial kernel and the combine), and
+    ``launches_by_variant`` the same calls by :func:`variant`."""
 
     def __init__(self):
-        self.launches = 0
         self._lib = None
+        self.zero_counts()
+
+    def zero_counts(self):
+        self.launches = 0
+        self.launches_by_variant = dict.fromkeys(TILES, 0)
 
     def __call__(self, h, w, labels, v_blk=None):
         _check(h, w, labels)
@@ -139,7 +198,8 @@ class FusedCEKernel:
             if not t.is_contiguous():
                 raise ValueError(f"{name} is not contiguous")
         (T, D), V = h.shape, w.shape[1]
-        width = split_width(T, V, v_blk)
+        kind = variant(h, w)
+        width = split_width(T, V, v_blk, variant=kind)
         n_split = ceil(V / width)
         if n_split > _MAX_SPLITS:
             raise ValueError(f"{n_split} vocab splits exceed {_MAX_SPLITS}; "
@@ -152,15 +212,20 @@ class FusedCEKernel:
             part = torch.empty((3, n_split, T), dtype=torch.float32,
                                device=dev)
             loss = torch.empty(T, dtype=torch.float32, device=dev)
-            rc = self._lib.fused_ce_launch(
-                KERNEL_DTYPES.index(h.dtype), h.data_ptr(), w.data_ptr(),
-                labels.data_ptr(), T, D, V, width, n_split, part.data_ptr(),
-                loss.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            args = (h.data_ptr(), w.data_ptr(), labels.data_ptr(), T, D, V,
+                    width, n_split, part.data_ptr(), loss.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+            if kind == "wgmma":
+                rc = self._lib.fused_ce_wgmma_launch(*args)
+            else:
+                rc = self._lib.fused_ce_launch(
+                    KERNEL_DTYPES.index(h.dtype), *args)
         if rc != 0:
             msg = self._lib.fused_ce_error(rc).decode()
-            raise RuntimeError(f"fused_ce kernel launch failed: CUDA error "
-                               f"{rc} ({msg})")
+            raise RuntimeError(f"fused_ce {kind} kernel launch failed: "
+                               f"error {rc} ({msg})")
         self.launches += 1
+        self.launches_by_variant[kind] += 1
         return loss
 
 
@@ -171,13 +236,13 @@ def fused_ce_forward(h, w, labels, t_blk: int = 128, v_blk=None):
     """h: (T, D); w: (D, V); labels: (T,) int32 -> per-token loss (T,) f32.
 
     The keyword arguments keep the reference's names.  ``v_blk`` is the
-    vocab range of one split (rounded up to a multiple of ``TILE_V``;
-    ``None`` chooses it to fill the card); unlike the reference's, it need
-    not divide ``V``: the ragged edge is masked.  ``t_blk`` bounds the
-    tokens the plain version takes at a time; the kernel's token tile is
-    fixed at ``TILE_T``.  Neither changes the result beyond rounding.  The
-    reference's ``interpret`` has no counterpart: the tensors' device
-    decides."""
+    vocab range of one split (rounded up to a multiple of the tile width of
+    the kernel :func:`variant` picks; ``None`` chooses it to fill the
+    card); unlike the reference's, it need not divide ``V``: the ragged
+    edge is masked.  ``t_blk`` bounds the tokens the plain version takes at
+    a time; the kernels' token tiles are fixed (:data:`TILES`).  Neither
+    changes the result beyond rounding.  The reference's ``interpret`` has
+    no counterpart: the tensors' device decides."""
     if h.device.type == "cpu":
         return fused_ce_forward_ref(h, w, labels, t_blk, v_blk)
     return KERNEL(h, w, labels, v_blk)

@@ -223,19 +223,29 @@ def test_kernel_launches_on_its_operands_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernel_matches_plain_on_card(cuda_device, dtype):
     """Kernel vs its plain version on the card, f32 sums on both sides in
-    another order: 1e-5 of the largest loss."""
+    another order: 1e-5 of the largest loss.  bf16 takes the tensor-core
+    kernel where TMA can load it (T, D and V no multiple of its 128 x 256
+    x 64 tile in the last three shapes) and the FFMA kernel at V = 100;
+    the launch count of the variant that ran rises by one."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for T, D, V, v_blk in [(64, 32, 256, 64), (32, 16, 100, 25),
-                           (48, 64, 512, 512), (100, 40, 1000, None)]:
+                           (48, 64, 512, 512), (100, 40, 1000, None),
+                           (200, 96, 1000, None), (300, 136, 4104, None),
+                           (128, 64, 4096, 512)]:
         h = torch.randn(T, D, generator=gen, device=cuda_device).to(dtype)
         w = (torch.randn(D, V, generator=gen, device=cuda_device)
              * 0.05).to(dtype)
         labels = torch.randint(0, V, (T,), generator=gen, device=cuda_device,
                                dtype=torch.int32)
         labels[0] = V  # out of range: gold logit 0
+        kind = fc.variant(h, w)
+        assert kind == ("wgmma" if dtype == torch.bfloat16 and V != 100
+                        else "ffma")
         before = fc.KERNEL.launches
+        by_variant = dict(fc.KERNEL.launches_by_variant)
         got = fc.fused_ce_forward(h, w, labels, v_blk=v_blk)
         assert fc.KERNEL.launches == before + 1
+        assert fc.KERNEL.launches_by_variant[kind] == by_variant[kind] + 1
         want = fc.fused_ce_forward_ref(h, w, labels, v_blk=v_blk)
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= 1e-5 * float(

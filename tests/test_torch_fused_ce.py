@@ -117,15 +117,91 @@ def test_grads_match_reference(dtype, rtol):
 
 
 def test_split_width():
-    assert fc.split_width(64, 256, 64) == 64
-    assert fc.split_width(64, 256, 1) == fc.TILE_V
-    assert fc.split_width(64, 256, 65) == 2 * fc.TILE_V
+    """``v_blk`` rounds up to the variant's tile width; ``None`` picks the
+    split of the least makespan.  The expected full-width split changed
+    with the tensor-core kernel's tile (128 x 256, one block per SM): 18
+    tiles of 256 columns, where the FFMA tile (64 x 64, four blocks per
+    SM) gave 264 tiles of 64 under the old rule."""
+    ffma_v = fc.TILES["ffma"][1]
+    assert fc.split_width(64, 256, 64, variant="ffma") == 64
+    assert fc.split_width(64, 256, 1, variant="ffma") == ffma_v
+    assert fc.split_width(64, 256, 65, variant="ffma") == 2 * ffma_v
+    assert fc.split_width(64, 256, 1, variant="wgmma") == 256
+    assert fc.split_width(64, 256, 300, variant="wgmma") == 512
     # default: one token block, 4 vocab tiles -> one tile per split
-    assert fc.split_width(64, 256) == fc.TILE_V
-    # full width: 64 token blocks, 2376 vocab tiles -> 9 splits of 264 tiles
-    assert fc.split_width(4096, 152064) == 264 * fc.TILE_V
+    assert fc.split_width(64, 256, variant="ffma") == ffma_v
+    # full width: 32 token tiles, 594 vocab tiles -> 33 splits of 18 tiles
+    assert fc.split_width(4096, 152064, variant="wgmma") == 18 * 256
     with pytest.raises(ValueError, match="v_blk"):
-        fc.split_width(64, 256, 0)
+        fc.split_width(64, 256, 0, variant="wgmma")
+
+
+@pytest.mark.parametrize("kind", ["wgmma", "ffma"])
+def test_split_width_gives_whole_waves_at_full_width(kind):
+    """At the LM head of qwen2-7b every SM runs the same number of blocks,
+    each over the same number of vocab tiles."""
+    T, V = 4096, 152064
+    tile_t, tile_v = fc.TILES[kind]
+    width = fc.split_width(T, V, variant=kind)
+    n_split = -(-V // width)
+    blocks = -(-T // tile_t) * n_split
+    assert width % tile_v == 0 and n_split * width == V
+    assert blocks % (fc.SMS * fc.BLOCKS_PER_SM[kind]) == 0
+    if kind == "wgmma":
+        assert (n_split, blocks) == (33, 1056)  # 8 waves of 132
+
+
+def test_variant_picks_the_tensor_cores_where_tma_can_load():
+    """bf16 with 16-byte aligned bases and rows of a multiple of 16 bytes
+    goes to the tensor-core kernel; f32, a 200-byte row (V = 100) or a base
+    off 16 bytes goes to the FFMA kernel."""
+    def bf16(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+
+    assert fc.variant(bf16(8, 32), bf16(32, 256)) == "wgmma"
+    assert fc.variant(bf16(8, 8), bf16(8, 64)) == "wgmma"
+    assert fc.variant(bf16(8, 32).float(), bf16(32, 256).float()) == "ffma"
+    assert fc.variant(bf16(8, 16), bf16(16, 100)) == "ffma"
+    assert fc.variant(bf16(8, 12), bf16(12, 256)) == "ffma"
+    shifted = bf16(8 * 32 + 1)[1:].view(8, 32)  # 2 bytes past the base
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    assert fc.variant(shifted, bf16(32, 256)) == "ffma"
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "ffma")])
+def test_plain_version_splits_like_its_variant(dtype, kind):
+    """The plain version's partials cover the vocab ranges of the kernel
+    that would take the same tensors on the card."""
+    T, D, V = 200, 96, 1000
+    h, w, labels = _port(*_data(T, D, V, seed=4), dtype=dtype)
+    assert fc.variant(h, w) == kind
+    width = fc.split_width(T, V, variant=kind)
+    m, l, g = fc.fused_ce_partials_ref(h, w, labels)
+    assert m.shape == l.shape == g.shape == (-(-V // width), T)
+    torch.testing.assert_close(fc._combine(m, l, g),
+                               fc.fused_ce_forward_ref(h, w, labels))
+    # the last split holds only the columns up to V
+    z = h.float() @ w[:, (len(m) - 1) * width:].float()
+    torch.testing.assert_close(m[-1], z.amax(1))
+
+
+@pytest.mark.parametrize("T,D,V,tb,vb", SHAPES)
+def test_bf16_forward_matches_reference_at_each_variant(T, D, V, tb, vb):
+    """bf16 at the reference's shapes: the plain version at the split of
+    the variant the card would run (the tensor-core kernel's 256-column
+    tiles where TMA can load, else the FFMA kernel's) against the Pallas
+    kernel in interpret mode, within 1e-5 as in f32: the same rounded
+    inputs, products exact in f32, the f32 sums in another order."""
+    data = _data(T, D, V, seed=5)
+    rh, rw, rl = _ref(*data, dtype=jnp.bfloat16)
+    want = np.asarray(ref.fused_ce_forward(rh, rw, rl, t_blk=tb, v_blk=vb,
+                                           interpret=True))
+    h, w, labels = _port(*data, dtype=torch.bfloat16)
+    assert fc.variant(h, w) == ("ffma" if V * 2 % 16 else "wgmma")
+    for v_blk in (vb, None):
+        got = fc.fused_ce_forward(h, w, labels, t_blk=tb, v_blk=v_blk)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_combine_ignores_an_empty_split():
