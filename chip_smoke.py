@@ -36,25 +36,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
      kernel launches counted (zeroed just before), the gradients held
      against the same adjoint plans on ``"torch"`` within ``plan``, and the
      adjoint kernels timed beside their bound and their ``"torch"`` time;
-  7. fused cross-entropy (K4) at the reference's test shapes and at three
-     whose T, D and V are no multiple of the tensor-core kernel's tile,
-     float32 and bfloat16, each with one label out of range: the kernel
-     that ``fused_ce.variant`` picks (``"wgmma"``: tensor cores, TMA loads;
-     ``"ffma"``: float32 and bfloat16 rows TMA cannot describe) against its
-     plain version, that variant's launch count rising by one, and
-     ``fused_ce``'s gradients against autograd of the dense loss;
+  7. fused cross-entropy (K4) at the reference's test shapes and at four
+     whose T, D and V are no multiple of the tensor-core kernels' tiles (D
+     = 37 no multiple of 4), float32 and bfloat16, each with one label out
+     of range: the kernel that ``fused_ce.variant`` picks (``"wgmma"``:
+     bf16 on the tensor cores, TMA loads; ``"tf32x3"``: float32 on the
+     tensor cores after its split pre-pass; ``"ffma"``: bf16 rows TMA
+     cannot describe) against its plain version, that variant's launch
+     count rising by one (and the pre-pass's by two for ``"tf32x3"``), the
+     pre-pass's parts of ``h`` and ``w`` bit for bit against
+     ``tf32_split_ref``, and ``fused_ce``'s gradients against autograd of
+     the dense loss;
   8. K4 at the LM head of qwen2-7b (T=4096, D=3584, V=152064), bfloat16 on
-     the tensor-core kernel and float32 on the FFMA kernel: ``fused_ce``
-     forward and backward once with the launch counts zeroed just before
-     (the dtype's variant must launch exactly once), then the kernel timed
-     beside its plain version, the library route (``F.cross_entropy`` of
-     ``torch.matmul``) and its bound, then run back to back for about a
-     second under ``torch.profiler`` (device time per kernel, the device's
-     idle share) with the host's enqueue time per call and
-     ``nvidia-smi``'s SM clock and power sampled meanwhile.  The built library's SASS must
-     hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions
-     (``cuobjdump`` beside nvcc); their counts and the tensor-core kernel's
-     registers and stack are printed.
+     the ``"wgmma"`` kernel and float32 on the ``"tf32x3"`` kernel:
+     ``fused_ce`` forward and backward once with the launch counts zeroed
+     just before (the dtype's variant must launch exactly once, float32's
+     pre-pass twice), then the kernel timed beside its plain version, the
+     library route (``F.cross_entropy`` of ``torch.matmul``, TF32 off) and
+     its bound (float32: three TF32 passes, with the FFMA bound of one f32
+     pass beside it), float32's pre-pass timed beside its plain version and
+     its bytes bound, then each run back to back for about a second under
+     ``torch.profiler`` (device time per kernel, the device's idle share)
+     with the host's enqueue time per call and ``nvidia-smi``'s SM clock
+     and power sampled meanwhile.  The built library's SASS must hold
+     ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in both
+     tensor-core kernels, the float32 one in their ``.TF32`` form
+     (``cuobjdump`` beside nvcc); their counts and the kernels' registers
+     and stack are printed.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -67,6 +75,13 @@ times the stencil kernel instead at forced plane tiles (and, for the 2-D
 cell, segment lengths) on the full-size cells of
 phase 4, each checked against ``"torch"`` first: the sweep the tile chooser
 (``lowering/blocks.py``) is set from.
+
+    python3 chip_smoke.py --tf32-sweep
+
+times K4's 3xTF32 kernel instead at the qwen2-7b head, rebuilt with the
+flush periods and ring depths of :data:`TF32_SWEEP` in place of its own,
+each with its error against the plain version and the float64 loss: the
+sweep ``Tf32x3Op``'s constants (``csrc/fused_ce.cu``) are set from.
 """
 from __future__ import annotations
 
@@ -80,23 +95,26 @@ from datetime import datetime
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core
-#: flop/s per dtype, and the dense bf16 tensor-core rate
+#: flop/s per dtype, and the dense bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BF16_TC_FLOPS = 989e12
+PEAK_TF32_TC_FLOPS = 494.5e12
 SWEEP_SCALE = 3
 REPS = 10
 #: where phases 5-8 put their tensors
 DEVICE = "cuda"
 #: the LM head of qwen2-7b (src/repro/configs/qwen2_7b.py): one sequence
 CE_FULL = dict(T=4096, D=3584, V=152064)
-#: the reference's fused-CE test shapes (tests/test_fused_ce.py) plus four
-#: whose T, D and V are no multiple of the kernels' tiles, and one that
-#: fills a tensor-core tile (bfloat16 with V = 100 has 200-byte rows, which
-#: TMA cannot describe: the FFMA kernel takes it)
+#: the reference's fused-CE test shapes (tests/test_fused_ce.py) plus five
+#: whose T, D and V are no multiple of the kernels' tiles (D = 37: rows of
+#: no multiple of 16 bytes), and one that fills a tensor-core tile
+#: (bfloat16 with V = 100 or D = 37 has rows TMA cannot describe: the FFMA
+#: kernel takes it; float32 always takes the 3xTF32 kernel)
 CE_SWEEP = [(64, 32, 256, 64), (32, 16, 100, 25), (48, 64, 512, 512),
             (128, 8, 64, 16), (100, 40, 1000, None), (200, 96, 1000, None),
-            (300, 136, 4104, None), (128, 64, 4096, 512)]
+            (300, 136, 4104, None), (128, 64, 4096, 512),
+            (72, 37, 515, None)]
 #: ``--tile-sweep``: (block_rows, block_cols, block_inner) per cell; 0
 #: leaves a level to the chooser.  On the 3-D cells rows and cols set the
 #: plane tile (levels 1 and 2), on hdifft_gm rows sets the row tile and
@@ -110,6 +128,12 @@ TILE_SWEEP = {
     "hdifft_gm": [(256, 0, 0), (512, 0, 0), (1024, 0, 0), (2048, 0, 0),
                   (1024, 0, 32)],
 }
+#: ``--tf32-sweep``: (FLUSH, STAGES) of the 3xTF32 kernel; a FLUSH past the
+#: 224 slabs of D = 3584 flushes once, at each tile's end
+TF32_SWEEP = [(8, 4), (16, 4), (32, 4), (1 << 20, 4), (8, 3), (8, 5)]
+#: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
+TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
+                  "  static constexpr int FLUSH = {flush};")
 
 
 def _nvidia_smi() -> str:
@@ -392,11 +416,17 @@ def ce_sweep(torch) -> list:
             oor[0] = V
             kind = fc.variant(h, w)
             before = dict(fc.KERNEL.launches_by_variant)
-            total = fc.KERNEL.launches
+            total, splits = fc.KERNEL.launches, fc.KERNEL.split_launches
             got = fc.fused_ce_forward(h, w, oor, v_blk=v_blk)
             launched = fc.KERNEL.launches_by_variant[kind] - before[kind]
             launched_all = fc.KERNEL.launches - total
+            split_launched = fc.KERNEL.split_launches - splits
             want = fc.fused_ce_forward_ref(h, w, oor, v_blk=v_blk)
+            # the pre-pass's parts against its plain version, bit for bit
+            split_ok = dt != torch.float32 or all(
+                torch.equal(fc.tf32_split(x, tr).view(torch.int32),
+                            fc.tf32_split_ref(x, tr).view(torch.int32))
+                for x, tr in ((h, False), (w, True)))
             hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
             loss = fc.fused_ce(hg, wg, labels, v_blk=v_blk)
             dh, dw = torch.autograd.grad(loss, (hg, wg))
@@ -413,21 +443,32 @@ def ce_sweep(torch) -> list:
             # products of bf16 or f32 inputs, summed in f32 over D in
             # another order: 1e-5; the mean against the dense loss
             # likewise; gradients are the same recompute
+            want_split = 2 if kind == "tf32x3" else 0
             ok = (launched == 1 and launched_all == 1 and e_fwd <= 1e-5
-                  and e_loss <= 1e-5 and e_grad <= 1e-5)
+                  and e_loss <= 1e-5 and e_grad <= 1e-5
+                  and split_launched == want_split and split_ok)
             line = (f"ce {T}x{D}x{V} v_blk={v_blk} {str(dt)[6:]}: variant "
-                    f"{kind}, launches {launched} kernel-vs-plain "
-                    f"{e_fwd:.2e} (<= 1e-05) loss-vs-dense {e_loss:.2e} "
-                    f"grads-vs-dense {e_grad:.2e} {'ok' if ok else 'FAIL'}")
+                    f"{kind}, launches {launched} (pre-pass "
+                    f"{split_launched}) kernel-vs-plain {e_fwd:.2e} (<= "
+                    f"1e-05) pre-pass-vs-plain "
+                    f"{'none' if dt != torch.float32 else 'bit-equal' if split_ok else 'DIFFERS'} "
+                    f"loss-vs-dense "
+                    f"{e_loss:.2e} grads-vs-dense {e_grad:.2e} "
+                    f"{'ok' if ok else 'FAIL'}")
             print(line, flush=True)
             if not ok:
                 failures.append(line)
     return failures
 
 
+#: the tensor-core kernels of ``fused_ce.cu`` whose SASS phase 8 checks
+TC_KERNELS = ("fused_ce_wgmma_kernel", "fused_ce_tf32x3_kernel")
+
+
 def sass_counts() -> dict:
-    """Instruction counts in the SASS of the built ``fused_ce.cu`` library
-    (``cuobjdump --dump-sass``) and the tensor-core kernel's resource line
+    """Per tensor-core kernel of the built ``fused_ce.cu`` library: its
+    ``HGMMA`` and ``UTMALDG`` instructions, the ``HGMMA`` of ``.TF32`` form,
+    in the SASS (``cuobjdump --dump-sass``), and its resource line
     (``--dump-resource-usage``)."""
     from repro_torch.kernels import build
 
@@ -438,12 +479,21 @@ def sass_counts() -> dict:
     usage = subprocess.run([tool, "--dump-resource-usage", str(so)],
                            capture_output=True, text=True, timeout=120,
                            check=True).stdout.splitlines()
-    wgmma = [ln.strip() for i, ln in enumerate(usage[1:], 1)
-             if "fused_ce_wgmma_kernel" in usage[i - 1]]
-    ops = {op: sum(1 for ln in sass.splitlines()
-                   if f" {op}" in ln and "/*" in ln)
-           for op in ("HGMMA", "UTMALDG")}
-    return dict(ops, resources=wgmma[0] if wgmma else "not found")
+    out = {k: dict(HGMMA=0, UTMALDG=0, TF32=0, resources="not found")
+           for k in TC_KERNELS}
+    fn = None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = next((k for k in TC_KERNELS if k in ln), None)
+        elif fn and "/*" in ln:
+            for op in ("HGMMA", "UTMALDG"):
+                out[fn][op] += f" {op}" in ln
+            out[fn]["TF32"] += " HGMMA" in ln and ".TF32" in ln
+    for i, ln in enumerate(usage[1:], 1):
+        for k in TC_KERNELS:
+            if k in usage[i - 1]:
+                out[k]["resources"] = ln.strip()
+    return out
 
 
 def sustained(fn, torch, ms_each: float) -> dict:
@@ -484,7 +534,8 @@ def sustained(fn, torch, ms_each: float) -> dict:
     kernels = {}
     for e in prof.key_averages():
         if e.self_device_time_total > 0:
-            name = e.key.split("(anonymous namespace)::")[-1].split("(")[0]
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.split()[-1]  # drop "void"
             kernels[name] = e.self_device_time_total / n / 1e3
     rows = []
     for ln in samples.splitlines():
@@ -504,23 +555,71 @@ def sustained(fn, torch, ms_each: float) -> dict:
                 if power else None)
 
 
+def ce_split_full_width(h, w, launches: int, torch) -> dict:
+    """Phase 8, float32: the 3xTF32 pre-pass on ``h`` and ``w`` at full
+    width, bit for bit against its plain version, timed beside it and its
+    bound (each input byte read once, each part written once); returns its
+    kernel line, ``launches`` being the main path's."""
+    from repro_torch.kernels import fused_ce as fc
+
+    def kernel():
+        return fc.tf32_split(h), fc.tf32_split(w, transpose=True)
+
+    def plain():
+        return fc.tf32_split_ref(h), fc.tf32_split_ref(w, transpose=True)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    out_elems = sum(a.numel() for a in got)
+    del got, want
+    if not same:
+        raise SystemExit(f"tf32 split full width: parts differ from the "
+                         f"plain version (max abs {max_abs:.3e})")
+    ms = _time_ms(kernel, torch)
+    plain_ms = _time_ms(plain, torch)
+    nbytes = (h.numel() + w.numel() + out_elems) * 4
+    bound_ms, by = bound_of(nbytes, 0, PEAK_FLOPS["float32"])
+    print(f"ce-split T={h.shape[0]} D={h.shape[1]} V={w.shape[1]}: hi and "
+          f"lo of h as (T, Dp), of w as (V, Dp), launches {launches}, "
+          f"bit-equal to plain, split_ms "
+          f"{ms:.4f}, plain_ms {plain_ms:.4f}, bytes {nbytes}, bound_ms "
+          f"{bound_ms:.4f} ({by}), share of bound {bound_ms / ms:.4f}",
+          flush=True)
+    return dict(name="fused_ce_split", route="cuda",
+                source="src/repro_torch/csrc/fused_ce.cu",
+                replaces="src/repro/kernels/fused_ce.py:75",
+                launches=launches, max_abs_err=max_abs, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
 def ce_full_width(torch) -> list:
-    """Phase 8; returns K4's kernel lines, bfloat16 (tensor cores) then
-    float32 (FFMA)."""
+    """Phase 8; returns K4's kernel lines: bfloat16 (``"wgmma"``), float32
+    (``"tf32x3"``) and float32's split pre-pass."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_ce as fc
 
     counts = sass_counts()
-    print(f"ce-sass fused_ce.cu: HGMMA {counts['HGMMA']}, UTMALDG "
-          f"{counts['UTMALDG']}; fused_ce_wgmma_kernel {counts['resources']}",
-          flush=True)
-    if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
-        raise SystemExit("fused_ce: no HGMMA or UTMALDG in the SASS")
+    for k, c in counts.items():
+        print(f"ce-sass {k}: HGMMA {c['HGMMA']} (of .TF32 form "
+              f"{c['TF32']}), UTMALDG {c['UTMALDG']}; {c['resources']}",
+              flush=True)
+    if (any(c["HGMMA"] == 0 or c["UTMALDG"] == 0 for c in counts.values())
+            or counts["fused_ce_tf32x3_kernel"]["TF32"] == 0):
+        raise SystemExit("fused_ce: a tensor-core kernel has no HGMMA or "
+                         "UTMALDG in the SASS, or the tf32x3 kernel no "
+                         "HGMMA of .TF32 form")
     T, D, V = CE_FULL["T"], CE_FULL["D"], CE_FULL["V"]
     lines = []
-    for dt, want_kind, peak in ((torch.bfloat16, "wgmma", PEAK_BF16_TC_FLOPS),
-                                (torch.float32, "ffma", PEAK_FLOPS["float32"])):
+    # float32 does three TF32 passes (hi*lo, lo*hi, hi*hi) on the tensor
+    # cores, and goes through its split pre-pass (two launches)
+    for dt, want_kind, peak, passes, splits in (
+            (torch.bfloat16, "wgmma", PEAK_BF16_TC_FLOPS, 1, 0),
+            (torch.float32, "tf32x3", PEAK_TF32_TC_FLOPS, 3, 2)):
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         h = torch.randn(T, D, generator=gen, device=DEVICE).to(dt)
         w = (torch.randn(D, V, generator=gen, device=DEVICE) * 0.05).to(dt)
@@ -533,10 +632,13 @@ def ce_full_width(torch) -> list:
         dh, dw = torch.autograd.grad(loss, (hg, wg))
         torch.cuda.synchronize()
         launches = fc.KERNEL.launches_by_variant[want_kind]
-        if kind != want_kind or launches != 1 or fc.KERNEL.launches != 1:
+        split_launches = fc.KERNEL.split_launches
+        if (kind != want_kind or launches != 1 or fc.KERNEL.launches != 1
+                or split_launches != splits):
             raise SystemExit(f"fused_ce {dt}: variant {kind}, launches "
-                             f"{fc.KERNEL.launches_by_variant}; want one "
-                             f"{want_kind} launch")
+                             f"{fc.KERNEL.launches_by_variant}, pre-pass "
+                             f"{split_launches}; want one {want_kind} launch "
+                             f"and {splits} of the pre-pass")
         if not (torch.isfinite(loss) and bool(torch.isfinite(dh).all())
                 and bool(torch.isfinite(dw).all())):
             raise SystemExit(f"fused_ce {dt}: non-finite loss or gradients")
@@ -550,13 +652,17 @@ def ce_full_width(torch) -> list:
         e_plain = max_abs / float(want.abs().max())
         e_lib = float((lib - got).abs().max() / got.abs().max())
         del want, lib
-        # plain: the same split and f32 products, summed in another order:
-        # 1e-5; library: bf16 logits from a bf16 GEMM, the reference's bf16
-        # tolerance 2e-2 (f32 logits in f32: well inside it)
+        # plain: the same split and f32 products (float32: within 2**-22 of
+        # them, the tensor cores' sum flushed to round-to-nearest), summed
+        # in another order: 1e-5; library: bf16 logits from a bf16 GEMM,
+        # the reference's bf16 tolerance 2e-2 (f32 logits in f32: well
+        # inside it)
         if e_plain > 1e-5 or e_lib > 2e-2:
             raise SystemExit(f"fused_ce full width {dt}: kernel vs plain "
                              f"{e_plain:.2e} (<= 1e-05), library vs kernel "
                              f"{e_lib:.2e} (<= 2e-02)")
+        if splits:
+            lines.append(ce_split_full_width(h, w, split_launches, torch))
         call = lambda: fc.fused_ce_forward(h, w, labels)
         kernel_ms = _time_ms(call, torch)
         plain_ms = _time_ms(lambda: fc.fused_ce_forward_ref(h, w, labels,
@@ -566,16 +672,22 @@ def ce_full_width(torch) -> list:
             torch)
         hot = sustained(call, torch, kernel_ms)
         nbytes = (h.numel() + w.numel()) * h.element_size() + T * 4 + T * 4
-        bound_ms, by = bound_of(nbytes, 2 * T * D * V, peak)
+        bound_ms, by = bound_of(nbytes, passes * 2 * T * D * V, peak)
+        ffma = ""
+        if dt == torch.float32:
+            ffma_ms, _ = bound_of(nbytes, 2 * T * D * V, PEAK_FLOPS["float32"])
+            ffma = (f" (one f32 pass on the CUDA cores: {ffma_ms:.4f}, "
+                    f"share {ffma_ms / kernel_ms:.4f})")
         width = fc.split_width(T, V, variant=kind)
         print(f"ce-main T={T} D={D} V={V} {str(dt)[6:]}: variant {kind}, "
               f"split width {width} ({-(-V // width)} splits), launches "
-              f"{launches}, kernel_ms {kernel_ms:.4f}, plain_ms "
-              f"{plain_ms:.4f}, library_ms {library_ms:.4f}, bytes {nbytes}, "
-              f"bound_ms {bound_ms:.4f} ({by}), share of bound "
-              f"{bound_ms / kernel_ms:.4f}, kernel-vs-plain {e_plain:.2e}, "
-              f"library-vs-kernel {e_lib:.2e}, max_abs_err {max_abs:.3e}",
-              flush=True)
+              f"{launches} (pre-pass {split_launches}), kernel_ms "
+              f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, library_ms "
+              f"{library_ms:.4f}, bytes {nbytes}, bound_ms {bound_ms:.4f} "
+              f"({by}, {passes} tensor-core pass{'es' * (passes > 1)}), "
+              f"share of bound {bound_ms / kernel_ms:.4f}{ffma}, "
+              f"kernel-vs-plain {e_plain:.2e}, library-vs-kernel "
+              f"{e_lib:.2e}, max_abs_err {max_abs:.3e}", flush=True)
         print(f"ce-sustained {str(dt)[6:]}: {hot['calls']} calls back to "
               f"back under torch.profiler, {hot['ms']:.4f} ms each (events), "
               f"host {hot['host_ms']:.4f} ms each to enqueue; device ms per "
@@ -674,6 +786,68 @@ def tile_sweep(torch) -> None:
         raise SystemExit(f"tile sweep: {failures} runs disagree with torch")
 
 
+def tf32_sweep(torch) -> None:
+    """``--tf32-sweep``: the 3xTF32 kernel (partials and combine, on parts
+    split once) at the qwen2-7b head, rebuilt per (FLUSH, STAGES) of
+    :data:`TF32_SWEEP`; three rounds in turn, each build timed (median of
+    10 after a warm-up) with its error against the plain version and the
+    float64 loss."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_ce as fc
+
+    base = build.csrc_source("fused_ce.cu")
+    own = TF32_CONSTANTS.format(stages=4, flush=8)
+    if own not in base:
+        raise SystemExit("tf32 sweep: Tf32x3Op's constants are not "
+                         f"{own!r}; update TF32_CONSTANTS")
+    sources = {c: base.replace(own, TF32_CONSTANTS.format(stages=c[1],
+                                                          flush=c[0]))
+               for c in TF32_SWEEP}
+    t0 = time.time()
+    build.compile_sources(list(sources.values()))
+    print(f"tf32-sweep build: {len(sources)} sources in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    libs = {c: build.load(src, fc._SYMBOLS) for c, src in sources.items()}
+    T, D, V = CE_FULL["T"], CE_FULL["D"], CE_FULL["V"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    h = torch.randn(T, D, generator=gen, device=DEVICE)
+    w = torch.randn(D, V, generator=gen, device=DEVICE) * 0.05
+    labels = torch.randint(0, V, (T,), generator=gen, device=DEVICE,
+                           dtype=torch.int32)
+    z = h.double() @ w.double()
+    dense = torch.logsumexp(z, 1) - z.gather(1, labels.long()[:, None])[:, 0]
+    del z
+    plain = fc.fused_ce_forward_ref(h, w, labels, t_blk=T)
+    hp, wp = fc.tf32_split(h), fc.tf32_split(w, transpose=True)
+    width = fc.split_width(T, V, variant="tf32x3")
+    n_split = -(-V // width)
+    part = torch.empty((3, n_split, T), dtype=torch.float32, device=DEVICE)
+    loss = torch.empty(T, dtype=torch.float32, device=DEVICE)
+
+    def launch(lib):
+        rc = lib.fused_ce_tf32x3_launch(
+            hp[0].data_ptr(), hp[1].data_ptr(), wp[0].data_ptr(),
+            wp[1].data_ptr(), hp.shape[2], labels.data_ptr(), T, D, V, width,
+            n_split, part.data_ptr(), loss.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise SystemExit(f"tf32 sweep: launch failed, error {rc}")
+
+    order = list(libs)
+    for rnd in range(3):
+        for c in order if rnd % 2 == 0 else order[::-1]:
+            launch(libs[c])
+            torch.cuda.synchronize()
+            e_plain = float((loss - plain).abs().max() / plain.abs().max())
+            e64 = float((loss.double() - dense).abs().max()
+                        / dense.abs().max())
+            ms = _time_ms(lambda: launch(libs[c]), torch)
+            flush = "at tile ends" if c[0] > D // 16 else f"every {c[0]} slabs"
+            print(f"tf32-sweep round {rnd} flush {flush}, stages {c[1]}: "
+                  f"partials+combine ms {ms:.4f}, vs plain {e_plain:.2e}, "
+                  f"vs float64 {e64:.2e}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -684,9 +858,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
-    # the library yardstick (cuDNN) computes in full float32 and picks its
-    # fastest algorithm during the warm-up
+    # the library yardsticks (cuDNN, cuBLAS) and the plain versions compute
+    # in full float32; cuDNN picks its fastest algorithm during the warm-up
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
 
     from repro_torch import compile_plan, race
@@ -703,8 +878,9 @@ def main() -> int:
     smi = _nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
-    if sys.argv[1:] == ["--tile-sweep"]:
-        tile_sweep(torch)
+    sweeps = {"--tile-sweep": tile_sweep, "--tf32-sweep": tf32_sweep}
+    if len(sys.argv) == 2 and sys.argv[1] in sweeps:
+        sweeps[sys.argv[1]](torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
         print(smi)
         return 0

@@ -10,19 +10,21 @@ the TPU.  :func:`fused_ce` is the mean loss as a ``torch.autograd.Function``
 whose backward recomputes the dense loss with autograd (:func:`_ce_ref`), as
 the reference's ``custom_vjp`` recomputes through XLA.
 
-On a CUDA tensor the forward launches a hand-written kernel of
-``csrc/fused_ce.cu`` (which replaces the TPU kernel
+On a CUDA tensor the forward launches hand-written kernels of
+``csrc/fused_ce.cu`` (which replace the TPU kernel
 ``repro/kernels/fused_ce.py:_kernel``); on CPU tensors it runs
 :func:`fused_ce_forward_ref`, the kernels' plain version, which follows the
 kernel's split of the vocabulary and its combine.  Nothing falls back from
 the card to the plain version.
 
-Two kernels, chosen by :func:`variant` before launch from dtype, shapes and
-pointer alignment alone: ``"wgmma"`` (tensor cores, operands loaded by TMA)
-for bfloat16 operands TMA can describe, ``"ffma"`` (CUDA cores) for float32
-and for bfloat16 that TMA cannot describe (a row of ``h`` or ``w`` that is
-no multiple of 16 bytes, a base pointer off 16 bytes).  A failed build or
-launch of either raises.
+Three kernels, chosen by :func:`variant` before launch from dtype, shapes
+and pointer alignment alone: ``"wgmma"`` (tensor cores, operands loaded by
+TMA) for bfloat16 operands TMA can describe; ``"tf32x3"`` (tensor cores,
+3xTF32) for every float32 input, after a pre-pass (:func:`tf32_split`) that
+splits ``h`` and ``w`` into TF32 parts ``hi + lo`` laid out for TMA, ``w``
+transposed; ``"ffma"`` (CUDA cores) for bfloat16 that TMA cannot describe
+(a row of ``h`` or ``w`` that is no multiple of 16 bytes, a base pointer
+off 16 bytes).  A failed build or launch of any raises.
 
 The vocabulary is split because blocks on the card run in parallel: each
 block takes a tile of tokens and one vocab range (a split), keeps the
@@ -40,20 +42,20 @@ import torch
 
 __all__ = ["KERNEL", "TILES", "fused_ce", "fused_ce_forward",
            "fused_ce_forward_ref", "fused_ce_partials_ref", "split_width",
-           "variant"]
+           "tf32_split", "tf32_split_ref", "variant"]
 
 #: each kernel's tile: tokens per block, vocab columns per inner step
-TILES = {"wgmma": (128, 256), "ffma": (64, 64)}
-#: blocks of each kernel that one SM holds at once (the wgmma kernel's ring
-#: takes 193 KB of shared memory)
-BLOCKS_PER_SM = {"wgmma": 1, "ffma": 4}
+TILES = {"wgmma": (128, 256), "tf32x3": (128, 192), "ffma": (64, 64)}
+#: blocks of each kernel that one SM holds at once (a tensor-core block
+#: takes 384 threads of 168 registers, and a 193 KB or 161 KB ring)
+BLOCKS_PER_SM = {"wgmma": 1, "tf32x3": 1, "ffma": 4}
 #: an H100 SXM's streaming multiprocessors
 SMS = 132
 #: a block's fixed cost (filling its pipeline, writing its partials) in
 #: units of one vocab tile, for the split's makespan model
 FILL_TILES = 0.25
-#: the FFMA launcher's dtype code is the position in this table
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes ``h`` and ``w`` may share
+DTYPES = (torch.float32, torch.bfloat16)
 _MAX_SPLITS = 65535  # CUDA's limit on gridDim.y
 #: TMA's alignment of base pointers and row strides, in bytes
 _TMA_ALIGN = 16
@@ -62,21 +64,29 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 _SYMBOLS = {
-    "fused_ce_launch": (ctypes.c_int, [ctypes.c_int, *_ARGS]),
+    "fused_ce_launch": (ctypes.c_int, _ARGS),
     "fused_ce_wgmma_launch": (ctypes.c_int, _ARGS),
+    # h_hi, h_lo, w_hi, w_lo, their row pitch, then _ARGS from labels on
+    "fused_ce_tf32x3_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                               + [ctypes.c_int, *_ARGS[2:]]),
+    "fused_ce_split_launch": (ctypes.c_int,
+                              [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p]),
     "fused_ce_error": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def variant(h, w) -> str:
-    """The kernel that takes ``h (T, D)`` and ``w (D, V)``: ``"wgmma"`` for
-    bfloat16 whose base pointers are 16-byte aligned and whose rows (``2*D``
-    and ``2*V`` bytes) are multiples of 16 bytes, which TMA can describe;
-    ``"ffma"`` otherwise.  A pure function of dtype, shapes and alignment,
-    so the CPU (where it sets the plain version's split) and the card agree
-    on it."""
-    if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        return "ffma"
+    """The kernel that takes ``h (T, D)`` and ``w (D, V)``: ``"tf32x3"`` for
+    float32 (its pre-pass writes padded, aligned operands, so every float32
+    input can take it); for bfloat16, ``"wgmma"`` where the base pointers
+    are 16-byte aligned and the rows (``2*D`` and ``2*V`` bytes) multiples
+    of 16 bytes, which TMA can describe, ``"ffma"`` otherwise.  A pure
+    function of dtype, shapes and alignment, so the CPU (where it sets the
+    plain version's split) and the card agree on it."""
+    if h.dtype == torch.float32:
+        return "tf32x3"
     size = h.element_size()
     aligned = all(t.data_ptr() % _TMA_ALIGN == 0 for t in (h, w))
     rows = all(n * size % _TMA_ALIGN == 0 for n in (h.shape[1], w.shape[1]))
@@ -127,8 +137,8 @@ def _check(h, w, labels):
                          f"{tuple(w.shape)}, labels {tuple(labels.shape)}")
     if min(T, D, w.shape[1]) < 1:
         raise ValueError("T, D and V must be positive")
-    if h.dtype != w.dtype or h.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"h and w must share one of {KERNEL_DTYPES}; got "
+    if h.dtype != w.dtype or h.dtype not in DTYPES:
+        raise ValueError(f"h and w must share one of {DTYPES}; got "
                          f"{h.dtype} and {w.dtype}")
     if labels.dtype != torch.int32:
         raise ValueError(f"labels must be int32, got {labels.dtype}")
@@ -176,10 +186,51 @@ def fused_ce_forward_ref(h, w, labels, t_blk: int = 128, v_blk=None):
     return _combine(*fused_ce_partials_ref(h, w, labels, t_blk, v_blk))
 
 
+def _round_tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, on the bit pattern; inf and NaN are left alone."""
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def _pitch(n: int) -> int:
+    """``n`` floats rounded up to a 16-byte row, as TMA needs."""
+    return -(-n // 4) * 4
+
+
+def tf32_split_ref(x, transpose: bool = False):
+    """The pre-pass's plain version.  ``x (R, C)`` float32 -> ``(2, R,
+    Cp)``: ``hi = rna_tf32(x)`` and ``lo = rna_tf32(x - hi)``, float32 bit
+    patterns whose low 13 bits are zero, with ``|x - hi - lo| <= 2**-22 *
+    |x|`` where both stay normal; or, with ``transpose``, ``(2, C, Rp)``
+    holding the parts of ``x.T``.  ``Cp`` (``Rp``) is rounded up to a
+    multiple of 4 and the padding is zero.  A non-finite ``x`` gives ``hi =
+    x`` and ``lo = 0``."""
+    hi = _round_tf32(x)
+    lo = torch.where(torch.isfinite(x), _round_tf32(x - hi), 0.0)
+    parts = torch.stack((hi, lo))
+    if transpose:
+        parts = parts.transpose(1, 2)
+    out = parts.new_zeros((2, parts.shape[1], _pitch(parts.shape[2])))
+    out[:, :, :parts.shape[2]] = parts
+    return out
+
+
+def tf32_split(x, transpose: bool = False):
+    """The 3xTF32 pre-pass: the parts of float32 ``x (R, C)`` laid out as
+    :func:`tf32_split_ref` lays them out.  On a CUDA tensor it launches
+    ``tf32_split_kernel``; on a CPU tensor it runs the plain version."""
+    if x.device.type == "cpu":
+        return tf32_split_ref(x, transpose)
+    return KERNEL.split(x, transpose)
+
+
 class FusedCEKernel:
     """The wrapper of ``csrc/fused_ce.cu``.  ``launches`` counts its calls
-    of a launcher (each runs a partial kernel and the combine), and
-    ``launches_by_variant`` the same calls by :func:`variant`."""
+    of a partial-kernel launcher (each runs a partial kernel and the
+    combine), ``launches_by_variant`` the same calls by :func:`variant`, and
+    ``split_launches`` the launches of the 3xTF32 pre-pass (two per
+    ``"tf32x3"`` call: ``h`` and ``w``)."""
 
     def __init__(self):
         self._lib = None
@@ -188,6 +239,43 @@ class FusedCEKernel:
     def zero_counts(self):
         self.launches = 0
         self.launches_by_variant = dict.fromkeys(TILES, 0)
+        self.split_launches = 0
+
+    def _load(self):
+        if self._lib is None:
+            from .build import csrc_source, load
+
+            self._lib = load(csrc_source("fused_ce.cu"), _SYMBOLS)
+        return self._lib
+
+    def _raise(self, rc: int, what: str):
+        if rc != 0:
+            msg = self._lib.fused_ce_error(rc).decode()
+            raise RuntimeError(f"fused_ce {what} launch failed: error {rc} "
+                               f"({msg})")
+
+    def split(self, x, transpose: bool = False):
+        """Launch the 3xTF32 pre-pass on CUDA float32 ``x (R, C)``; returns
+        the parts as :func:`tf32_split_ref` lays them out."""
+        if x.device.type != "cuda":
+            raise ValueError(f"the kernel takes CUDA tensors, not {x.device}")
+        if x.dtype != torch.float32 or x.dim() != 2 or min(x.shape) < 1:
+            raise ValueError(f"want a non-empty float32 (R, C) matrix; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError("x is not contiguous")
+        R, C = x.shape
+        shape = (2, C, _pitch(R)) if transpose else (2, R, _pitch(C))
+        lib = self._load()
+        with torch.cuda.device(x.device):
+            parts = torch.empty(shape, dtype=torch.float32, device=x.device)
+            rc = lib.fused_ce_split_launch(
+                x.data_ptr(), R, C, int(transpose), parts[0].data_ptr(),
+                parts[1].data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        self._raise(rc, "tf32 split")
+        self.split_launches += 1
+        return parts
 
     def __call__(self, h, w, labels, v_blk=None):
         _check(h, w, labels)
@@ -204,26 +292,25 @@ class FusedCEKernel:
         if n_split > _MAX_SPLITS:
             raise ValueError(f"{n_split} vocab splits exceed {_MAX_SPLITS}; "
                              f"raise v_blk")
-        if self._lib is None:
-            from .build import csrc_source, load
-
-            self._lib = load(csrc_source("fused_ce.cu"), _SYMBOLS)
+        lib = self._load()
         with torch.cuda.device(dev):
             part = torch.empty((3, n_split, T), dtype=torch.float32,
                                device=dev)
             loss = torch.empty(T, dtype=torch.float32, device=dev)
-            args = (h.data_ptr(), w.data_ptr(), labels.data_ptr(), T, D, V,
-                    width, n_split, part.data_ptr(), loss.data_ptr(),
+            rest = (labels.data_ptr(), T, D, V, width, n_split,
+                    part.data_ptr(), loss.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream)
-            if kind == "wgmma":
-                rc = self._lib.fused_ce_wgmma_launch(*args)
+            if kind == "tf32x3":
+                hp, wp = self.split(h), self.split(w, transpose=True)
+                rc = lib.fused_ce_tf32x3_launch(
+                    hp[0].data_ptr(), hp[1].data_ptr(), wp[0].data_ptr(),
+                    wp[1].data_ptr(), hp.shape[2], *rest)
+            elif kind == "wgmma":
+                rc = lib.fused_ce_wgmma_launch(h.data_ptr(), w.data_ptr(),
+                                               *rest)
             else:
-                rc = self._lib.fused_ce_launch(
-                    KERNEL_DTYPES.index(h.dtype), *args)
-        if rc != 0:
-            msg = self._lib.fused_ce_error(rc).decode()
-            raise RuntimeError(f"fused_ce {kind} kernel launch failed: "
-                               f"error {rc} ({msg})")
+                rc = lib.fused_ce_launch(h.data_ptr(), w.data_ptr(), *rest)
+        self._raise(rc, f"{kind} kernel")
         self.launches += 1
         self.launches_by_variant[kind] += 1
         return loss

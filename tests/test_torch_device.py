@@ -223,15 +223,17 @@ def test_kernel_launches_on_its_operands_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernel_matches_plain_on_card(cuda_device, dtype):
     """Kernel vs its plain version on the card, f32 sums on both sides in
-    another order: 1e-5 of the largest loss.  bf16 takes the tensor-core
-    kernel where TMA can load it (T, D and V no multiple of its 128 x 256
-    x 64 tile in the last three shapes) and the FFMA kernel at V = 100;
-    the launch count of the variant that ran rises by one."""
+    another order: 1e-5 of the largest loss.  float32 takes the 3xTF32
+    kernel at every shape (D = 37 included: its pre-pass pads); bf16 takes
+    the tensor-core kernel where TMA can load it (T, D and V no multiple of
+    its 128 x 256 x 64 tile in the last shapes) and the FFMA kernel at V =
+    100 and D = 37; the launch count of the variant that ran rises by
+    one."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for T, D, V, v_blk in [(64, 32, 256, 64), (32, 16, 100, 25),
                            (48, 64, 512, 512), (100, 40, 1000, None),
                            (200, 96, 1000, None), (300, 136, 4104, None),
-                           (128, 64, 4096, 512)]:
+                           (128, 64, 4096, 512), (72, 37, 515, None)]:
         h = torch.randn(T, D, generator=gen, device=cuda_device).to(dtype)
         w = (torch.randn(D, V, generator=gen, device=cuda_device)
              * 0.05).to(dtype)
@@ -239,8 +241,10 @@ def test_fused_ce_kernel_matches_plain_on_card(cuda_device, dtype):
                                dtype=torch.int32)
         labels[0] = V  # out of range: gold logit 0
         kind = fc.variant(h, w)
-        assert kind == ("wgmma" if dtype == torch.bfloat16 and V != 100
-                        else "ffma")
+        if dtype == torch.float32:
+            assert kind == "tf32x3"
+        else:
+            assert kind == ("ffma" if V == 100 or D == 37 else "wgmma")
         before = fc.KERNEL.launches
         by_variant = dict(fc.KERNEL.launches_by_variant)
         got = fc.fused_ce_forward(h, w, labels, v_blk=v_blk)
@@ -250,6 +254,26 @@ def test_fused_ce_kernel_matches_plain_on_card(cuda_device, dtype):
         torch.cuda.synchronize()
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_tf32_split_kernel_matches_plain_bit_for_bit(cuda_device, transpose):
+    """The 3xTF32 pre-pass against its plain version on a ragged shape
+    (neither side a multiple of the kernel's 32 x 32 tile or of 4), with
+    signed zeros, a tie, a subnormal and infinities among the values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(37, 515, generator=gen, device=cuda_device) * 3
+    x.view(-1)[:7] = torch.tensor([0.0, -0.0, 1 + 2 ** -11, 2.0 ** -130
+                                   + 2.0 ** -137 + 2.0 ** -149,
+                                   float("inf"), float("-inf"), -1e-3])
+    before = fc.KERNEL.split_launches
+    got = fc.tf32_split(x, transpose)
+    assert fc.KERNEL.split_launches == before + 1
+    want = fc.tf32_split_ref(x, transpose)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

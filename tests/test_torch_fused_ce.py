@@ -2,12 +2,15 @@
 (``repro/kernels/fused_ce.py``), on the CPU: the plain forward (the kernel's
 split and combine) against the Pallas kernel in interpret mode and the dense
 loss, the gradients of ``fused_ce`` against ``jax.grad``, out-of-range
-labels, and the wrapper's checks."""
+labels, the wrapper's checks, and the 3xTF32 split of the float32 kernel
+(its plain version and the precision of three TF32 passes)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import fused_ce as ref
 
@@ -136,7 +139,7 @@ def test_split_width():
         fc.split_width(64, 256, 0, variant="wgmma")
 
 
-@pytest.mark.parametrize("kind", ["wgmma", "ffma"])
+@pytest.mark.parametrize("kind", ["wgmma", "tf32x3", "ffma"])
 def test_split_width_gives_whole_waves_at_full_width(kind):
     """At the LM head of qwen2-7b every SM runs the same number of blocks,
     each over the same number of vocab tiles."""
@@ -147,33 +150,39 @@ def test_split_width_gives_whole_waves_at_full_width(kind):
     blocks = -(-T // tile_t) * n_split
     assert width % tile_v == 0 and n_split * width == V
     assert blocks % (fc.SMS * fc.BLOCKS_PER_SM[kind]) == 0
-    if kind == "wgmma":
+    if kind in ("wgmma", "tf32x3"):
         assert (n_split, blocks) == (33, 1056)  # 8 waves of 132
 
 
 def test_variant_picks_the_tensor_cores_where_tma_can_load():
     """bf16 with 16-byte aligned bases and rows of a multiple of 16 bytes
-    goes to the tensor-core kernel; f32, a 200-byte row (V = 100) or a base
-    off 16 bytes goes to the FFMA kernel."""
+    goes to the tensor-core kernel, a 200-byte row (V = 100) or a base off
+    16 bytes to the FFMA kernel; every float32 input goes to the 3xTF32
+    kernel, whose pre-pass writes aligned, padded operands (D = 37, a base
+    off 16 bytes)."""
     def bf16(*shape):
         return torch.zeros(shape, dtype=torch.bfloat16)
 
     assert fc.variant(bf16(8, 32), bf16(32, 256)) == "wgmma"
     assert fc.variant(bf16(8, 8), bf16(8, 64)) == "wgmma"
-    assert fc.variant(bf16(8, 32).float(), bf16(32, 256).float()) == "ffma"
+    assert fc.variant(bf16(8, 32).float(), bf16(32, 256).float()) == "tf32x3"
     assert fc.variant(bf16(8, 16), bf16(16, 100)) == "ffma"
     assert fc.variant(bf16(8, 12), bf16(12, 256)) == "ffma"
     shifted = bf16(8 * 32 + 1)[1:].view(8, 32)  # 2 bytes past the base
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
     assert fc.variant(shifted, bf16(32, 256)) == "ffma"
+    f32 = torch.zeros(8 * 37 + 1)[1:].view(8, 37)  # 4 bytes past the base
+    assert f32.data_ptr() % 16 == 4
+    assert fc.variant(f32, torch.zeros(37, 515)) == "tf32x3"
 
 
-@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "wgmma"),
-                                        (torch.float32, "ffma")])
-def test_plain_version_splits_like_its_variant(dtype, kind):
+@pytest.mark.parametrize("dtype,V,kind", [(torch.bfloat16, 1000, "wgmma"),
+                                          (torch.float32, 1000, "tf32x3"),
+                                          (torch.bfloat16, 100, "ffma")])
+def test_plain_version_splits_like_its_variant(dtype, V, kind):
     """The plain version's partials cover the vocab ranges of the kernel
     that would take the same tensors on the card."""
-    T, D, V = 200, 96, 1000
+    T, D = 200, 96
     h, w, labels = _port(*_data(T, D, V, seed=4), dtype=dtype)
     assert fc.variant(h, w) == kind
     width = fc.split_width(T, V, variant=kind)
@@ -184,6 +193,112 @@ def test_plain_version_splits_like_its_variant(dtype, kind):
     # the last split holds only the columns up to V
     z = h.float() @ w[:, (len(m) - 1) * width:].float()
     torch.testing.assert_close(m[-1], z.amax(1))
+
+
+def _bits(x):
+    return x.view(torch.int32).numpy().astype(np.int64) & 0xFFFFFFFF
+
+
+def _split(x):
+    """hi and lo of a 1-D float32 tensor through the plain pre-pass."""
+    parts = fc.tf32_split_ref(x[None])
+    return parts[0, 0, :len(x)], parts[1, 0, :len(x)]
+
+
+def test_tf32_split_parts_are_tf32_values():
+    """hi and lo keep 10 mantissa bits: their low 13 bits are zero, over
+    many binades and both signs, so the tensor core takes them exactly."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(4096) * 2.0 ** rng.integers(-60, 60, 4096))
+    hi, lo = _split(torch.from_numpy(x.astype(np.float32)))
+    assert not (_bits(hi) & 0x1FFF).any() and not (_bits(lo) & 0x1FFF).any()
+    assert (hi != 0).all() and torch.isfinite(lo).all()
+
+
+def test_tf32_split_rounds_to_nearest_ties_away_from_zero():
+    one = 1.0
+    ulp = 2.0 ** -10  # of TF32 at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2**-23,
+                      one + 3 * ulp / 2, 2.0 - ulp / 4],
+                     dtype=torch.float32)
+    hi, lo = _split(x)
+    assert hi.tolist() == [one + ulp, -(one + ulp), one, one + 2 * ulp, 2.0]
+    # lo is what hi left, rounded the same way (2**-11 - 2**-23 needs 13
+    # bits: it rounds to 2**-11)
+    assert lo.tolist() == [-ulp / 2, ulp / 2, ulp / 2, -ulp / 2, -ulp / 4]
+
+
+def test_tf32_split_signed_zeros_subnormals_and_non_finite():
+    """Zeros keep their sign in hi (lo is +0: x - hi); a subnormal rounds
+    on its bit pattern like any other value (so below 2**-136 its parts
+    lose what a TF32 subnormal cannot hold); inf and NaN give hi = x and
+    lo = 0, so hi + lo is x again."""
+    sub = 2.0 ** -130 + 2.0 ** -137 + 2.0 ** -149  # bits 0x80000 + 0x1001
+    x = torch.tensor([0.0, -0.0, sub, -sub, float("inf"), float("-inf"),
+                      float("nan")], dtype=torch.float32)
+    assert _bits(x)[2] == 0x81001
+    hi, lo = _split(x)
+    assert _bits(hi)[:2].tolist() == [0, 0x80000000]
+    assert _bits(lo)[:2].tolist() == [0, 0]
+    assert _bits(hi)[2:4].tolist() == [0x82000, 0x80082000]
+    # x - hi = -(2**-137 - 2**-149): 4095 in the low 13 bits, below the tie
+    assert _bits(lo)[2:4].tolist() == [0x80000000, 0]
+    assert hi[4:6].tolist() == [float("inf"), float("-inf")]
+    assert torch.isnan(hi[6]) and lo[4:].tolist() == [0.0, 0.0, 0.0]
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.floats(min_value=2.0 ** -100, max_value=2.0 ** 126,
+                          width=32), min_size=1, max_size=64),
+       st.lists(st.booleans(), min_size=64, max_size=64))
+def test_tf32_split_error_is_below_2_to_the_minus_22(mags, signs):
+    """|x - hi - lo| <= 2**-22 |x| wherever hi and lo stay normal (the
+    magnitudes drawn keep lo, about 2**-11 |x|, above the subnormals and
+    hi below the float32 overflow)."""
+    x = torch.tensor([m if s else -m for m, s in zip(mags, signs)],
+                     dtype=torch.float32)
+    hi, lo = _split(x)
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+
+
+def test_tf32_split_layout_pads_and_transposes():
+    """``tf32_split`` on a CPU tensor is the plain version: (2, R, Cp), or
+    (2, C, Rp) transposed, rows padded with zeros to a multiple of 4."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (5, 37)).astype(np.float32))
+    parts = fc.tf32_split(x)
+    tparts = fc.tf32_split(x, transpose=True)
+    assert tuple(parts.shape) == (2, 5, 40) and tuple(tparts.shape) == (2,
+                                                                        37, 8)
+    assert not parts[:, :, 37:].any() and not tparts[:, :, 5:].any()
+    assert torch.equal(tparts[:, :, :5], parts[:, :, :37].transpose(1, 2))
+    err = (x.double() - parts[0, :, :37].double() - parts[1, :, :37].double())
+    assert (err.abs() <= 2.0 ** -22 * x.double().abs()).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.KERNEL.split(x)
+
+
+def test_three_tf32_passes_keep_float32_digits():
+    """The kernel's arithmetic emulated in float64 from the split parts,
+    hi@hi + hi@lo + lo@hi (exact products, sums rounded far below float32),
+    gives the loss within 1e-6 of the float64 dense loss at qwen2-7b's D;
+    one pass (hi@hi, TF32 alone) misses it by two orders of magnitude."""
+    T, D, V = 64, 3584, 2048
+    h, w, labels = _data(T, D, V, seed=7)
+    hh, hl = fc.tf32_split_ref(torch.from_numpy(h)).double()
+    wh, wl = fc.tf32_split_ref(torch.from_numpy(w)).double()
+    lab = torch.from_numpy(labels).long()
+
+    def loss(z):
+        return torch.logsumexp(z, 1) - z[torch.arange(T), lab]
+
+    dense = loss(torch.from_numpy(h).double() @ torch.from_numpy(w).double())
+    scale = dense.abs().max()
+    three = loss(hh @ wh + hh @ wl + hl @ wh)
+    one = loss(hh @ wh)
+    assert (three - dense).abs().max() <= 1e-6 * scale
+    assert (one - dense).abs().max() > 1e-4 * scale
 
 
 @pytest.mark.parametrize("T,D,V,tb,vb", SHAPES)
