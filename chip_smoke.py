@@ -62,7 +62,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in both
      tensor-core kernels, the float32 one in their ``.TF32`` form
      (``cuobjdump`` beside nvcc); their counts and the kernels' registers
-     and stack are printed.
+     and stack are printed;
+  9. ``res.run_batch`` on ``"auto"`` (:func:`batch_cells`: j3d27pt n=256
+     f32 B=8, derivative n=128 f64 B=8 with per-example scalars,
+     hdifft_gm 2048x2048 f32 B=16, j3d27pt n=64 f32 B=256; the first
+     three as many elements as their phase-4 cells, the last half as
+     many): the selection must be ``"hopper"``,
+     the call must launch K1 exactly once (the batch on ``blockIdx.y``),
+     every example must equal ``res.run`` of it on the card bit for bit,
+     and the batch the ``"torch"`` batched evaluator within ``plan``; the
+     batched kernel, a loop of B ``run`` calls, the ``"torch"`` batched
+     evaluator and (j3d27pt) ``F.conv3d`` with N = B are timed (CUDA
+     events, median of 10 after a warm-up) beside the bytes bound, and
+     each schedule is printed.  Then ``torch.autograd.grad`` through
+     ``run_batch`` for j3d27pt_b8: each adjoint spec's kernel launches
+     once for the batch, each example's gradient is held against ``run``'s
+     within ``grad``, and the batched backward, a loop of B backwards and
+     the adjoint kernels are timed;
+ 10. second order: a Hessian-vector product of ``sum(run(u)**2)`` for
+     j3d27pt n=256 f32 on ``"auto"`` against plain autograd of the
+     ``"torch"`` evaluator within ``grad``; every executor of the second
+     backward must be K1's, and its J^T step (the forward's adjoint) and
+     its J v step (the adjoint of that adjoint) must each launch; both
+     products are timed.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -172,18 +194,29 @@ def library_call(case, env):
     poisson adds a second array (``fp``) to a convolution of ``u``,
     derivative differentiates products of two fields, and hdifft_gm sums
     box filters of two fields (``T`` and ``S``); each needs a second call
-    or a stacked copy of its inputs."""
+    or a stacked copy of its inputs.  With a leading batch axis (phase 9)
+    the call is ``F.conv3d`` with N = B, where every example has the same
+    scalars (else None)."""
     if case.name != "j3d27pt":
         return None
     import torch
     import torch.nn.functional as F
 
     u = env["u"]
+    scal = {k: env[k].reshape(-1) for k in ("jc0", "jc1", "jc2", "jc3",
+                                             "jnorm")}
+    if u.dim() == 4:  # a batch: one conv3d with N = B needs one weight set
+        if not all(bool((v == v[0]).all()) for v in scal.values()):
+            return None
     w = torch.empty((3, 3, 3), dtype=torch.float64)
     for di, dk, dj in itertools.product((-1, 0, 1), repeat=3):
         c = (di != 0) + (dk != 0) + (dj != 0)
-        w[di + 1, dk + 1, dj + 1] = float(env[f"jc{c}"]) / float(env["jnorm"])
+        w[di + 1, dk + 1, dj + 1] = (float(scal[f"jc{c}"][0])
+                                     / float(scal["jnorm"][0]))
     w = w.to(device=u.device, dtype=u.dtype)[None, None]
+    if u.dim() == 4:
+        x = u[:, None]
+        return lambda: {"j27": F.conv3d(x, w)[:, 0]}
     x = u[None, None]
     return lambda: {"j27": F.conv3d(x, w)[0, 0]}
 
@@ -709,6 +742,289 @@ def ce_full_width(torch) -> list:
     return lines
 
 
+def batch_cells():
+    """The cells of phase 9: (label, case, dtype, B), each with as many
+    elements as its phase-4 cell (so the same bytes bound)."""
+    import numpy as np
+
+    from repro_torch.apps import get_case
+    from repro_torch.apps.paper_kernels import pop_hdifft_gm
+
+    return [("j3d27pt_b8", get_case("j3d27pt", 256), np.float32, 8),
+            ("derivative_b8", get_case("derivative", 128), np.float64, 8),
+            ("hdifft_gm_b16", pop_hdifft_gm(2048, 2048), np.float32, 16),
+            ("j3d27pt_b256", get_case("j3d27pt", 64), np.float32, 256)]
+
+
+def batch_envs(case, dt, B: int) -> list:
+    """``B`` numpy envs of the case, outputs left out: arrays from seeds
+    0..B-1; j3d27pt's scalars from seed 0 in every example (so that one
+    ``F.conv3d`` with N = B computes the batch), other cases' per example."""
+    from repro_torch.testing import build_env
+
+    outs = {st.lhs.name for st in case.program.body}
+    envs = [{k: v for k, v in build_env(case, dt, seed=b).items()
+             if k not in outs} for b in range(B)]
+    if case.name == "j3d27pt":
+        for e in envs[1:]:
+            e.update({k: envs[0][k] for k in case.scalars})
+    return envs
+
+
+def batch_main(label, case, dt, B, res, torch) -> dict:
+    """Phase 9 for one cell: ``res.run_batch`` on ``"auto"``; returns its
+    kernel line."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+    from repro_torch.core.executor import stack_envs, stacked_signature
+    from repro_torch.testing import default_tolerances, rel_err
+
+    dname = np.dtype(dt).name
+    stacked = stack_envs(batch_envs(case, dt, B), DEVICE)
+    sig = stacked_signature(stacked)
+    ex = compile_plan(res.plan, sig, device=DEVICE)
+    if ex.backend != "hopper":
+        raise SystemExit(f"{label}: auto selected {ex.backend}: "
+                         f"{ex.selection.capability.explain()}")
+    ex.spec.launches = 0
+    got = res.run_batch(stacked, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ex.kernel_launches
+    if launches != 1:
+        raise SystemExit(f"{label}: run_batch launched {launches} kernels, "
+                         f"want 1")
+    examples = [{k: v[b] for k, v in stacked.items()} for b in range(B)]
+    for b, env in enumerate(examples):
+        per = res.run(env, device=DEVICE)
+        if not all(torch.equal(got[k][b], per[k]) for k in per):
+            raise SystemExit(f"{label}: example {b} of run_batch differs "
+                             f"from run")
+    del per
+    ex_t = compile_plan(res.plan, sig, "torch", device=DEVICE)
+    plain = ex_t.run_batch(stacked)
+    torch.cuda.synchronize()
+    e_plan = rel_err(got, plain)
+    max_abs = max(float((got[k].double() - plain[k].double()).abs().max())
+                  for k in plain)
+    tol = default_tolerances(dt)["plan"]
+    if e_plan > tol:
+        raise SystemExit(f"{label}: run_batch vs torch batched {e_plan:.2e} "
+                         f"> {tol:.0e}")
+    del plain
+    lib = library_call(case, stacked)
+    if lib is not None:
+        e_lib = rel_err(lib(), got)
+        torch.cuda.synchronize()
+        lib_tol = default_tolerances(dt)["baseline"]
+        print(f"library {label}: conv3d N={B} vs hopper {e_lib:.2e} (<= "
+              f"{lib_tol:.0e})", flush=True)
+        if e_lib > lib_tol:
+            raise SystemExit(f"{label}: library call vs hopper {e_lib:.2e} "
+                             f"> {lib_tol:.0e}")
+    del got
+    kernel_ms = _time_ms(lambda: ex.run_batch(stacked), torch)
+    loop_ms = _time_ms(lambda: [ex(env) for env in examples], torch)
+    torch_ms = _time_ms(lambda: ex_t.run_batch(stacked), torch)
+    library_ms = None if lib is None else _time_ms(lib, torch)
+    nbytes, ops = plan_work(res.plan, examples[0], np.dtype(dt).itemsize)
+    bound_ms, by = bound_of(nbytes * B, ops * B, PEAK_FLOPS[dname])
+    tp = ex.spec.tp
+    geo = tp.geometry
+    print(f"batch-schedule {label}: stream level {geo.s_level}, plane tile "
+          f"{tuple(geo.tile[l - 1] for l in geo.order)} (levels "
+          f"{geo.order}), segment {geo.seg}, warm-up {-geo.k0}, blocks per "
+          f"example {geo.n_tiles}, ring depths "
+          f"{ {r.name: r.depth for r in geo.rings} }, smem {tp.smem_bytes} "
+          f"B, aux_evals_per_point {tp.aux_evals_per_point:.3f}", flush=True)
+    print(f"batch {label} {dname} B={B} "
+          f"{tuple(stacked[tp.operands[0].name].shape)}: "
+          f"selection hopper, launches {launches} (grid y = B), bit-equal "
+          f"to run per example; kernel_ms {kernel_ms:.4f}, loop of {B} runs "
+          f"ms {loop_ms:.4f}, torch batched ms {torch_ms:.4f}, library_ms "
+          f"{library_ms}, bytes {nbytes * B}, bound_ms {bound_ms:.4f} ({by}),"
+          f" share of bound {bound_ms / kernel_ms:.3f}, vs torch "
+          f"{e_plan:.2e}, max_abs_err {max_abs:.3e}", flush=True)
+    return dict(name=f"race_stencil[{label}]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273", launches=launches,
+                max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
+                run_loop_ms=loop_ms, batch=B)
+
+
+def batch_grad(label, case, dt, B, res, torch) -> dict:
+    """Phase 9's gradient: ``torch.autograd.grad`` through ``run_batch``;
+    the adjoint kernels launch once per spec, each example's gradient is
+    held against ``run``'s; returns the adjoint kernels' line."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
+    from repro_torch.core.executor import stack_envs, stacked_signature
+    from repro_torch.testing import default_tolerances, rel_err
+
+    dname = np.dtype(dt).name
+    stacked = stack_envs(batch_envs(case, dt, B), DEVICE)
+    keys = sorted(k for k, v in stacked.items() if v.is_floating_point())
+    p = {k: stacked[k].clone().requires_grad_() for k in keys}
+    out = res.run_batch({**stacked, **p}, device=DEVICE)
+    g = cos_weights(out, torch)
+    adj = []
+    for spec in adjoint_build(case.program).specs:
+        a = assemble_adjoint_env(spec, stacked, g)
+        adj.append((spec, a, compile_plan(spec.result().plan,
+                                          stacked_signature(a),
+                                          device=DEVICE)))
+    if not all(ex.backend == "hopper" for _, _, ex in adj):
+        raise SystemExit(f"{label}: an adjoint spec is not on the kernel")
+    for _, _, ex in adj:
+        ex.spec.launches = 0
+
+    def bwd():
+        return torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
+                                   [g[k] for k in g], retain_graph=True)
+
+    grads = dict(zip(keys, bwd()))
+    torch.cuda.synchronize()
+    launched = [ex.kernel_launches for _, _, ex in adj]
+    if launched != [1] * len(adj):
+        raise SystemExit(f"{label}: batched backward launches per spec "
+                         f"{launched}, want 1 each")
+    tol = default_tolerances(dt)["grad"]
+    per_bwd, err = [], 0.0
+    for b in range(B):
+        q = {k: stacked[k][b].clone().requires_grad_() for k in keys}
+        o = res.run({**{k: v[b] for k, v in stacked.items()}, **q},
+                    device=DEVICE)
+        gb = {k: v[b] for k, v in g.items()}
+        per_bwd.append((o, q, gb))
+        want = torch.autograd.grad([o[k] for k in gb], [q[k] for k in keys],
+                                   [gb[k] for k in gb], retain_graph=True)
+        err = max(err, rel_err({k: grads[k][b] for k in keys},
+                               dict(zip(keys, want))))
+    if err > tol:
+        raise SystemExit(f"{label}: batched gradients vs run's {err:.2e} > "
+                         f"{tol:.0e}")
+    del grads
+    backward_ms = _time_ms(bwd, torch)
+    loop_ms = _time_ms(lambda: [torch.autograd.grad(
+        [o[k] for k in gb], [q[k] for k in keys], [gb[k] for k in gb],
+        retain_graph=True) for o, q, gb in per_bwd], torch)
+    kernel_ms = torch_ms = 0.0
+    nbytes = ops = 0
+    max_abs = 0.0
+    itemsize = np.dtype(dt).itemsize
+    for spec, a, ex in adj:
+        kernel_ms += _time_ms(lambda: ex.run_batch(a), torch)
+        ex_t = compile_plan(spec.result().plan, stacked_signature(a),
+                            "torch", device=DEVICE)
+        torch_ms += _time_ms(lambda: ex_t.run_batch(a), torch)
+        k_out, t_out = ex.run_batch(a), ex_t.run_batch(a)
+        max_abs = max(max_abs, max(float((k_out[k].double()
+                                          - t_out[k].double()).abs().max())
+                                   for k in t_out))
+        b_, o_ = plan_work(spec.result().plan,
+                           {k: v[0] for k, v in a.items()}, itemsize)
+        nbytes, ops = nbytes + b_ * B, ops + o_ * B
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
+    print(f"batch-grad {label} {dname} B={B}: adjoint specs {len(adj)}, all "
+          f"on the kernel, launches per spec {launched}; backward_ms "
+          f"{backward_ms:.4f}, loop of {B} backwards ms {loop_ms:.4f}; "
+          f"adjoint kernels kernel_ms {kernel_ms:.4f}, torch batched ms "
+          f"{torch_ms:.4f}, bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
+          f"share of bound {bound_ms / kernel_ms:.3f}; grads vs run's "
+          f"{err:.2e} (<= {tol:.0e}), adjoint max_abs_err {max_abs:.3e}",
+          flush=True)
+    return dict(name=f"race_stencil[{label} adjoint]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273",
+                launches=sum(launched), max_abs_err=max_abs, ms=kernel_ms,
+                plain_ms=torch_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None, batch=B)
+
+
+def hvp_check(case, dt, res, torch) -> None:
+    """Phase 10: a Hessian-vector product of ``sum(run(u)**2)`` through
+    ``res.run`` on ``"auto"`` against the same product by plain autograd of
+    the ``"torch"`` evaluator, within ``grad``.  Every executor of the
+    second backward must be K1's, and both of its steps must launch: the
+    J^T step (the forward's adjoint) and the J v step (the adjoint of that
+    adjoint)."""
+    import numpy as np
+
+    from repro_torch import compile_plan, executor_cache, plan_hash
+    from repro_torch.core.adjoint import COTANGENT_PREFIX, adjoint_build
+    from repro_torch.core.codegen import build_plan_evaluator, interior
+    from repro_torch.testing import default_tolerances, rel_err
+
+    env = {k: torch.as_tensor(v, device=DEVICE)
+           for k, v in batch_envs(case, dt, 1)[0].items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    v = torch.randn(env["u"].shape, generator=gen, device=DEVICE,
+                    dtype=env["u"].dtype)
+    plan_run = build_plan_evaluator(res.plan)
+    fwd = compile_plan(res.plan, env)
+    if fwd.backend != "hopper":
+        raise SystemExit(f"hvp: auto selected {fwd.backend}")
+
+    def first(run):
+        u = env["u"].clone().requires_grad_()
+        out = run({**env, "u": u})
+        (g,) = torch.autograd.grad(sum((o * o).sum() for o in out.values()),
+                                   u, create_graph=True)
+        return u, g
+
+    def hvp(run):
+        u, g = first(run)
+        return torch.autograd.grad(g, u, v)[0]
+
+    auto = lambda e: res.run(e, device=DEVICE)  # noqa: E731
+    plain = lambda e: interior(res.plan, plan_run(e))  # noqa: E731
+    u, g = first(auto)
+    # the J^T step (the forward's adjoint for u) and the J v step (the
+    # adjoint of that adjoint for its cotangent input)
+    spec = adjoint_build(case.program).spec_for("u")
+    steps = {"J^T": spec.result().plan}
+    for st in case.program.body:
+        s = adjoint_build(spec.program).spec_for(COTANGENT_PREFIX
+                                                 + st.lhs.name)
+        steps[f"J v ({s.input})"] = s.result().plan
+    cache = executor_cache()
+    for ex in cache.executors():  # counts zeroed just before the run
+        ex.calls = ex.batch_calls = 0
+        if ex.spec is not None:
+            ex.spec.launches = 0
+    (h,) = torch.autograd.grad(g, u, v)
+    torch.cuda.synchronize()
+    ran = [ex for ex in cache.executors() if ex.calls + ex.batch_calls]
+    off = [plan_hash(ex.plan) for ex in ran if ex.backend != "hopper"]
+    if off:
+        raise SystemExit(f"hvp: the second backward ran plans {off} off K1")
+    launches = {name: sum(ex.kernel_launches for ex in ran
+                          if plan_hash(ex.plan) == plan_hash(pl))
+                for name, pl in steps.items()}
+    if min(launches.values()) < 1:
+        raise SystemExit(f"hvp: a step of the second backward launched no "
+                         f"K1 kernel: {launches}")
+    second = sum(ex.kernel_launches for ex in ran)
+    want = hvp(plain)
+    torch.cuda.synchronize()
+    tol = default_tolerances(dt)["grad"]
+    err = rel_err({"u": h}, {"u": want})
+    if h is None or err > tol:
+        raise SystemExit(f"hvp: auto vs torch {err:.2e} > {tol:.0e}")
+    del u, g, h, want
+    auto_ms = _time_ms(lambda: hvp(auto), torch)
+    plain_ms = _time_ms(lambda: hvp(plain), torch)
+    print(f"hvp {case.name} {np.dtype(dt).name} {tuple(env['u'].shape)}: "
+          f"K1 launches in the second backward {second} {launches}, "
+          f"executors {len(ran)}, all on K1, hvp_ms "
+          f"{auto_ms:.4f} (forward, backward with create_graph, backward), "
+          f"plain autograd of the torch evaluator ms {plain_ms:.4f}, vs "
+          f"torch {err:.2e} (<= {tol:.0e})", flush=True)
+
+
 def full_size_cells():
     """The four cells of phases 4 and 6: (case, dtype)."""
     import numpy as np
@@ -900,7 +1216,9 @@ def main() -> int:
     grad_cases = [(case, res) for case, lvl, dt, res in sweep
                   if lvl == case.reassociate and dt is np.float32]
 
+    marks = [(1, t_start)]  # (phase, start) for the phase seconds
     # ---- phase 2: build ----------------------------------------------------
+    marks.append((2, time.time()))
     sources = []
     for case, _, dt, res in sweep + [(c, None, d, r) for c, d, r in main_runs]:
         shapes = required_shapes(case.program)
@@ -910,6 +1228,16 @@ def main() -> int:
         sources += adjoint_sources(case, res, np.float32)
     for case, dt, res in main_runs:
         sources += adjoint_sources(case, res, dt)
+    batch_runs = [(label, case, dt, B, race(case.program,
+                                            reassociate=case.reassociate))
+                  for label, case, dt, B in batch_cells()]
+    for _, case, dt, _, res in batch_runs:
+        shapes = required_shapes(case.program)
+        sources.append(specialize_stencil(
+            res.plan, shapes, {k: np.dtype(dt).name for k in shapes}).source)
+    # the batched gradient and the HVP (phases 9-10): j3d27pt n=256 f32
+    sources += adjoint_sources(batch_runs[0][1], batch_runs[0][4],
+                               np.float32)
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -917,6 +1245,7 @@ def main() -> int:
           f"{time.time() - t0:.1f} s", flush=True)
 
     # ---- phase 3: kernel vs plain version ----------------------------------
+    marks.append((3, time.time()))
     failures = []
     for case, lvl, dt, res in sweep:
         tol = default_tolerances(dt)
@@ -944,6 +1273,7 @@ def main() -> int:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
 
     # ---- phase 4: main path at full size ----------------------------------
+    marks.append((4, time.time()))
     kernels, schedules = [], []
     for case, dt, res in main_runs:
         dname = np.dtype(dt).name
@@ -1025,23 +1355,43 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- phase 5: gradient sweep -------------------------------------------
+    marks.append((5, time.time()))
     failures = grad_sweep(grad_cases, torch)
     if failures:
         raise SystemExit("phase 5 failed:\n" + "\n".join(failures))
 
     # ---- phase 6: gradient at full size ------------------------------------
+    marks.append((6, time.time()))
     for case, dt, res in main_runs:
         kernels.append(grad_full_size(case, dt, res, torch))
         torch.cuda.empty_cache()
 
     # ---- phase 7: fused cross-entropy sweep --------------------------------
+    marks.append((7, time.time()))
     failures = ce_sweep(torch)
     if failures:
         raise SystemExit("phase 7 failed:\n" + "\n".join(failures))
 
     # ---- phase 8: fused cross-entropy at full width ------------------------
+    marks.append((8, time.time()))
     kernels += ce_full_width(torch)
 
+    # ---- phase 9: run_batch at full width, forward and gradient -----------
+    marks.append((9, time.time()))
+    for label, case, dt, B, res in batch_runs:
+        kernels.append(batch_main(label, case, dt, B, res, torch))
+        torch.cuda.empty_cache()
+    label, case, dt, B, res = batch_runs[0]
+    kernels.append(batch_grad(label, case, dt, B, res, torch))
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: second order (a Hessian-vector product) -----------------
+    marks.append((10, time.time()))
+    hvp_check(case, dt, res, torch)
+
+    marks.append((None, time.time()))
+    print("phase seconds: " + ", ".join(
+        f"{ph} {t1 - t0:.1f}" for (ph, t0), (_, t1) in zip(marks, marks[1:])))
     print(f"total seconds: {time.time() - t_start:.1f}")
     # the schedule each phase-4 kernel ran, from its TileProgram (worked
     # out, not measured)

@@ -10,14 +10,17 @@ same module paths.  Entry points run on ``cuda`` unless the caller passes
     from repro_torch.apps import get_case
     res = race(get_case("j3d27pt", 512).program, reassociate=3)
     out = res.run(env)                  # backend "auto": the Hopper kernel
+    outs = res.run_batch(envs)          # one launch, the batch on the grid
 """
 from .core.backend import (BACKENDS, BackendUnavailable, Capability,
                            Selection, probe_hopper, select_backend)
-from .core.executor import (compile_plan, env_signature, executor_cache,
-                            plan_hash, program_hash)
+from .core.executor import (cache_stats, clear_cache, compile_plan,
+                            configure_cache, env_signature, executor_cache,
+                            plan_hash, program_hash, stacked_signature)
 from .core.race import RaceResult, race
 
 __all__ = ["BACKENDS", "BackendUnavailable", "Capability", "RaceResult",
-           "Selection", "compile_plan", "env_signature", "executor_cache",
-           "plan_hash", "probe_hopper", "program_hash", "race",
-           "select_backend"]
+           "Selection", "cache_stats", "clear_cache", "compile_plan",
+           "configure_cache", "env_signature", "executor_cache", "plan_hash",
+           "probe_hopper", "program_hash", "race", "select_backend",
+           "stacked_signature"]

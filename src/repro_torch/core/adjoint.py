@@ -21,8 +21,13 @@ Hopper stencil kernel.
     :func:`~.executor.compile_plan` under the default backend, sum the
     broadcast axes, and embed the result into input-shaped zeros.
     :class:`~.executor.CompiledRace` installs it as a
-    ``torch.autograd.Function``, so ``RaceResult.run`` differentiates with
-    no change to its API.
+    ``torch.autograd.Function``, so ``RaceResult.run`` and ``run_batch``
+    differentiate with no change to their API.  With ``batched`` every env
+    entry and cotangent carries a leading batch axis: pads and sums act on
+    the per-example dimensions only, and the adjoint plans run through
+    ``run_batch``.  Every step is a differentiable torch op or an executor
+    call, so under ``create_graph`` the backward differentiates again (the
+    reference's backward is plain JAX).
 
 Unlike the reference, an integer or unread input gets ``None`` (torch has no
 ``float0``), and only the inputs autograd asks for are computed.
@@ -312,10 +317,18 @@ def _gate_lhs(program: Program) -> None:
                 raise AdjointUnsupported(
                     READ_AFTER_WRITE,
                     f"{st.lhs.name} reads output {r.name}")
-            if (r.name.startswith(COTANGENT_PREFIX)
-                    or r.name.startswith(ADJOINT_PREFIX)):
-                raise AdjointUnsupported(
-                    LHS_FORM, f"reserved name {r.name!r} in program")
+    # an adjoint program reads the cotangents and the inputs and writes one
+    # accumulator, so those names must not be names the program reads;
+    # names that merely carry the prefixes are fine, so an adjoint program
+    # differentiates again (second order runs the adjoint of an adjoint on
+    # the kernel)
+    reads = {r.name for st in program.body for r in expr_refs(st.rhs)}
+    made = ({COTANGENT_PREFIX + nm for nm in outs}
+            | {ADJOINT_PREFIX + nm for nm in reads})
+    clash = sorted(made & reads)
+    if clash:
+        raise AdjointUnsupported(
+            LHS_FORM, f"reserved name {clash[0]!r} in program")
 
 
 def _input_layout(uname: str, entries: list) -> tuple:
@@ -397,8 +410,8 @@ def _assemble_spec(program: Program, uname: str, loops: list, terms: list,
         ndim = max(dims) + 1
         plo = [pad_lo[nm][d] for d in range(ndim)]
         smax = [dims[d][1] + plo[d] for d in range(ndim)]  # post-shift max
-        if nm.startswith(COTANGENT_PREFIX):
-            src = nm[len(COTANGENT_PREFIX):]
+        src = nm[len(COTANGENT_PREFIX):]
+        if nm.startswith(COTANGENT_PREFIX) and src in by_lhs:
             st = by_lhs[src]
             # cotangent canvases have static interior extents
             ext = [full[s.s][1] - full[s.s][0] + 1 for s in st.lhs.subs]
@@ -575,7 +588,9 @@ def assemble_adjoint_env(spec: InputSpec, env: Mapping, g: Mapping) -> dict:
     """One adjoint plan's env from the forward env and the cotangents, per
     the spec's feed recipe: zero-padded cotangent canvases, ones-padded
     coefficient arrays, scalars as they are.  Every entry is contiguous (a
-    cotangent from autograd may be an expanded view)."""
+    cotangent from autograd may be an expanded view).  Pads act on the
+    trailing, per-example dimensions, so a batch axis in front passes
+    through."""
     adj_env = {}
     for kind, src, adj_name, pads in spec.feeds:
         if kind == "scalar":
@@ -587,8 +602,9 @@ def assemble_adjoint_env(spec: InputSpec, env: Mapping, g: Mapping) -> dict:
         else:  # coefficient array: ones-fill keeps divisions finite where
             # the zero cotangent already annihilates the padded terms
             arr = env[src]
+            lead = arr.dim() - len(pads)
             padspec = tuple(
-                (plo, max(0, smax + 1 - (plo + arr.shape[d])))
+                (plo, max(0, smax + 1 - (plo + arr.shape[lead + d])))
                 for d, (plo, smax) in enumerate(pads))
             if any(lo or hi for lo, hi in padspec):
                 arr = F.pad(arr, _torch_pads(padspec), value=1)
@@ -620,30 +636,41 @@ def adjoint_env_shapes(spec: InputSpec, program: Program,
 def finalize_adjoint(spec: InputSpec, env: Mapping, val):
     """Shape one adjoint plan's raw output back into the input's geometry:
     sum away broadcast levels, match the primal dtype (``None`` for an
-    integer input), and embed the access hull into input-shaped zeros."""
+    integer input), and embed the access hull into input-shaped zeros.
+    Leading (batch) dimensions of ``val`` and the primal are kept: a
+    batched scalar's gradient is ``(B,)``."""
     primal = env[spec.input]
     if not primal.is_floating_point():
         return None
     if spec.sum_axes:
-        val = val.sum(dim=spec.sum_axes)
+        lead = val.dim() - len(spec.program.loops)
+        val = val.sum(dim=tuple(lead + a for a in spec.sum_axes))
     val = val.to(primal.dtype)
     shape = tuple(primal.shape)
-    if not shape or all(lo == 0 and hi + 1 == shape[d]
-                        for d, (lo, hi) in enumerate(spec.embed)):
+    rank = len(spec.embed)
+    if all(lo == 0 and hi + 1 == shape[d - rank]
+           for d, (lo, hi) in enumerate(spec.embed)):
         return val
     canvas = torch.zeros(shape, dtype=primal.dtype, device=primal.device)
-    canvas[tuple(slice(lo, hi + 1) for lo, hi in spec.embed)] = val
+    canvas[(Ellipsis,) + tuple(slice(lo, hi + 1)
+                               for lo, hi in spec.embed)] = val
     return canvas
 
 
 def _run_spec(spec: InputSpec, env: Mapping, g: Mapping,
-              backend: Optional[str] = None):
-    from .executor import compile_plan
+              backend: Optional[str] = None, batched: bool = False):
+    from .executor import compile_plan, stacked_signature
 
     res = spec.result()
     adj_env = assemble_adjoint_env(spec, env, g)
-    ex = compile_plan(res.plan, adj_env, backend)
-    val = ex(adj_env)[spec.gu]
+    if batched:  # the executor of the per-example signature, as run's
+        dev = next(iter(adj_env.values())).device
+        ex = compile_plan(res.plan, stacked_signature(adj_env), backend,
+                          device=dev)
+        val = ex.run_batch(adj_env)[spec.gu]
+    else:
+        ex = compile_plan(res.plan, adj_env, backend)
+        val = ex(adj_env)[spec.gu]
     return finalize_adjoint(spec, env, val)
 
 
@@ -651,22 +678,29 @@ _baseline_memo: dict = {}
 
 
 def _autodiff_backward(program: Program, env: Mapping, g: Mapping,
-                       wrt: Iterable[str]) -> dict:
-    """Fallback VJP: autograd through the *baseline* evaluator, interior
-    sliced (association may differ from the executed plan, but gradients
-    agree at the harness's ``grad`` tolerance)."""
+                       wrt: Iterable[str], batched: bool = False) -> dict:
+    """Fallback VJP: autograd through the *baseline* evaluator (vmapped
+    when ``batched``), interior sliced (association may differ from the
+    executed plan, but gradients agree at the harness's ``grad``
+    tolerance).  Under ``create_graph`` (grad on in the caller) the inputs
+    are not detached and the gradients keep their graph."""
     from .executor import program_hash
 
-    h = program_hash(program)
-    run = _baseline_memo.get(h)
+    key = (program_hash(program), batched)
+    run = _baseline_memo.get(key)
     if run is None:
         from .codegen import build_baseline_evaluator
 
-        run = _baseline_memo[h] = build_baseline_evaluator(program)
+        run = build_baseline_evaluator(program)
+        if batched:
+            run = torch.func.vmap(run)
+        _baseline_memo[key] = run
     full = program.ranges()
     keys = [k for k in wrt if env[k].is_floating_point()]
+    create = torch.is_grad_enabled()
     with torch.enable_grad():
-        leaves = {k: (v.detach().requires_grad_() if k in keys else v)
+        leaves = {k: (v if create and v.requires_grad
+                      else v.detach().requires_grad_()) if k in keys else v
                   for k, v in env.items()}
         out = run(dict(leaves))
         outs = []
@@ -674,30 +708,34 @@ def _autodiff_backward(program: Program, env: Mapping, g: Mapping,
             sl = tuple(slice(full[s.s][0] + _as_int(s.b),
                              full[s.s][1] + _as_int(s.b) + 1)
                        for s in st.lhs.subs)
-            outs.append(out[st.lhs.name][sl])
+            outs.append(out[st.lhs.name][(Ellipsis,) + sl])
         grads = torch.autograd.grad(
             outs, [leaves[k] for k in keys],
-            [g[st.lhs.name] for st in program.body], allow_unused=True)
+            [g[st.lhs.name] for st in program.body], allow_unused=True,
+            create_graph=create)
     return dict(zip(keys, grads))
 
 
 def backward(program: Program, env: Mapping, g: Mapping, *,
              backend: Optional[str] = None,
-             wrt: Optional[Iterable[str]] = None) -> dict:
+             wrt: Optional[Iterable[str]] = None,
+             batched: bool = False) -> dict:
     """VJP of the program's interior-convention outputs w.r.t. ``env``.
 
     ``g`` maps output names to cotangents; ``wrt`` names the inputs wanted
     (default: all).  Returns ``{name: gradient or None}`` for every env
     entry: ``None`` for integer, unread and unwanted inputs.  ``backend``
-    runs the adjoint plans (``None``: ``$RACE_BACKEND`` or ``"auto"``)."""
+    runs the adjoint plans (``None``: ``$RACE_BACKEND`` or ``"auto"``).
+    ``batched``: every entry of ``env`` and ``g`` carries a leading batch
+    axis, and the adjoint plans run through ``run_batch``."""
     wrt = list(env) if wrt is None else [k for k in env if k in set(wrt)]
     if adjoint_mode() == "autodiff":
-        grads = _autodiff_backward(program, env, g, wrt)
+        grads = _autodiff_backward(program, env, g, wrt, batched)
     else:
         build = adjoint_build(program)
         if not build.ok:
-            grads = _autodiff_backward(program, env, g, wrt)
+            grads = _autodiff_backward(program, env, g, wrt, batched)
         else:
-            grads = {s.input: _run_spec(s, env, g, backend)
+            grads = {s.input: _run_spec(s, env, g, backend, batched)
                      for s in build.specs if s.input in wrt}
     return {k: grads.get(k) for k in env}

@@ -161,9 +161,8 @@ def _write_stmt(st: Stmt, value, out: dict, env: dict, ranges: dict,
         base = out[name]
     elif name in env:
         base = torch.as_tensor(env[name]).clone()
-    else:
-        base = torch.zeros(tuple(r.stop for r in region), dtype=value.dtype,
-                           device=value.device)
+    else:  # new_zeros: under vmap a batched value makes a batched canvas
+        base = value.new_zeros(tuple(r.stop for r in region))
     base[tuple(region)] = value.to(base.dtype)
     out[name] = base
 
@@ -190,6 +189,45 @@ def build_plan_evaluator(plan: Plan):
         return out
 
     return run
+
+
+def build_batched_evaluator(plan: Plan):
+    """The plan's evaluator over a leading batch dimension of every env
+    entry (scalars as ``(B,)``), interior convention: ``torch.func.vmap``
+    of the per-example evaluator, so ``out[name][b]`` is the per-example
+    output of ``env[...][b]``."""
+    run = build_plan_evaluator(plan)
+    return torch.func.vmap(lambda env: interior(plan, run(env)))
+
+
+def build_evaluator(plan: Plan, backend: str = "auto", *, device=None,
+                    block_rows: int = 0, block_cols: int = 0,
+                    block_inner: int = 0):
+    """Backend-dispatching evaluator factory for a plan.
+
+    Returns ``(run, selection)``: ``run(env)`` moves ``env`` to ``device``
+    (``None``: cuda, as every entry point) and yields interior-convention
+    outputs on the resolved backend; ``selection`` says which backend was
+    chosen and, on an ``"auto"`` fallback, why the kernel was refused.
+    Where the plan takes the kernel, ``run`` goes through the executor
+    cache under the request (the kernel's wrapper, or its tile emulator on
+    the CPU; ``"auto"`` still falls back on the env's dtypes); otherwise it
+    is the plain evaluator."""
+    from .backend import select_backend
+    from .executor import compile_plan, env_to_torch, resolve_device
+
+    sel = select_backend(plan, backend)
+    plan_run = build_plan_evaluator(plan)
+
+    def run(env: dict) -> dict:
+        env = env_to_torch(env, resolve_device(device))
+        if sel.backend == "hopper":
+            return compile_plan(plan, env, backend, block_rows=block_rows,
+                                block_cols=block_cols,
+                                block_inner=block_inner)(env)
+        return interior(plan, plan_run(env))
+
+    return run, sel
 
 
 def build_baseline_evaluator(program: Program):

@@ -6,6 +6,7 @@ execution behind one call (paper Fig. 3 workflow).  Port of
     result = race(program, reassociate=3)       # n-ary path (Section 7)
     out = result.run(env)                       # on cuda; device="cpu" asks
                                                 # for the CPU
+    outs = result.run_batch([env0, env1])       # (B, ...) per output
 
 ``reassociate`` levels follow Section 7.1 (see the reference module).
 """
@@ -85,6 +86,28 @@ class RaceResult:
                           block_rows=block_rows, block_cols=block_cols,
                           block_inner=block_inner)
         return ex(env)
+
+    def run_batch(self, envs, backend: Optional[str] = None, *, device=None,
+                  block_rows: int = 0, block_cols: int = 0,
+                  block_inner: int = 0):
+        """Batched execution: ``envs`` is a sequence of same-signature envs
+        or a stacked dict whose every entry carries a leading batch axis
+        (scalars as ``(B,)``).  Returns ``{output name: (B, ...) tensor}``
+        with ``out[name][b] == run(envs[b])[name]``, on ``device`` as
+        :meth:`run` (``None``: cuda, raising without a GPU).  ``run`` and
+        ``run_batch`` share one executor: it is keyed on the per-example
+        signature.  On ``"hopper"`` the batch is one kernel launch, the
+        examples on the grid's second axis."""
+        from .executor import (compile_plan, resolve_device, stack_envs,
+                               stacked_signature)
+
+        dev = resolve_device(device)
+        stacked = stack_envs(envs, dev)
+        ex = compile_plan(self.plan, stacked_signature(stacked),
+                          backend or self.options["backend"], device=dev,
+                          block_rows=block_rows, block_cols=block_cols,
+                          block_inner=block_inner)
+        return ex.run_batch(stacked)
 
     # --- pretty ------------------------------------------------------------
     def to_source(self) -> str:

@@ -45,6 +45,11 @@ both.  What the design does about the bytes (a 2.5-D streaming kernel):
     evaluated once per thread into registers at the top of the kernel;
   * in-plane offsets are 32-bit where they fit, plane bases 64-bit, and
     each ring's slot base rotates once per step;
+  * a batch (``run_batch``; the reference's ``jax.vmap`` over
+    ``pallas_call``) is the grid's second axis: ``blockIdx.y`` is the
+    example, each pointer moves by its per-example count, and the rank-0
+    aux, evaluated from that example's scalars, are per example.  The
+    schedule is the per-example one at every batch size;
   * constants are emitted at full double precision as ``scalar_t(<repr>)``
     (the reference Pallas kernel rounds every constant to float32).
 
@@ -71,8 +76,13 @@ from .geometry import kernel_analysis
 #: the launcher's dtype code is the position in this table
 KERNEL_DTYPES = {"float32": 4, "float64": 8}
 
-_TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+#: examples one launch takes: CUDA's limit on ``gridDim.y``
+MAX_GRID_Y = 65535
 _FUNCS = ("sin", "cos", "exp", "log", "sqrt", "tanh", "abs")
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
 
 
 def dtype_reasons(dtypes) -> list:
@@ -109,11 +119,17 @@ class Operand:
 
 @dataclass(frozen=True)
 class Output:
-    """One body statement's interior output, in its own dimension order."""
+    """One body statement's interior output, in its own dimension order.
+
+    The kernel computes it at the operand dtype; ``dtype`` is the dtype the
+    wrapper returns: the env's output array's where the env carries one (as
+    the ``"torch"`` backend, which writes into a copy of that array), else
+    the operand dtype."""
 
     name: str
     levels: tuple  # loop level of each output dimension
     shape: tuple
+    dtype: str
 
 
 @dataclass(frozen=True)
@@ -143,6 +159,14 @@ class TileProgram:
     @property
     def smem_bytes(self) -> int:
         return self.smem_elems * KERNEL_DTYPES[self.dtype]
+
+    @property
+    def example_elems(self) -> tuple:
+        """``(operand elements, output elements, scalars)`` of one example:
+        the strides of the batch axis (each operand's and output's pointer
+        moves by its count per example, the scalars' by theirs)."""
+        return (tuple(prod(o.shape) for o in self.operands),
+                tuple(prod(o.shape) for o in self.outputs), len(self.scalars))
 
     @property
     def aux_evals_per_point(self) -> float:
@@ -215,7 +239,8 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
     for st in plan.body:
         levels = tuple(s.s for s in st.lhs.subs)
         outputs.append(Output(st.lhs.name, levels,
-                              tuple(geo.extents[l - 1] for l in levels)))
+                              tuple(geo.extents[l - 1] for l in levels),
+                              str(dtypes.get(st.lhs.name, dtype))))
     return TileProgram(geometry=geo, dtype=dtype, operands=tuple(operands),
                        scalars=scalars, scalar_aux=scalar_aux,
                        outputs=tuple(outputs), aux_exprs=aux_exprs,
@@ -395,8 +420,13 @@ def render_cuda(tp: TileProgram) -> str:
     """CUDA C++ source of the plan's kernel and its ``extern "C"`` launcher.
 
     The launcher is ``int race_stencil_launch(int dtype, const void* const*
-    ins, void* const* outs, const void* scalars, void* stream)``: dtype is 0
-    for float and 1 for double; it returns ``cudaGetLastError()``."""
+    ins, void* const* outs, const void* scalars, int batch, void* stream)``:
+    dtype is 0 for float and 1 for double; it returns
+    ``cudaGetLastError()``.  The grid is ``(tiles, batch)``: ``blockIdx.y``
+    is the example, and every operand, output and scalar pointer moves by
+    its per-example count (:attr:`TileProgram.example_elems`, constants of
+    the signature) times ``blockIdx.y``, in 64 bits.  A single run passes
+    ``batch`` 1, so one source serves every batch size."""
     g = tp.geometry
     m, s = g.m, g.s_level
     n_in, n_out = len(tp.operands), len(tp.outputs)
@@ -421,13 +451,17 @@ def render_cuda(tp: TileProgram) -> str:
             "  extern __shared__ __align__(16) unsigned char race_smem[];",
             "  scalar_t* const smem = reinterpret_cast<scalar_t*>(race_smem);",
         ]
+    in_elems, out_elems, n_sc = tp.example_elems
+    lines.append("  const long long bz = blockIdx.y;  // the example")
     for k in range(n_in):
         lines.append(f"  const scalar_t* const __restrict__ in{k} = "
-                     f"args.in[{k}];")
+                     f"args.in[{k}] + bz * {in_elems[k]}LL;")
     for k in range(n_out):
-        lines.append(f"  scalar_t* const __restrict__ out{k} = args.out[{k}];")
-    for k in range(len(tp.scalars)):
-        lines.append(f"  const scalar_t sc{k} = args.scalars[{k}];")
+        lines.append(f"  scalar_t* const __restrict__ out{k} = args.out[{k}] "
+                     f"+ bz * {out_elems[k]}LL;")
+    for k in range(n_sc):
+        lines.append(f"  const scalar_t sc{k} = args.scalars[bz * {n_sc}LL + "
+                     f"{k}];")
     for k, (nm, e) in enumerate(tp.scalar_aux):
         lines.append(f"  const scalar_t ra{k} = {_Box(tp, None).expr(e)};  "
                      f"// {nm}")
@@ -438,7 +472,7 @@ def render_cuda(tp: TileProgram) -> str:
                      f"{g.nb[l - 1]};")
     lines.append(f"  const int z0 = {g.lo[s - 1] if s else 0} + bid * "
                  f"{g.seg};")
-    lines.append("  (void)bid; (void)z0;")
+    lines.append("  (void)bid; (void)z0; (void)bz;")
 
     def evaluate(key: int, dst: str) -> list:
         box = _Box(tp, key)
@@ -535,7 +569,7 @@ def render_cuda(tp: TileProgram) -> str:
         "template <typename scalar_t>",
         "int launch(const void* const* ins, void* const* outs, "
         "const void* scalars,",
-        "           cudaStream_t stream) {",
+        "           int batch, cudaStream_t stream) {",
         f"  RaceArgs<scalar_t, {n_in}, {n_out}> a;",
         f"  for (int k = 0; k < {n_in}; ++k) "
         "a.in[k] = static_cast<const scalar_t*>(ins[k]);",
@@ -550,8 +584,9 @@ def render_cuda(tp: TileProgram) -> str:
         "static_cast<int>(smem));",
         "    if (err != cudaSuccess) return static_cast<int>(err);",
         "  }",
-        f"  race_stencil_kernel<scalar_t><<<{g.n_tiles}u, {g.threads}, "
-        "smem, stream>>>(a);",
+        f"  const dim3 grid({g.n_tiles}u, static_cast<unsigned>(batch));",
+        f"  race_stencil_kernel<scalar_t><<<grid, {g.threads}, smem, "
+        "stream>>>(a);",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
         "",
@@ -561,10 +596,14 @@ def render_cuda(tp: TileProgram) -> str:
         "ins,",
         "                                   void* const* outs, "
         "const void* scalars,",
-        "                                   void* stream) {",
+        "                                   int batch, void* stream) {",
         "  const cudaStream_t s = static_cast<cudaStream_t>(stream);",
-        "  if (dtype == 0) return launch<float>(ins, outs, scalars, s);",
-        "  if (dtype == 1) return launch<double>(ins, outs, scalars, s);",
+        "  if (batch < 1 || batch > 65535) "
+        "return static_cast<int>(cudaErrorInvalidValue);",
+        "  if (dtype == 0) return launch<float>(ins, outs, scalars, batch, "
+        "s);",
+        "  if (dtype == 1) return launch<double>(ins, outs, scalars, batch, "
+        "s);",
         "  return static_cast<int>(cudaErrorInvalidValue);",
         "}",
         "",
@@ -587,7 +626,7 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
     :func:`render_cuda` and read the schedule from ``tp.geometry``."""
     g = tp.geometry
     m, s, B = g.m, g.s_level, g.n_tiles
-    dt = _TORCH_DTYPES[tp.dtype]
+    dt = _torch_dtype(tp.dtype)
     data = {o.name: env[o.name] for o in tp.operands}
     dev = data[tp.operands[0].name].device
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -712,7 +751,8 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
                        for l, st in zip(o.levels, strides))
             flat = flat.expand([B] + list(body_widths))
             out.view(-1)[flat[keep]] = val[keep]
-    return {o.name: out for o, out in zip(tp.outputs, outs)}
+    return {o.name: out.to(_torch_dtype(o.dtype))
+            for o, out in zip(tp.outputs, outs)}
 
 
 # ---------------------------------------------------------------------------
@@ -724,19 +764,38 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
 _SYMBOLS = {
     "race_stencil_launch": (ctypes.c_int, [
         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]),
     "race_stencil_error": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+def batch_chunks(batch: int) -> list:
+    """``(first example, examples)`` of each launch of a batch: one launch
+    per :data:`MAX_GRID_Y` examples."""
+    if batch < 1:
+        raise ValueError(f"a batch needs at least one example, got {batch}")
+    return [(b, min(MAX_GRID_Y, batch - b))
+            for b in range(0, batch, MAX_GRID_Y)]
+
+
+def chunk_pointers(ptrs, elems, itemsize: int, first: int) -> list:
+    """Base pointers of the launch whose first example is ``first``: each
+    base moved by that many examples of its per-example element count."""
+    return [p + first * n * itemsize for p, n in zip(ptrs, elems)]
 
 
 class LoweredStencil:
     """One plan specialized for one environment signature: the kernel's
     wrapper.
 
-    :meth:`apply` runs :func:`emulate` when the operands lie on the CPU, and
-    launches the compiled kernel when they lie on a CUDA device — or raises:
-    there is no fallback from the card to the emulator.  ``launches`` counts
-    this wrapper's kernel launches."""
+    :meth:`apply` runs one example and :meth:`apply_batch` a batch whose
+    every env entry carries a leading batch axis (scalars as ``(B,)``).
+    Both run :func:`emulate` (per example) when the operands lie on the CPU,
+    and launch the compiled kernel when they lie on a CUDA device — or
+    raise: there is no fallback from the card to the emulator.  A batch is
+    one launch per :data:`MAX_GRID_Y` examples.  ``launches`` counts this
+    wrapper's kernel launches."""
 
     def __init__(self, tp: TileProgram):
         self.tp = tp
@@ -745,18 +804,30 @@ class LoweredStencil:
         self._lib = None
 
     def apply(self, env: Mapping) -> dict:
-        tp = self.tp
-        ins = [env[o.name] for o in tp.operands]
+        ins = [env[o.name] for o in self.tp.operands]
         if all(t.device.type == "cpu" for t in ins):
-            return emulate(tp, env)
-        return self._launch(env, ins)
+            return emulate(self.tp, env)
+        return self._launch(env, ins, None)
 
     __call__ = apply
 
-    def _launch(self, env: Mapping, ins: list) -> dict:
+    def apply_batch(self, env: Mapping) -> dict:
         tp = self.tp
+        ins = [env[o.name] for o in tp.operands]
+        batch = ins[0].shape[0]
+        if all(t.device.type == "cpu" for t in ins):
+            outs = [emulate(tp, {k: v[b] for k, v in env.items()})
+                    for b in range(batch)]
+            return {o.name: torch.stack([out[o.name] for out in outs])
+                    for o in tp.outputs}
+        return self._launch(env, ins, batch)
+
+    def _launch(self, env: Mapping, ins: list, batch) -> dict:
+        """Launch on the operands' card; ``batch`` None for one example."""
+        tp = self.tp
+        lead = () if batch is None else (batch,)
         dev = ins[0].device
-        dt = _TORCH_DTYPES[tp.dtype]
+        dt = _torch_dtype(tp.dtype)
         for o, t in zip(tp.operands, ins):
             if t.device != dev or dev.type != "cuda":
                 raise ValueError(
@@ -765,37 +836,50 @@ class LoweredStencil:
             if t.dtype != dt:
                 raise ValueError(f"{o.name} is {t.dtype}, the kernel was "
                                  f"specialized for {dt}")
-            if tuple(t.shape) != o.shape:
+            if tuple(t.shape) != lead + o.shape:
                 raise ValueError(f"{o.name} has shape {tuple(t.shape)}, the "
-                                 f"kernel was specialized for {o.shape}")
+                                 f"kernel was specialized for "
+                                 f"{lead + o.shape}")
             if not t.is_contiguous():
                 raise ValueError(f"{o.name} is not contiguous")
+        for nm in tp.scalars:
+            if tuple(env[nm].shape) != lead:
+                raise ValueError(f"scalar {nm} has shape "
+                                 f"{tuple(env[nm].shape)}, want {lead}")
         if self._lib is None:
             from ..kernels.build import load
 
             self._lib = load(self.source, _SYMBOLS)
+        in_elems, out_elems, n_sc = tp.example_elems
+        itemsize = KERNEL_DTYPES[tp.dtype]
         # the launcher's runtime calls act on the thread's current device
         with torch.cuda.device(dev):
             scal = None
-            if tp.scalars:
-                scal = torch.stack([torch.as_tensor(env[nm]).to(
-                    device=dev, dtype=dt) for nm in tp.scalars])
-            outs = [torch.empty(o.shape, dtype=dt, device=dev)
+            if n_sc:  # (B, n_scalars), or (n_scalars,) for one example
+                scal = torch.stack([env[nm].to(device=dev, dtype=dt)
+                                    for nm in tp.scalars], dim=-1)
+            outs = [torch.empty(lead + o.shape, dtype=dt, device=dev)
                     for o in tp.outputs]
-            in_ptrs = (ctypes.c_void_p * len(ins))(
-                *[t.data_ptr() for t in ins])
-            out_ptrs = (ctypes.c_void_p * len(outs))(
-                *[t.data_ptr() for t in outs])
-            rc = self._lib.race_stencil_launch(
-                list(KERNEL_DTYPES).index(tp.dtype), in_ptrs, out_ptrs,
-                None if scal is None else scal.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            msg = self._lib.race_stencil_error(rc).decode()
-            raise RuntimeError(f"race stencil kernel launch failed: CUDA "
-                               f"error {rc} ({msg})")
-        self.launches += 1
-        return {o.name: t for o, t in zip(tp.outputs, outs)}
+            in_base = [t.data_ptr() for t in ins]
+            out_base = [t.data_ptr() for t in outs]
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for first, count in batch_chunks(batch or 1):
+                in_ptrs = (ctypes.c_void_p * len(ins))(
+                    *chunk_pointers(in_base, in_elems, itemsize, first))
+                out_ptrs = (ctypes.c_void_p * len(outs))(
+                    *chunk_pointers(out_base, out_elems, itemsize, first))
+                sc_ptr = None if scal is None else chunk_pointers(
+                    [scal.data_ptr()], [n_sc], itemsize, first)[0]
+                rc = self._lib.race_stencil_launch(
+                    list(KERNEL_DTYPES).index(tp.dtype), in_ptrs, out_ptrs,
+                    sc_ptr, count, stream)
+                if rc != 0:
+                    msg = self._lib.race_stencil_error(rc).decode()
+                    raise RuntimeError(f"race stencil kernel launch failed: "
+                                       f"CUDA error {rc} ({msg})")
+                self.launches += 1
+        return {o.name: t.to(_torch_dtype(o.dtype))
+                for o, t in zip(tp.outputs, outs)}
 
 
 def specialize_stencil(plan: Plan, shapes: Mapping, dtypes: Mapping,

@@ -307,3 +307,133 @@ def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
                                [g[k].double() for k in g])
     tol = default_tolerances(np.float32)["grad"]
     assert rel_err(dict(zip(keys, grads)), dict(zip(keys, want))) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [np.float32, np.float64])
+def test_run_batch_on_card_is_one_launch_equal_to_run(cuda_device, dt):
+    """``run_batch`` on the card: one K1 launch for the batch (the examples
+    on ``blockIdx.y``, per-example scalars), each example bit for bit
+    ``run`` of it (the same schedule), the batch the ``"torch"`` batched
+    evaluator within ``plan``."""
+    case = get_case("j3d27pt", 2 * SWEEP_SIZES["j3d27pt"])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    envs = [build_env(case, dt, seed=s) for s in range(3)]
+    stacked = executor.stack_envs(envs, cuda_device)
+    ex = repro_torch.compile_plan(res.plan,
+                                  executor.stacked_signature(stacked),
+                                  "hopper", device=cuda_device)
+    before = ex.kernel_launches
+    got = res.run_batch(stacked, "hopper")
+    assert ex.kernel_launches == before + 1
+    for b in range(3):
+        example = {k: v[b] for k, v in stacked.items()}
+        per = res.run(example, "hopper")
+        assert torch.equal(got["j27"][b], per["j27"])
+    # run and run_batch share the executor: the batch's launch and the
+    # three single ones are all its own
+    assert repro_torch.compile_plan(res.plan, example, "hopper") is ex
+    assert ex.kernel_launches == before + 4
+    want = res.run_batch(stacked, "torch")
+    torch.cuda.synchronize()
+    assert rel_err(got, want) <= default_tolerances(dt)["plan"]
+
+
+@pytest.mark.cuda
+def test_output_dtype_on_card_follows_the_env_output_array(cuda_device):
+    case = get_case("hdifft_gm", 2 * SWEEP_SIZES["hdifft_gm"])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    outs = {st.lhs.name for st in case.program.body}
+    env = {k: (v.astype(np.float64) if k in outs else v)
+           for k, v in build_env(case).items()}
+    got = res.run(env, "hopper")
+    want = res.run(env, "torch")
+    torch.cuda.synchronize()
+    assert {v.dtype for v in got.values()} == {torch.float64}
+    assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]
+
+
+@pytest.mark.cuda
+def test_batched_grad_launches_each_adjoint_kernel_once(cuda_device):
+    """``torch.autograd.grad`` through ``run_batch``: each adjoint spec's
+    kernel launches once for the whole batch, and each example's gradient
+    equals ``run``'s within ``grad``."""
+    case = get_case("j3d27pt", 2 * SWEEP_SIZES["j3d27pt"])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    stacked = executor.stack_envs([build_env(case, seed=s) for s in range(3)],
+                                  cuda_device)
+    stacked.pop("j27")
+    keys = sorted(stacked)
+    p = {k: stacked[k].clone().requires_grad_() for k in keys}
+    out = res.run_batch(p)
+    g = {k: torch.cos(torch.arange(v.numel(), device=cuda_device,
+                                   dtype=v.dtype)).reshape(v.shape)
+         for k, v in out.items()}
+    adj = []
+    for s in adjoint.adjoint_build(case.program).specs:
+        a = adjoint.assemble_adjoint_env(s, stacked, g)
+        adj.append(repro_torch.compile_plan(
+            s.result().plan, executor.stacked_signature(a),
+            device=cuda_device))
+    assert all(ex.backend == "hopper" for ex in adj)
+    before = [ex.kernel_launches for ex in adj]
+    grads = torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
+                                [g[k] for k in g])
+    torch.cuda.synchronize()
+    assert [ex.kernel_launches - b for ex, b in zip(adj, before)] == [1] * len(
+        adj)
+    tol = default_tolerances(np.float32)["grad"]
+    for b in range(3):
+        q = {k: stacked[k][b].clone().requires_grad_() for k in keys}
+        o = res.run(q)
+        want = torch.autograd.grad([o[k] for k in g], [q[k] for k in keys],
+                                   [g[k][b] for k in g])
+        assert rel_err({k: x[b] for k, x in zip(keys, grads)},
+                       dict(zip(keys, want))) <= tol
+
+
+@pytest.mark.cuda
+def test_hvp_launches_the_kernel_in_the_second_backward(cuda_device):
+    """A Hessian-vector product through ``res.run`` on the card: every
+    executor of the second backward is K1's, the J^T step (the forward's
+    adjoint) and the J v step (the adjoint of that adjoint) each launch,
+    and the product equals plain autograd of the ``"torch"`` evaluator
+    within ``grad``."""
+    case = get_case("j3d27pt", 2 * SWEEP_SIZES["j3d27pt"])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    env = env_to_torch(build_env(case), cuda_device)
+    env.pop("j27")
+    v = torch.cos(torch.arange(env["u"].numel(), device=cuda_device,
+                               dtype=env["u"].dtype)).reshape(env["u"].shape)
+    from repro_torch.core.codegen import build_plan_evaluator
+
+    plan_run = build_plan_evaluator(res.plan)
+
+    def first(run):
+        u = env["u"].clone().requires_grad_()
+        out = run({**env, "u": u})
+        (g,) = torch.autograd.grad(sum((o * o).sum() for o in out.values()),
+                                   u, create_graph=True)
+        return u, g
+
+    u, g = first(res.run)
+    spec = adjoint.adjoint_build(case.program).spec_for("u")
+    spec2 = adjoint.adjoint_build(spec.program).spec_for(
+        adjoint.COTANGENT_PREFIX + "j27")
+    cache = executor.executor_cache()
+    before = {id(ex): (ex.calls, ex.kernel_launches)
+              for ex in cache.executors()}
+    (h,) = torch.autograd.grad(g, u, v)
+    torch.cuda.synchronize()
+    ran = [ex for ex in cache.executors()
+           if ex.calls > before.get(id(ex), (0, 0))[0]]
+    assert {ex.backend for ex in ran} == {"hopper"}
+    launched = {repro_torch.plan_hash(ex.plan) for ex in ran
+                if ex.kernel_launches > before.get(id(ex), (0, 0))[1]}
+    assert {repro_torch.plan_hash(s.result().plan)
+            for s in (spec, spec2)} <= launched
+    u2, g2 = first(lambda e: interior(res.plan, plan_run(e)))
+    (want,) = torch.autograd.grad(g2, u2, v)
+    torch.cuda.synchronize()
+    assert rel_err({"u": h}, {"u": want}) <= default_tolerances(
+        np.float32)["grad"]

@@ -16,7 +16,10 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 def test_import_loads_no_jax_and_no_repro():
     code = ("import sys, repro_torch, repro_torch.apps, repro_torch.testing, "
             "repro_torch.kernels.build, repro_torch.kernels.fused_ce, "
-            "repro_torch.core.adjoint, repro_torch.lowering.emit\n"
+            "repro_torch.core.adjoint, repro_torch.lowering.emit, "
+            "repro_torch.kernels.ops, repro_torch.kernels.ref, "
+            "repro_torch.kernels.race_stencil, repro_torch.core.integration"
+            "\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
