@@ -84,7 +84,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``"torch"`` evaluator within ``grad``; every executor of the second
      backward must be K1's, and its J^T step (the forward's adjoint) and
      its J v step (the adjoint of that adjoint) must each launch; both
-     products are timed.
+     products are timed;
+ 11. the capture frontend (:func:`twin_cells`): each plain-Python twin of
+     ``apps/frontend_kernels.py`` wrapped in ``race_kernel`` and run on
+     ``"auto"`` at full size (calc_tpoints and hdifft_gm 8192x8192,
+     psinv, resid and j3d27pt n=512, poisson n=512, all f32).  The
+     selection must be ``"hopper"`` with exactly one launch (zeroed just
+     before), the output bit-equal to ``race(case.program).run(env)`` on
+     the card, with the same plan hash and source digest, and within
+     ``baseline`` of the float64 baseline program; the kernel is timed
+     beside its plain version, the library call where there is one and
+     its bound, and printed beside the cell's phase-4 time.  Then, with
+     ``obs.configure(enabled=True)``, the j3d27pt twin is captured,
+     traced, run three times and differentiated (fresh executors and
+     adjoint build), ``obs.dump`` writes ``build/obs/OBS_metrics.json``,
+     and ``python -m repro_torch.obs.report`` must find every span of
+     :data:`OBS_SPANS` (it writes the Chrome trace
+     ``build/obs/OBS_trace.json`` and prints the span summary).  Last,
+     the host's µs per call of 256 calls each of the executor's ``run``,
+     ``res.run`` and ``race_kernel.run`` on one j3d27pt_b256 example
+     (n = 64) with obs off and on, in turns (off, on, on, off, twice),
+     and the medians.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -109,6 +129,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -153,6 +174,11 @@ TILE_SWEEP = {
 #: ``--tf32-sweep``: (FLUSH, STAGES) of the 3xTF32 kernel; a FLUSH past the
 #: 224 slabs of D = 3584 flushes once, at each tile's end
 TF32_SWEEP = [(8, 4), (16, 4), (32, 4), (1 << 20, 4), (8, 3), (8, 5)]
+#: the spans phase 11's traced run must record (``--require-spans``)
+OBS_SPANS = ("capture,detect,contract,lower,compile,run,adjoint_build,"
+             "adjoint_backward")
+#: ``run`` calls per obs setting in phase 11's host-cost measurement
+OBS_CALLS = 256
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -1164,6 +1190,213 @@ def tf32_sweep(torch) -> None:
                   f"vs float64 {e64:.2e}", flush=True)
 
 
+def twin_cells():
+    """The cells of phase 11, one per plain-Python twin
+    (``repro_torch.apps.frontend_kernels.TWINS``): (case, dtype) at the
+    sizes of K1's full-size cells."""
+    import numpy as np
+
+    from repro_torch.apps import get_case
+    from repro_torch.apps.paper_kernels import (pop_calc_tpoints,
+                                                pop_hdifft_gm)
+
+    return [(pop_calc_tpoints(8192, 8192), np.float32),
+            (pop_hdifft_gm(8192, 8192), np.float32),
+            (get_case("psinv", 512), np.float32),
+            (get_case("resid", 512), np.float32),
+            (get_case("j3d27pt", 512), np.float32),
+            (get_case("poisson", 512), np.float32)]
+
+
+def twin_main(case, dt, res, phase4_ms, torch) -> dict:
+    """Phase 11 for one twin: ``race_kernel(twin).run(env)`` on ``"auto"``
+    against the DSL case's ``res`` on the card; returns its kernel line."""
+    import numpy as np
+
+    from repro_torch import compile_plan, plan_hash, program_hash
+    from repro_torch import race_kernel
+    from repro_torch.apps.frontend_kernels import TWINS
+    from repro_torch.core.codegen import interior
+    from repro_torch.kernels.build import library_path
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.testing import (build_env, default_tolerances,
+                                     env_to_torch, rel_err)
+
+    name, dname = case.name, np.dtype(dt).name
+    tol = default_tolerances(dt)
+    kern = race_kernel(TWINS[name], reassociate=case.reassociate)
+    env = env_to_torch(build_env(case, dt, seed=0), DEVICE)
+    shapes = {k: tuple(v.shape) for k, v in env.items()}
+    t_res = kern.trace(shapes)  # capture, detection, contraction
+    if program_hash(t_res.program) != program_hash(case.program):
+        raise SystemExit(f"twin {name}: captured program differs from the "
+                         f"DSL case's")
+    ex = compile_plan(t_res.plan, env)
+    if ex.backend != "hopper":
+        raise SystemExit(f"twin {name}: auto selected {ex.backend}: "
+                         f"{ex.selection.capability.explain()}")
+    ex.spec.launches = 0
+    got = kern.run(env, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ex.kernel_launches
+    if launches != 1:
+        raise SystemExit(f"twin {name}: race_kernel.run launched {launches} "
+                         f"kernels, want 1")
+    ph = plan_hash(t_res.plan)
+    digest = library_path(ex.spec.source).stem
+    dsl_digest = library_path(specialize_stencil(
+        res.plan, shapes, {k: dname for k in shapes}).source).stem
+    if ph != plan_hash(res.plan) or digest != dsl_digest:
+        raise SystemExit(f"twin {name}: plan {ph} / source {digest} differ "
+                         f"from the DSL case's {plan_hash(res.plan)} / "
+                         f"{dsl_digest}")
+    want = res.run(env, device=DEVICE)
+    torch.cuda.synchronize()
+    if not all(torch.equal(got[k], want[k]) for k in want):
+        raise SystemExit(f"twin {name}: output differs from the DSL case's")
+    del want
+    env64 = {k: v.double() for k, v in env.items()}
+    truth = interior(res.plan, res.baseline_evaluator()(env64))
+    del env64
+    e_base = rel_err(got, truth)
+    del truth
+    if e_base > tol["baseline"]:
+        raise SystemExit(f"twin {name}: vs float64 baseline {e_base:.2e} > "
+                         f"{tol['baseline']:.0e}")
+    ex_t = compile_plan(res.plan, env, "torch")
+    plain = ex_t(env)
+    torch.cuda.synchronize()
+    e_plan = rel_err(got, plain)
+    max_abs = max(float((got[k].double() - plain[k].double()).abs().max())
+                  for k in plain)
+    del plain
+    if e_plan > tol["plan"]:
+        raise SystemExit(f"twin {name}: hopper vs torch {e_plan:.2e} > "
+                         f"{tol['plan']:.0e}")
+    lib = library_call(case, env)
+    if lib is not None:
+        e_lib = rel_err(lib(), got)
+        torch.cuda.synchronize()
+        if e_lib > tol["baseline"]:
+            raise SystemExit(f"twin {name}: library call vs hopper "
+                             f"{e_lib:.2e} > {tol['baseline']:.0e}")
+    del got
+    kernel_ms = _time_ms(lambda: ex(env), torch)
+    torch_ms = _time_ms(lambda: ex_t(env), torch)
+    library_ms = None if lib is None else _time_ms(lib, torch)
+    nbytes, ops = plan_work(res.plan, env, np.dtype(dt).itemsize)
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
+    p4 = "none" if phase4_ms is None else f"{phase4_ms:.4f}"
+    largest = max(shapes.values(), key=lambda shp: int(np.prod(shp)))
+    print(f"twin {name} {dname} {largest}: "
+          f"race_kernel on auto, selection hopper, launches {launches}, "
+          f"bit-equal to the DSL case (plan {ph}, source {digest[:16]}), "
+          f"vs float64 baseline {e_base:.2e} (<= {tol['baseline']:.0e}); "
+          f"kernel_ms {kernel_ms:.4f} (phase 4: {p4}), torch_ms "
+          f"{torch_ms:.4f}, library_ms {library_ms}, bound_ms "
+          f"{bound_ms:.4f} ({by}), share of bound "
+          f"{bound_ms / kernel_ms:.3f}, vs torch {e_plan:.2e}, max_abs_err "
+          f"{max_abs:.3e}", flush=True)
+    return dict(name=f"race_stencil[frontend:{name}]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273", launches=launches,
+                max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+
+
+def obs_trace(torch) -> None:
+    """Phase 11's traced run: the j3d27pt twin at n = 512 captured,
+    traced, run three times and differentiated with obs on (fresh
+    executors and adjoint build, so every phase records its span), dumped
+    to ``build/obs/OBS_metrics.json`` and checked by the report CLI."""
+    import numpy as np
+
+    from repro_torch import clear_cache, obs, race_kernel
+    from repro_torch.apps import get_case
+    from repro_torch.apps.frontend_kernels import TWINS
+    from repro_torch.core import adjoint
+    from repro_torch.testing import build_env, env_to_torch
+
+    case = get_case("j3d27pt", 512)
+    env = env_to_torch(build_env(case, np.float32, seed=0), DEVICE)
+    clear_cache()
+    adjoint._builds.clear()
+    obs.reset()
+    obs.configure(enabled=True)
+    kern = race_kernel(TWINS["j3d27pt"], reassociate=case.reassociate)
+    kern.trace({k: tuple(v.shape) for k, v in env.items()})
+    for _ in range(3):
+        kern.run(env, device=DEVICE)
+    u = env["u"].clone().requires_grad_()
+    out = kern.run({**env, "u": u}, device=DEVICE)
+    torch.autograd.grad(sum(v.sum() for v in out.values()), [u])
+    torch.cuda.synchronize()
+    obs.configure(enabled=False)
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dump = out_dir / "OBS_metrics.json"
+    obs.dump(dump)
+    obs.reset()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report", str(dump),
+         "--require-spans", OBS_SPANS, "--trace-out",
+         str(out_dir / "OBS_trace.json")],
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=300)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"obs report exited {proc.returncode}:\n"
+                         f"{proc.stderr}")
+
+
+def obs_cost(torch) -> None:
+    """Phase 11's host cost of obs: µs per call of :data:`OBS_CALLS` calls
+    of the executor's ``run``, ``res.run`` and ``race_kernel.run`` on one
+    j3d27pt_b256 example (n = 64), obs off and on in turns (off, on, on,
+    off, twice); each round's numbers, then the medians."""
+    import numpy as np
+
+    from repro_torch import compile_plan, obs, race, race_kernel
+    from repro_torch.apps import get_case
+    from repro_torch.apps.frontend_kernels import TWINS
+    from repro_torch.testing import build_env, env_to_torch
+
+    case = get_case("j3d27pt", 64)
+    env = env_to_torch(build_env(case, np.float32, seed=0), DEVICE)
+    res = race(case.program, reassociate=case.reassociate)
+    kern = race_kernel(TWINS["j3d27pt"], reassociate=case.reassociate)
+    ex = compile_plan(res.plan, env)
+    calls = {"executor.run": lambda: ex(env),
+             "res.run": lambda: res.run(env, device=DEVICE),
+             "race_kernel.run": lambda: kern.run(env, device=DEVICE)}
+
+    def per_call_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBS_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OBS_CALLS * 1e6
+
+    rounds = {False: [], True: []}
+    for on in (False, True, True, False) * 2:
+        obs.configure(enabled=on)
+        us = {label: per_call_us(fn) for label, fn in calls.items()}
+        rounds[on].append(us)
+        print(f"obs {'on ' if on else 'off'}: {OBS_CALLS} calls each, us "
+              f"per call: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                       us.items()), flush=True)
+    obs.reset()
+    for label in calls:
+        off = statistics.median(r[label] for r in rounds[False])
+        on = statistics.median(r[label] for r in rounds[True])
+        print(f"obs cost {label}: off {off:.2f} us, on {on:.2f} us per call "
+              f"(medians of {len(rounds[False])} rounds), on - off "
+              f"{on - off:.2f} us", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1238,6 +1471,13 @@ def main() -> int:
     # the batched gradient and the HVP (phases 9-10): j3d27pt n=256 f32
     sources += adjoint_sources(batch_runs[0][1], batch_runs[0][4],
                                np.float32)
+    # phase 11: the twins' plans (the same as their DSL cases')
+    twin_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
+                 for case, dt in twin_cells()]
+    for case, dt, res in twin_runs:
+        shapes = required_shapes(case.program)
+        sources.append(specialize_stencil(
+            res.plan, shapes, {k: np.dtype(dt).name for k in shapes}).source)
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -1388,6 +1628,17 @@ def main() -> int:
     # ---- phase 10: second order (a Hessian-vector product) -----------------
     marks.append((10, time.time()))
     hvp_check(case, dt, res, torch)
+
+    # ---- phase 11: the capture frontend, traced ----------------------------
+    marks.append((11, time.time()))
+    phase4_ms = {k["name"]: k["ms"] for k in kernels}
+    for case, dt, res in twin_runs:
+        kernels.append(twin_main(case, dt, res, phase4_ms.get(
+            f"race_stencil[{case.name}]"), torch))
+        torch.cuda.empty_cache()
+    obs_trace(torch)
+    torch.cuda.empty_cache()
+    obs_cost(torch)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

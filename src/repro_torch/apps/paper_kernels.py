@@ -506,16 +506,30 @@ TABLE1_ORDER = [
 ]
 
 
-def get_case(name: str, n: Optional[int] = None) -> Case:
-    """Build a registry case (the reference's ``via="frontend"`` route waits
-    for the port of the capture frontend)."""
+def get_case(name: str, n: Optional[int] = None, via: str = "dsl") -> Case:
+    """Build a registry case.
+
+    ``via="dsl"`` returns the hand-built program; ``via="frontend"`` routes
+    through the plain-Python twin in ``repro_torch.apps.frontend_kernels`` —
+    the program is captured from ordinary Python source by
+    ``repro_torch.frontend`` and checked identical to the hand-built one
+    (KeyError when the case has no twin yet).
+    """
+    if via not in ("dsl", "frontend"):
+        raise ValueError(f"unknown via {via!r}; choose 'dsl' or 'frontend'")
     fn, args, kw = CASES[name]
     if n is None:
-        return fn(*args, **kw)
-    if args:
-        return fn(*args, n)
-    # 2-D builders take (nx, ny) or (n)
-    try:
-        return fn(n)
-    except TypeError:
-        return fn(n, n)
+        case = fn(*args, **kw)
+    elif args:
+        case = fn(*args, n)
+    else:
+        # 2-D builders take (nx, ny) or (n)
+        try:
+            case = fn(n)
+        except TypeError:
+            case = fn(n, n)
+    if via == "frontend":
+        from .frontend_kernels import as_frontend
+
+        case = as_frontend(case)
+    return case

@@ -32,6 +32,13 @@ Hopper stencil kernel.
 Unlike the reference, an integer or unread input gets ``None`` (torch has no
 ``float0``), and only the inputs autograd asks for are computed.
 
+Telemetry (``RACE_OBS``) as the reference's: an ``adjoint_build`` span,
+``race_adjoint_builds_total{outcome}`` and the ``adjoint_refusal`` event
+around each (memoized) build; ``race_adjoint_backward_total{mode}`` and an
+``adjoint_backward`` span in :func:`backward`.  The reference's backward
+runs inside ``jax.jit``, so its counter and span fire once per trace; this
+backward is eager, so they fire once per backward call.
+
 Env knobs: ``RACE_ADJOINT`` — ``"stencil"`` (default) or ``"autodiff"``
 (force the fallback); ``RACE_ADJOINT_REASSOCIATE`` — reassociation level of
 the adjoint programs (default 3).
@@ -47,6 +54,7 @@ from typing import Iterable, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import obs as _obs
 from .ir import (Const, Expr, FuncName, Loop, Node, Program, Ref, Stmt, Sub,
                  expr_refs, map_expr)
 
@@ -566,9 +574,21 @@ def adjoint_build(program: Program) -> AdjointBuild:
     if b is not None:
         return b
     try:
-        b = _build(program)
+        with _obs.span("adjoint_build", program=h):
+            b = _build(program)
+        if _obs.enabled():
+            _obs.counter("race_adjoint_builds_total",
+                         outcome="supported").inc()
     except AdjointUnsupported as e:
         b = AdjointBuild(program, [], reason=str(e))
+        # the refusal is a pipeline decision: emitted once per program (the
+        # build is memoized), with the structured reason code the backward
+        # falls back to autograd under
+        if _obs.enabled():
+            _obs.counter("race_adjoint_builds_total",
+                         outcome="refused").inc()
+            _obs.event("adjoint_refusal", program=h, reason=e.reason,
+                       detail=e.detail)
     with _builds_lock:
         _builds[h] = b
     return b
@@ -730,12 +750,22 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
     axis, and the adjoint plans run through ``run_batch``."""
     wrt = list(env) if wrt is None else [k for k in env if k in set(wrt)]
     if adjoint_mode() == "autodiff":
+        if _obs.enabled():
+            _obs.counter("race_adjoint_backward_total",
+                         mode="autodiff-forced").inc()
         grads = _autodiff_backward(program, env, g, wrt, batched)
     else:
         build = adjoint_build(program)
         if not build.ok:
+            if _obs.enabled():
+                _obs.counter("race_adjoint_backward_total",
+                             mode="autodiff-fallback").inc()
             grads = _autodiff_backward(program, env, g, wrt, batched)
         else:
-            grads = {s.input: _run_spec(s, env, g, backend, batched)
-                     for s in build.specs if s.input in wrt}
+            with _obs.span("adjoint_backward"):
+                grads = {s.input: _run_spec(s, env, g, backend, batched)
+                         for s in build.specs if s.input in wrt}
+            if _obs.enabled():
+                _obs.counter("race_adjoint_backward_total",
+                             mode="stencil").inc()
     return {k: grads.get(k) for k in env}

@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
+from .. import obs as _obs
 from ..lowering.blocks import choose_tile
 from ..lowering.emit import KERNEL_DTYPES, dtype_reasons
 from ..lowering.facts import FallbackReason, LoweringError, LoweringFact
@@ -113,6 +114,37 @@ def select_backend(plan: Plan, requested: str = "auto",
     cap = probe_hopper(plan, dtypes)
     if requested == "torch":
         return Selection("torch", requested, cap)
-    if requested == "hopper" and not cap.eligible:
-        raise BackendUnavailable(cap)
-    return Selection("hopper" if cap.eligible else "torch", requested, cap)
+    if requested == "hopper":
+        if not cap.eligible:
+            _emit_selection(plan, requested, "unavailable", cap)
+            raise BackendUnavailable(cap)
+        return _emit_selection(plan, requested, "hopper", cap)
+    return _emit_selection(
+        plan, requested, "hopper" if cap.eligible else "torch", cap)
+
+
+def _emit_selection(plan: Plan, requested: str, backend: str,
+                    cap: Capability):
+    """Record the probe's verdict (the reference's telemetry): a counter
+    per (requested, resolved) pair, a ``backend_fallback`` event with the
+    structured reasons whenever a kernel-wanting request lands on
+    ``"torch"`` (or is refused outright), and a ``lowering_facts`` event
+    when an eligible plan engages envelope-widening mechanisms."""
+    if _obs.enabled():
+        from .executor import plan_hash
+
+        ph = plan_hash(plan)
+        _obs.counter("race_backend_selections_total", requested=requested,
+                     backend=backend).inc()
+        if backend in ("torch", "unavailable") and cap.reasons:
+            _obs.event("backend_fallback", plan=ph, requested=requested,
+                       backend=backend,
+                       reasons=[str(r) for r in cap.reasons],
+                       codes=[r.code for r in cap.reasons])
+        elif cap.facts:
+            _obs.event("lowering_facts", plan=ph, backend=backend,
+                       facts=[str(f) for f in cap.facts],
+                       codes=[f.code for f in cap.facts])
+    if backend == "unavailable":
+        return None
+    return Selection(backend, requested, cap)

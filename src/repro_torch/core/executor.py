@@ -27,6 +27,14 @@ specialization (and, on the card, the kernel build) once.
     the bare core;
   * :class:`ExecutorCache` — thread-safe LRU with hit/miss/eviction stats;
     :func:`compile_plan` is the front door.
+
+With ``RACE_OBS`` on (:mod:`repro_torch.obs`), the reference's telemetry:
+a ``lower`` span around each specialization, a ``compile`` span on an
+executor's first call and a ``run`` span on every later one (labelled
+``batch="1"`` on the batched path), the run and cache counters, the cache
+size gauge and the ``executor_build`` / ``executor_evict`` events.  A
+span is the host's time: a kernel launch returns before the card finishes
+it, and nothing here synchronizes.  With obs off, a call reads one flag.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from typing import Callable, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..lowering.geometry import kernel_analysis
+from .. import obs as _obs
+from ..lowering.geometry import kernel_analysis, kernel_memo
 from .backend import BACKENDS, Selection, select_backend
 from .depgraph import Plan
 from .ir import Const, Expr, FuncName, Node, Program, Ref
@@ -297,23 +306,25 @@ class CompiledRace:
         self.calls = 0
         self.batch_calls = 0
         self.out_names = tuple(dict.fromkeys(st.lhs.name for st in plan.body))
-        if self.backend == "hopper":
-            from ..lowering.emit import specialize_stencil
+        self._plan_h = plan_hash(plan)
+        with _obs.span("lower", plan=self._plan_h, backend=self.backend):
+            if self.backend == "hopper":
+                from ..lowering.emit import specialize_stencil
 
-            self.spec = specialize_stencil(
-                plan, {nm: shp for nm, shp, _ in env_sig},
-                {nm: dt for nm, _, dt in env_sig}, block_rows=block_rows,
-                block_cols=block_cols, block_inner=block_inner)
-            self._core = self.spec.apply
-            self._batch_core = self.spec.apply_batch
-        else:
-            from .codegen import (build_batched_evaluator,
-                                  build_plan_evaluator, interior)
+                self.spec = specialize_stencil(
+                    plan, {nm: shp for nm, shp, _ in env_sig},
+                    {nm: dt for nm, _, dt in env_sig}, block_rows=block_rows,
+                    block_cols=block_cols, block_inner=block_inner)
+                self._core = self.spec.apply
+                self._batch_core = self.spec.apply_batch
+            else:
+                from .codegen import (build_batched_evaluator,
+                                      build_plan_evaluator, interior)
 
-            self.spec = None
-            plan_run = build_plan_evaluator(plan)
-            self._core = lambda env: interior(plan, plan_run(env))
-            self._batch_core = build_batched_evaluator(plan)
+                self.spec = None
+                plan_run = build_plan_evaluator(plan)
+                self._core = lambda env: interior(plan, plan_run(env))
+                self._batch_core = build_batched_evaluator(plan)
 
     @property
     def kernel_launches(self) -> int:
@@ -334,7 +345,16 @@ class CompiledRace:
     def run(self, env: Mapping) -> dict:
         """Execute; returns interior-convention outputs."""
         self.calls += 1
-        return self._call(env, False)
+        if not _obs.enabled():  # the RACE_OBS=0 fast path: one flag read
+            return self._call(env, False)
+        # the first call pays the kernel's build (nvcc, when its library is
+        # not on disk yet) and load: that is the "compile" span
+        phase = "compile" if self.calls == 1 else "run"
+        with _obs.span(phase, plan=self._plan_h, backend=self.backend):
+            out = self._call(env, False)
+        _obs.counter("race_executor_runs_total", plan=self._plan_h,
+                     backend=self.backend).inc()
+        return out
 
     __call__ = run
 
@@ -349,7 +369,15 @@ class CompiledRace:
         ``"torch"`` the vmapped evaluator."""
         stacked = stack_envs(envs, self.device)
         self.batch_calls += 1
-        return self._call(stacked, True)
+        if not _obs.enabled():
+            return self._call(stacked, True)
+        phase = "compile" if self.batch_calls == 1 else "run"
+        with _obs.span(phase, plan=self._plan_h, backend=self.backend,
+                       batch="1"):
+            out = self._call(stacked, True)
+        _obs.counter("race_executor_batch_runs_total", plan=self._plan_h,
+                     backend=self.backend).inc()
+        return out
 
     @property
     def core_fn(self):
@@ -400,23 +428,48 @@ class ExecutorCache:
 
     def get_or_build(self, key: ExecutorKey,
                      builder: Callable[[], CompiledRace]) -> CompiledRace:
+        hit = True
+        evicted = []
         with self._lock:
             ex = self._entries.get(key)
             if ex is not None:
                 self._entries.move_to_end(key)
                 self.stats.hits += 1
-                return ex
-            self.stats.misses += 1
-            ex = self._entries[key] = builder()
-            while len(self._entries) > self.maxsize:
-                self._entries.popitem(last=False)
-                self.stats.evictions += 1
-            return ex
+            else:
+                hit = False
+                self.stats.misses += 1
+                ex = self._entries[key] = builder()
+                while len(self._entries) > self.maxsize:
+                    old_key, _ = self._entries.popitem(last=False)
+                    evicted.append(old_key)
+                    self.stats.evictions += 1
+        # telemetry outside the lock: the JSONL event sink does file I/O and
+        # must not serialize concurrent cache lookups
+        if _obs.enabled():
+            _obs.counter("race_executor_cache_total",
+                         event="hit" if hit else "miss",
+                         plan=key.plan).inc()
+            _obs.gauge("race_executor_cache_size").set(len(self._entries))
+            if not hit:
+                _obs.event("executor_build", plan=key.plan,
+                           backend=key.backend, blocks=key.blocks,
+                           device=key.device)
+            self._emit_evictions(evicted)
+        return ex
+
+    def _emit_evictions(self, evicted: list) -> None:
+        for old in evicted:
+            _obs.counter("race_executor_cache_total", event="evict",
+                         plan=old.plan).inc()
+            _obs.event("executor_evict", plan=old.plan, backend=old.backend,
+                       currsize=len(self._entries), maxsize=self.maxsize)
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self.stats = CacheStats()
+        if _obs.enabled():
+            _obs.gauge("race_executor_cache_size").set(0)
 
     def keys(self) -> list:
         """The cached :class:`ExecutorKey` s, least recently used first."""
@@ -442,11 +495,16 @@ class ExecutorCache:
     def resize(self, maxsize: int) -> None:
         """Set the capacity, evicting least recently used entries if it
         shrinks."""
+        evicted = []
         with self._lock:
             self.maxsize = maxsize
             while len(self._entries) > maxsize:
-                self._entries.popitem(last=False)
+                old_key, _ = self._entries.popitem(last=False)
+                evicted.append(old_key)
                 self.stats.evictions += 1
+        if _obs.enabled():
+            _obs.gauge("race_executor_cache_size").set(len(self._entries))
+            self._emit_evictions(evicted)
 
     def cache_info(self) -> dict:
         """Stats plus the capacity (``RACE_EXECUTOR_CACHE_SIZE``), the
@@ -478,6 +536,16 @@ def configure_cache(maxsize: int) -> None:
     _CACHE.resize(maxsize)
 
 
+def _resolve(plan: Plan, backend: str, dtypes: tuple) -> Selection:
+    """select_backend memoized per plan instance and request (the probe is
+    pure analysis), as the reference's; a refusal is not memoized."""
+    memo = kernel_memo(plan).setdefault("selection", {})
+    sel = memo.get((backend, dtypes))
+    if sel is None:
+        sel = memo[(backend, dtypes)] = select_backend(plan, backend, dtypes)
+    return sel
+
+
 def compile_plan(plan: Plan, env: Union[Mapping, tuple],
                  backend: Optional[str] = None, *, device=None,
                  block_rows: int = 0, block_cols: int = 0,
@@ -489,7 +557,8 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
     signature (:func:`env_signature`, :func:`stacked_signature`) with the
     ``device`` given.  ``backend=None`` resolves to ``$RACE_BACKEND``
     (default ``"auto"``); ``"auto"`` takes the kernel when the probe passes
-    for the plan and the env's dtypes."""
+    for the plan and the env's dtypes.  The selection is memoized per plan
+    and request, so its telemetry fires once, not per run."""
     if isinstance(env, tuple):
         if device is None:
             raise ValueError("compile_plan on a signature needs device=")
@@ -505,8 +574,8 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
                              f"{devices}")
         (device,) = devices
     arrays = kernel_analysis(plan).arrays
-    base = [dt for nm, _, dt in sig if nm in arrays]
-    sel = select_backend(plan, backend or default_backend(), base)
+    base = tuple(dt for nm, _, dt in sig if nm in arrays)
+    sel = _resolve(plan, backend or default_backend(), base)
     blocks = ((block_rows, block_cols, block_inner)
               if sel.backend == "hopper" else None)
     key = ExecutorKey(plan_hash(plan), sig, sel.backend, blocks, str(device))

@@ -7,6 +7,8 @@ execution behind one call (paper Fig. 3 workflow).  Port of
     out = result.run(env)                       # on cuda; device="cpu" asks
                                                 # for the CPU
     outs = result.run_batch([env0, env1])       # (B, ...) per output
+    result = race_from_fn(fn, shapes)           # a plain-Python loop nest
+    result.telemetry()                          # hashes, verdicts, obs view
 
 ``reassociate`` levels follow Section 7.1 (see the reference module).
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+from .. import obs as _obs
 from . import analysis
 from .backend import BACKENDS, Capability, Selection, probe_hopper, select_backend
 from .codegen import build_baseline_evaluator, build_plan_evaluator
@@ -109,6 +112,43 @@ class RaceResult:
                           block_inner=block_inner)
         return ex.run_batch(stacked)
 
+    # --- observability ------------------------------------------------------
+    def telemetry(self) -> dict:
+        """Everything observable about this result in one dict: structural
+        identities (program and plan hashes), the static analysis verdicts
+        (reduced-ops fraction, auxiliary counts, the Hopper probe with no
+        dtypes given), the process-wide executor-cache stats, and — when
+        ``RACE_OBS`` is on — the metrics series, decision events and span
+        records carrying this plan's hash.  The reference's keys."""
+        from .executor import executor_cache, plan_hash, program_hash
+
+        ph = plan_hash(self.plan)
+        cap = self.capability()
+        out = dict(
+            program=program_hash(self.program),
+            plan=ph,
+            options={k: v for k, v in self.options.items()
+                     if isinstance(v, (bool, int, float, str))},
+            reduced_ops=self.reduced_ops(),
+            n_aux=self.n_aux(),
+            n_aux_materialized=self.n_aux_materialized(),
+            rounds=self.rounds(),
+            capability=dict(eligible=cap.eligible,
+                            reasons=[str(r) for r in cap.reasons],
+                            facts=[str(f) for f in cap.facts]),
+            executor_cache=executor_cache().cache_info(),
+            obs_enabled=_obs.enabled(),
+        )
+        if _obs.enabled():
+            out["metrics"] = _obs.snapshot(label_filter={"plan": ph})
+            out["events"] = [e for e in _obs.events()
+                             if e.get("plan") == ph]
+            # this plan's slice of the span timeline (Chrome-trace ready:
+            # repro_torch.obs.trace.chrome_trace renders these records)
+            out["spans"] = [s for s in _obs.span_records()
+                            if s.get("labels", {}).get("plan") == ph]
+        return out
+
     # --- pretty ------------------------------------------------------------
     def to_source(self) -> str:
         vn = {l.level: l.var for l in self.program.loops}
@@ -157,27 +197,58 @@ def race(
         backend = default_backend()
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-    if reassociate:
-        from .nary import detect_nary
+    with _obs.span("detect", reassociate=str(reassociate)):
+        if reassociate:
+            from .nary import detect_nary
 
-        transformed = detect_nary(
-            program,
-            level=reassociate,
-            cost_model=cost_model or PaperCost(),
-            rewrite_sub=rewrite_sub,
-            rewrite_div=rewrite_div,
-            max_rounds=max_rounds,
-            restrict_innermost=esr,
-            mis_exact_limit=mis_exact_limit,
-        )
-    else:
-        transformed = detect_binary(
-            program,
-            cost_model=cost_model or PaperCost(),
-            max_rounds=max_rounds,
-            restrict_innermost=esr,
-        )
-    plan = finalize(transformed, contraction=contraction)
+            transformed = detect_nary(
+                program,
+                level=reassociate,
+                cost_model=cost_model or PaperCost(),
+                rewrite_sub=rewrite_sub,
+                rewrite_div=rewrite_div,
+                max_rounds=max_rounds,
+                restrict_innermost=esr,
+                mis_exact_limit=mis_exact_limit,
+            )
+        else:
+            transformed = detect_binary(
+                program,
+                cost_model=cost_model or PaperCost(),
+                max_rounds=max_rounds,
+                restrict_innermost=esr,
+            )
+    with _obs.span("contract"):
+        plan = finalize(transformed, contraction=contraction)
+    if _obs.enabled():
+        from .executor import plan_hash, program_hash
+
+        _obs.counter("race_builds_total",
+                     reassociate=str(reassociate)).inc()
+        _obs.gauge("race_reduced_ops", program=program_hash(program),
+                   plan=plan_hash(plan)).set(
+            analysis.reduced_ops_fraction(program, plan))
+        _obs.gauge("race_aux_materialized", plan=plan_hash(plan)).set(
+            len(plan.aux_order))
     return RaceResult(program, plan, transformed, dict(
         reassociate=reassociate, esr=esr, contraction=contraction,
         backend=backend, rewrite_div=rewrite_div))
+
+
+def race_from_fn(fn, shapes, consts=None, **race_opts) -> RaceResult:
+    """Run RACE on a plain-Python loop nest (the capture frontend).
+
+    ``fn`` is an ordinary function written as nested ``for`` loops over
+    NumPy-style arrays (or an ``@race_kernel``-wrapped one); ``shapes`` maps
+    each parameter to ``()`` (scalar) or an array shape; ``consts`` supplies
+    capture-time values for free names.  Remaining keywords go to
+    :func:`race`.  Raises ``repro_torch.frontend.CaptureError`` with a
+    structured diagnostic when ``fn`` is outside the capturable scope.
+
+        res = race_from_fn(blur, {"u": (64, 64), "out": (64, 64)},
+                           reassociate=3)
+        out = res.run({"u": u})
+    """
+    from ..frontend import capture
+
+    return race(capture(fn, shapes, consts), **race_opts)

@@ -254,12 +254,25 @@ def run_grad_case(case, reassociate_levels: Iterable[int] = (0, 3, 4),
 
 
 def sweep_registry(names: Optional[Iterable[str]] = None,
-                   sizes: Optional[dict] = None, **kw) -> list:
+                   sizes: Optional[dict] = None, via: str = "dsl",
+                   **kw) -> list:
     """Run :func:`run_case` over (a subset of) the registry at
-    :data:`SWEEP_SIZES`."""
+    :data:`SWEEP_SIZES`.
+
+    ``via="frontend"`` swaps every case's program for the one captured from
+    its plain-Python twin (``repro_torch.apps.frontend_kernels``; capture
+    equality is checked en route), so the sweep verifies the frontend entry
+    path end to end.  With ``names=None`` the frontend sweep covers the
+    twinned cases."""
     sizes = {**SWEEP_SIZES, **(sizes or {})}
-    return [run_case(get_case(n, sizes.get(n)), **kw)
-            for n in (CASES if names is None else names)]
+    if names is None:
+        names = list(CASES)
+        if via == "frontend":
+            from ..apps.frontend_kernels import TWINS
+
+            names = [n for n in names if n in TWINS]
+    return [run_case(get_case(n, sizes.get(n), via=via), **kw)
+            for n in names]
 
 
 def grad_sweep_registry(names: Optional[Iterable[str]] = None,

@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither jax nor anything of the JAX package."""
+"""The PyTorch port imports neither jax nor anything of the JAX package,
+not even the jax-free ``repro.obs`` and ``repro.frontend``: it carries its
+own copies."""
 import os
 import re
 import subprocess
@@ -18,7 +20,15 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.kernels.build, repro_torch.kernels.fused_ce, "
             "repro_torch.core.adjoint, repro_torch.lowering.emit, "
             "repro_torch.kernels.ops, repro_torch.kernels.ref, "
-            "repro_torch.kernels.race_stencil, repro_torch.core.integration"
+            "repro_torch.kernels.race_stencil, repro_torch.core.integration, "
+            "repro_torch.obs, repro_torch.obs.metrics, "
+            "repro_torch.obs.events, repro_torch.obs.spans, "
+            "repro_torch.obs.trace, "
+            "repro_torch.obs.report, repro_torch.obs.history, "
+            "repro_torch.obs.check, repro_torch.frontend, "
+            "repro_torch.frontend.capture, repro_torch.frontend.affine, "
+            "repro_torch.frontend.diagnostics, repro_torch.frontend.runtime, "
+            "repro_torch.apps.frontend_kernels"
             "\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -33,6 +43,9 @@ def test_sources_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    scanned = {f.relative_to(ROOT / "src" / "repro_torch").parts[0]
+               for f in files[:-1]}
+    assert {"obs", "frontend"} <= scanned
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert bad == []
