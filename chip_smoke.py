@@ -104,7 +104,44 @@ Phases, each of which ends the run with a non-zero exit on failure:
      the host's µs per call of 256 calls each of the executor's ``run``,
      ``res.run`` and ``race_kernel.run`` on one j3d27pt_b256 example
      (n = 64) with obs off and on, in turns (off, on, on, off, twice),
-     and the medians.
+     and the medians;
+ 12. the autotuner (``repro_torch.tuning``) on a fresh store (the script
+     points ``$RACE_TUNING_CACHE`` at ``build/smoke_tuning/`` before phase
+     1, so phases 1-11 hold ``"auto"`` to the kernel on an empty store):
+     ``autotune`` of j3d27pt and poisson n=512 f32 over levels {0, the
+     case's default} x {``"torch"``, ``"hopper"``} x the port's tile grid
+     (every candidate's K1 source built in phase 2), and of j3d27pt n=64
+     f32 per call and at batch sizes 8 and 32.  Every candidate's status,
+     rel_err and µs are printed, then the default's µs, the winner, the
+     search seconds and K1's launches per kernel candidate.  The winner
+     must pass the gate and not be slower than the default beyond the 3 %
+     noise margin; a fresh process (``chip_smoke.py --store-hit``) must
+     answer every cell from the store with no measurement and no nvcc run,
+     and build each winner's executor on ``"auto"`` with its plan record's
+     blocks, launching K1 once.  Then ``race(program).run(env)`` on
+     ``"auto"`` with real data must launch K1 once and agree with
+     ``"torch"`` within ``plan``; the tuned kernel is timed beside the
+     chooser's, ``"torch"``, the library call and the bound.  Last, the
+     host's µs per ``compile_plan`` and ``res.run`` on ``"auto"`` (which
+     consults the store) beside ``"hopper"`` (which does not);
+ 13. the serving runtime (``repro_torch.serve``) on ``"auto"`` with
+     closed-loop client threads, on one example of j3d27pt_b256 (n=64
+     f32) and of derivative_b8 (n=128 f64, per-example scalars) per
+     request, at concurrency 1, 8 and 32 and max_batch 8 and 32, 512
+     requests each (derivative 512 at concurrency 32 and max_batch 32, 64
+     at its other settings: :data:`SERVE_SHORT`): every response bit-equal
+     to ``res.run`` of its env on the card, K1's launches (zeroed just
+     before) equal to the runtime's batches, nothing rejected; p50/p95 µs,
+     rps, batches and coalesced beside a plain loop of 512 ``res.run``
+     with its copy to the host; one batch of 32, on the executor the
+     runtime resolves for it, split into host stack, host-to-device copy,
+     K1 (CUDA events), device-to-host copy and fan-out, held against its
+     plain version within ``plan``, and its K1 timed beside that plain
+     version, the library call and the bound.  Last, fresh
+     processes run ``python -m repro_torch.serve.warm`` on phase 12's
+     store (every record warmed, none unmatched, no nvcc run) and
+     ``python -m repro_torch.launch.serve --case j3d27pt --n 64`` (its
+     row printed).
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -179,6 +216,24 @@ OBS_SPANS = ("capture,detect,contract,lower,compile,run,adjoint_build,"
              "adjoint_backward")
 #: ``run`` calls per obs setting in phase 11's host-cost measurement
 OBS_CALLS = 256
+#: phase 12: (case, n) tuned at float32 over levels {0, the case's
+#: default}, and the serving cell tuned per call and at these batch sizes
+TUNE_CELLS = (("j3d27pt", 512), ("poisson", 512))
+TUNE_SERVE_CELL = ("j3d27pt", 64)
+TUNE_BATCH_SIZES = (8, 32)
+#: phase 13: (label, case, n, dtype name, distinct envs the clients cycle
+#: through); one example of a phase-9 cell per request
+SERVE_CELLS = (("j3d27pt_b256", "j3d27pt", 64, "float32", 32),
+               ("derivative_b8", "derivative", 128, "float64", 8))
+SERVE_CONCURRENCY = (1, 8, 32)
+SERVE_MAX_BATCH = (8, 32)
+#: requests per setting and in the plain loop: 512; derivative's 185 MiB
+#: per request through pageable memory serve about 10 a second (PERF.md
+#: §5), so it takes 512 only at SERVE_FULL (its percentiles of record) and
+#: 64 at its other settings
+SERVE_REQUESTS = 512
+SERVE_FULL = (32, 32)  # (concurrency, max_batch)
+SERVE_SHORT = {"derivative_b8": 64}
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -1397,6 +1452,495 @@ def obs_cost(torch) -> None:
               f"{on - off:.2f} us", flush=True)
 
 
+def shape_env(case, dt) -> dict:
+    """The case's env without its outputs as ``meta`` tensors: a signature
+    (what the tuner keys on and renders sources for) with no data."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.codegen import required_shapes
+
+    outs = {st.lhs.name for st in case.program.body}
+    dtype = getattr(torch, np.dtype(dt).name)
+    return {k: torch.empty(shp, dtype=dtype, device="meta")
+            for k, shp in required_shapes(case.program).items()
+            if k not in outs}
+
+
+def tuning_cells() -> list:
+    """Phase 12's cells: (label, case, dtype, batch sizes)."""
+    import numpy as np
+
+    from repro_torch.apps import get_case
+
+    cells = [(name, n, ()) for name, n in TUNE_CELLS]
+    cells.append(TUNE_SERVE_CELL + (TUNE_BATCH_SIZES,))
+    return [(f"{name} n={n}", get_case(name, n), np.float32, bs)
+            for name, n, bs in cells]
+
+
+def tune_opts(case, batch_sizes=()) -> dict:
+    """The search of phase 12: levels {0, default}, both backends, the
+    port's tile grid, the case's level as the default."""
+    return dict(levels=(0, case.reassociate),
+                default_reassociate=case.reassociate,
+                batch_sizes=batch_sizes)
+
+
+def k1_executors(plans) -> list:
+    """The cached K1 executors of these plans (any signature, any tile)."""
+    from repro_torch import executor_cache, plan_hash
+
+    hashes = {plan_hash(p) for p in plans}
+    return [ex for ex in executor_cache().executors()
+            if ex.spec is not None and plan_hash(ex.plan) in hashes]
+
+
+def tune_main(label, case, dt, batch_sizes, torch):
+    """Phase 12 for one cell: ``autotune`` on a fresh store; returns the
+    decision."""
+    from repro_torch import race
+
+    from repro_torch.tuning import autotune
+
+    env = batch_envs(case, dt, 1)[0]
+    plans = [race(case.program, reassociate=lvl).plan
+             for lvl in sorted({0, case.reassociate})]
+    for ex in k1_executors(plans):
+        ex.spec.launches = 0
+    dec = autotune(case.program, env, device=DEVICE,
+                   **tune_opts(case, batch_sizes))
+    torch.cuda.synchronize()
+    if dec.from_cache:
+        raise SystemExit(f"tune {label}: answered from the store, which "
+                         f"should be empty")
+    for m in dec.measurements:
+        us = "-" if m.us is None else f"{m.us:.2f}"
+        err = "-" if m.rel_err is None else f"{m.rel_err:.2e}"
+        print(f"tune {label} {m.config.describe()} batch {m.batch}: "
+              f"{m.status} rel_err {err} us {us} {m.detail}", flush=True)
+    hopper = [m for m in dec.measurements if m.config.backend == "hopper"
+              and m.status != "error"]
+    launches = sum(ex.kernel_launches for ex in k1_executors(plans))
+    winner = next((m for m in dec.measurements if m.ok and m.batch == 0
+                   and m.config == dec.choice), None)
+    print(f"tune {label}: default {dec.default.describe()} "
+          f"{dec.default_us:.2f} us, winner {dec.choice.describe()} "
+          f"{dec.tuned_us:.2f} us (x{dec.default_us / dec.tuned_us:.3f}), "
+          f"search {dec.search_seconds:.2f} s, {len(dec.measurements)} "
+          f"candidates, K1 launches {launches} over {len(hopper)} kernel "
+          f"candidates ({launches / max(1, len(hopper)):.1f} each)",
+          flush=True)
+    if winner is None:
+        raise SystemExit(f"tune {label}: the winner did not pass the gate")
+    if dec.tuned_us > dec.default_us * 1.03:
+        raise SystemExit(f"tune {label}: the winner is slower than the "
+                         f"default beyond the noise margin")
+    bad = [m for m in dec.measurements if m.status == "error"
+           and "tile-extent" not in m.detail and "hopper-smem" not in m.detail]
+    if bad:
+        raise SystemExit(f"tune {label}: candidates failed: "
+                         + "; ".join(f"{m.config.describe()}: {m.detail}"
+                                     for m in bad))
+    return dec
+
+
+def store_hit(torch) -> None:
+    """``--store-hit`` (phase 12's fresh process): every cell of
+    :func:`tuning_cells` answers from the store with no measurement, and
+    ``"auto"`` builds each winner's executor with its plan record's blocks
+    and launches K1 once; prints one JSON line with the nvcc runs, and
+    exits non-zero on any miss."""
+    from repro_torch import compile_plan, plan_hash, race
+    from repro_torch.core import compile_cache
+    from repro_torch.core.executor import host_signature
+    from repro_torch.serve.warm import synthetic_env
+    from repro_torch.tuning import (autotune, plan_choice, record_key,
+                                    runtime_fence)
+
+    cells, failures = [], []
+    for label, case, dt, batch_sizes in tuning_cells():
+        sig = host_signature(shape_env(case, dt))
+        env = synthetic_env(sig, DEVICE)
+        dec = autotune(case.program, env, device=DEVICE,
+                       **tune_opts(case, batch_sizes))
+        res = race(case.program, reassociate=dec.choice.reassociate)
+        rec = plan_choice(record_key("plan", plan_hash(res.plan), sig,
+                                     runtime_fence(DEVICE)))
+        ex = compile_plan(res.plan, env)
+        blocks = [rec.get(k, 0) for k in ("block_rows", "block_cols",
+                                          "block_inner")] if rec else None
+        record_ex = None if rec is None else compile_plan(
+            res.plan, env, rec["backend"], block_rows=blocks[0],
+            block_cols=blocks[1], block_inner=blocks[2])
+        launches = None
+        if ex.spec is not None:
+            ex.spec.launches = 0
+            res.run(env, device=DEVICE)
+            torch.cuda.synchronize()
+            launches = ex.kernel_launches
+        cell = dict(cell=label, from_cache=dec.from_cache,
+                    measurements=len(dec.measurements),
+                    choice=dec.choice.describe(), record=rec,
+                    backend=ex.backend, record_executor=record_ex is ex,
+                    launches=launches)
+        cells.append(cell)
+        if not (dec.from_cache and not dec.measurements
+                and record_ex is ex and ex.backend == "hopper"
+                and launches == 1):
+            failures.append(cell)
+    nvcc = compile_cache.counts()["misses"]
+    print(json.dumps({"store_hit": cells, "nvcc_runs": nvcc}), flush=True)
+    if failures or nvcc:
+        raise SystemExit(f"store hit failed: {failures}, {nvcc} nvcc runs")
+
+
+def tuned_check(case, dt, dec, torch) -> dict:
+    """Phase 12 after the fresh process: ``race(program).run(env)`` on
+    ``"auto"`` with real data builds the executor of the plan record, launches
+    K1 once and agrees with ``"torch"`` within ``plan``; the tuned and the
+    chooser's kernel are timed; returns the kernel line."""
+    import numpy as np
+
+    from repro_torch import compile_plan, race
+    from repro_torch.testing import default_tolerances, env_to_torch, rel_err
+
+    dname = np.dtype(dt).name
+    res = race(case.program, reassociate=dec.choice.reassociate)
+    env = env_to_torch(batch_envs(case, dt, 1)[0], DEVICE)
+    ex = compile_plan(res.plan, env)
+    if ex.backend != "hopper":
+        raise SystemExit(f"tuned {case.name}: auto runs {ex.backend}")
+    ex.spec.launches = 0
+    got = res.run(env, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = ex.kernel_launches
+    ex_t = compile_plan(res.plan, env, "torch")
+    plain = ex_t(env)
+    e_plan = rel_err(got, plain)
+    max_abs = max(float((got[k].double() - plain[k].double()).abs().max())
+                  for k in plain)
+    tol = default_tolerances(dt)["plan"]
+    if launches != 1 or e_plan > tol:
+        raise SystemExit(f"tuned {case.name}: {launches} launches, vs torch "
+                         f"{e_plan:.2e} (<= {tol:.0e})")
+    del got, plain
+    chooser = compile_plan(race(case.program,
+                                reassociate=case.reassociate).plan, env,
+                           "hopper")
+    lib = library_call(case, env)
+    ms = _time_ms(lambda: ex(env), torch)
+    default_ms = _time_ms(lambda: chooser(env), torch)
+    torch_ms = _time_ms(lambda: ex_t(env), torch)
+    library_ms = None if lib is None else _time_ms(lib, torch)
+    nbytes, ops = plan_work(res.plan, env, np.dtype(dt).itemsize)
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
+    g = ex.spec.tp.geometry
+    print(f"tuned {case.name} {dname}: {dec.choice.describe()}, plane tile "
+          f"{tuple(g.tile[l - 1] for l in g.order)} (levels {g.order}), "
+          f"segment {g.seg}, launches {launches}, vs torch {e_plan:.2e}; "
+          f"kernel_ms {ms:.4f}, chooser's kernel_ms {default_ms:.4f} "
+          f"(x{default_ms / ms:.3f}), torch_ms {torch_ms:.4f}, library_ms "
+          f"{library_ms}, bound_ms {bound_ms:.4f} ({by}), share of bound "
+          f"{bound_ms / ms:.3f}", flush=True)
+    return dict(name=f"race_stencil[tuned:{case.name}]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273", launches=launches,
+                max_abs_err=max_abs, ms=ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
+                chooser_ms=default_ms, config=dec.choice.describe())
+
+
+def store_cost(torch) -> None:
+    """Phase 12's last step: the host's µs per call that ``"auto"`` pays
+    for the store consult (one ``os.stat`` of the store file, the memoized
+    key, the record), on the serving cell with its record: ``compile_plan``
+    and ``res.run`` on ``"auto"`` beside an explicit ``"hopper"``, 2,000
+    (``compile_plan``) and 500 (``run``) calls each ending in a
+    synchronize, in turns (auto, hopper, hopper, auto)."""
+    import numpy as np
+
+    from repro_torch import compile_plan, race
+    from repro_torch.apps import get_case
+    from repro_torch.testing import env_to_torch
+
+    case = get_case(*TUNE_SERVE_CELL)
+    res = race(case.program, reassociate=case.reassociate)
+    env = env_to_torch(batch_envs(case, np.float32, 1)[0], DEVICE)
+
+    def per_call(fn, n) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    calls = {"auto": (lambda: compile_plan(res.plan, env),
+                      lambda: res.run(env, device=DEVICE)),
+             "hopper": (lambda: compile_plan(res.plan, env, "hopper"),
+                        lambda: res.run(env, "hopper", device=DEVICE))}
+    got = {b: ([], []) for b in calls}
+    for b in ("auto", "hopper", "hopper", "auto"):
+        got[b][0].append(per_call(calls[b][0], 2000))
+        got[b][1].append(per_call(calls[b][1], 500))
+    print("store consult, host us per call (j3d27pt n=64, two rounds): "
+          + ", ".join(f"compile_plan {b} {a[0]:.2f} / {a[1]:.2f}, res.run "
+                      f"{b} {r[0]:.2f} / {r[1]:.2f}"
+                      for b, (a, r) in got.items()), flush=True)
+
+
+def serve_clients(rt, res, pool, refs, concurrency, requests) -> tuple:
+    """Closed-loop clients: ``concurrency`` threads, each submitting one
+    blocking request at a time; every response is held bit for bit against
+    the reference of its env.  Returns (latencies µs, mismatches, errors,
+    wall seconds)."""
+    import threading
+
+    import numpy as np
+
+    per_client = requests // concurrency
+    lock = threading.Lock()
+    lat, mism, errors = [], [], []
+
+    def client(idx: int) -> None:
+        mine = []
+        for i in range(per_client):
+            j = (idx * per_client + i) % len(pool)
+            t0 = time.perf_counter()
+            try:
+                out = rt.run(res, pool[j], timeout=300)
+            except Exception as e:  # noqa: BLE001 - reported below
+                with lock:
+                    errors.append(repr(e))
+                return
+            mine.append((time.perf_counter() - t0) * 1e6)
+            if not all(np.array_equal(out[k], refs[j][k]) for k in refs[j]):
+                with lock:
+                    mism.append(j)
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return lat, mism, errors, time.perf_counter() - t0
+
+
+def _pct(lat, q) -> float:
+    lat = sorted(lat)
+    return lat[min(len(lat) - 1, int(q * len(lat)))]
+
+
+def batch_split(label, case, dt, res, pool, torch) -> dict:
+    """Where one coalesced batch of 32 goes, step by step as the runtime
+    dispatches it: host stack, host-to-device copy, K1 (CUDA events),
+    device-to-host copy, fan-out; then K1 beside its plain version, the
+    library call and the bound; returns the kernel line."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+    from repro_torch.core.executor import host_signature
+    from repro_torch.testing import default_tolerances, rel_err
+
+    B = 32
+    dname = np.dtype(dt).name
+    envs = [pool[b % len(pool)] for b in range(B)]
+    sig = host_signature(envs[0])
+    # the executor the runtime resolves for a coalesced batch of B
+    ex = compile_plan(res.plan, sig, "auto", device=DEVICE, batch=B)
+    split = {}
+    for _ in range(2):  # the second of two, after a warm round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = {}
+        for k in envs[0]:
+            first = np.asarray(envs[0][k])
+            a = np.empty((B,) + first.shape, dtype=first.dtype)
+            for b, e in enumerate(envs):
+                a[b] = e[k]
+            host[k] = a
+        t1 = time.perf_counter()
+        dev = {k: torch.from_numpy(a).to(DEVICE) for k, a in host.items()}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ex.run_batch(dev)
+        end.record()
+        end.synchronize()
+        t3 = time.perf_counter()
+        host_out = {k: v.cpu().numpy() for k, v in out.items()}
+        t4 = time.perf_counter()
+        fan = [{k: host_out[k][b] for k in host_out} for b in range(B)]
+        t5 = time.perf_counter()
+        split = dict(host_stack_ms=(t1 - t0) * 1e3, h2d_ms=(t2 - t1) * 1e3,
+                     k1_ms=start.elapsed_time(end),
+                     k1_host_ms=(t3 - t2) * 1e3, d2h_ms=(t4 - t3) * 1e3,
+                     fanout_ms=(t5 - t4) * 1e3, total_ms=(t5 - t0) * 1e3)
+        del fan
+    in_bytes = sum(a.nbytes for a in host.values())
+    out_bytes = sum(a.nbytes for a in host_out.values())
+    print(f"serve-split {label} B={B} ({ex.backend}, blocks "
+          f"{ex.spec.tp.geometry.tile if ex.spec else None}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; in {in_bytes} B ({in_bytes / split['h2d_ms'] / 1e6:.2f} "
+          f"GB/s), out {out_bytes} B ({out_bytes / split['d2h_ms'] / 1e6:.2f}"
+          f" GB/s)", flush=True)
+    if ex.backend != "hopper":
+        raise SystemExit(f"serve {label}: a batch of {B} runs {ex.backend}")
+    ex_t = compile_plan(res.plan, sig, "torch", device=DEVICE)
+    plain = ex_t.run_batch(dev)
+    got = ex.run_batch(dev)
+    torch.cuda.synchronize()
+    e_plan = rel_err(got, plain)
+    max_abs = max(float((got[k].double() - plain[k].double()).abs().max())
+                  for k in plain)
+    del got, plain
+    lib = library_call(case, dev)
+    ms = _time_ms(lambda: ex.run_batch(dev), torch)
+    torch_ms = _time_ms(lambda: ex_t.run_batch(dev), torch)
+    library_ms = None if lib is None else _time_ms(lib, torch)
+    example = {k: v[0] for k, v in dev.items()}
+    nbytes, ops = plan_work(res.plan, example, np.dtype(dt).itemsize)
+    bound_ms, by = bound_of(nbytes * B, ops * B, PEAK_FLOPS[dname])
+    print(f"serve-kernel {label} B={B}: kernel_ms {ms:.4f}, torch batched "
+          f"ms {torch_ms:.4f}, library_ms {library_ms}, bound_ms "
+          f"{bound_ms:.4f} ({by}), share of bound {bound_ms / ms:.3f}, vs "
+          f"torch {e_plan:.2e}", flush=True)
+    if e_plan > default_tolerances(dt)["plan"]:
+        raise SystemExit(f"serve {label}: a batch of {B} on K1 is "
+                         f"{e_plan:.2e} from \"torch\"")
+    return dict(name=f"race_stencil[serve:{label}]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273",
+                max_abs_err=max_abs, ms=ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
+                batch=B, split=split)
+
+
+def serve_main(label, name, n, dname, pool_size, torch) -> dict:
+    """Phase 13 for one cell: ``ServeRuntime`` on ``"auto"`` at each
+    concurrency and batch limit, then a plain loop of ``res.run``, then the
+    split of one batch of 32; returns the kernel line (``launches``: K1's
+    launches over every setting, each setting's count zeroed just before
+    and equal to its batches)."""
+    import numpy as np
+
+    from repro_torch import race
+    from repro_torch.apps import get_case
+    from repro_torch.serve import ServeRuntime
+
+    dt = np.dtype(dname).type
+    case = get_case(name, n)
+    res = race(case.program, reassociate=case.reassociate)
+    pool = batch_envs(case, dt, pool_size)
+    refs = [{k: v.cpu().numpy() for k, v in res.run(e, device=DEVICE).items()}
+            for e in pool]
+    total = 0
+    for mb in SERVE_MAX_BATCH:
+        for conc in SERVE_CONCURRENCY:
+            requests = (SERVE_REQUESTS if (conc, mb) == SERVE_FULL
+                        else SERVE_SHORT.get(label, SERVE_REQUESTS))
+            with ServeRuntime(max_batch=mb, device=DEVICE) as rt:
+                rt.warmup([(res, pool[0])])
+                torch.cuda.synchronize()
+                for ex in k1_executors([res.plan]):
+                    ex.spec.launches = 0
+                s0 = rt.stats()
+                lat, mism, errors, wall = serve_clients(
+                    rt, res, pool, refs, conc, requests)
+                torch.cuda.synchronize()
+                s1 = rt.stats()
+            d = {k: s1[k] - s0[k] for k in ("batches", "coalesced",
+                                            "rejected", "completed")}
+            launches = sum(ex.kernel_launches
+                           for ex in k1_executors([res.plan]))
+            total += launches
+            print(f"serve {label} {dname} concurrency {conc} max_batch {mb}:"
+                  f" {len(lat)} requests, p50 {_pct(lat, 0.5):.1f} us, p95 "
+                  f"{_pct(lat, 0.95):.1f} us, rps "
+                  f"{len(lat) / wall:.1f}, batches {d['batches']}, "
+                  f"coalesced {d['coalesced']}, largest batch "
+                  f"{s1['max_batch']}, rejected {d['rejected']}, K1 "
+                  f"launches {launches}, mismatches {len(mism)}",
+                  flush=True)
+            if errors or mism or d["rejected"] or launches != d["batches"]:
+                raise SystemExit(
+                    f"serve {label} c{conc} mb{mb}: errors {errors[:2]}, "
+                    f"{len(mism)} responses differ from run, rejected "
+                    f"{d['rejected']}, K1 launches {launches} vs batches "
+                    f"{d['batches']}")
+    lat = []
+    t_loop = time.perf_counter()
+    for i in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        out = res.run(pool[i % len(pool)], device=DEVICE)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        lat.append((time.perf_counter() - t0) * 1e6)
+    wall = time.perf_counter() - t_loop
+    del out, host
+    print(f"serve {label} plain loop of res.run + copy to the host: "
+          f"{len(lat)} requests, p50 {_pct(lat, 0.5):.1f} us, p95 "
+          f"{_pct(lat, 0.95):.1f} us, rps {len(lat) / wall:.1f}",
+          flush=True)
+    line = batch_split(label, case, dt, res, pool, torch)
+    line["launches"] = total
+    return line
+
+
+def serve_tools(n_records: int) -> None:
+    """Phase 13's last step: fresh processes run the warm CLI on phase 12's
+    store (every record warmed, none unmatched, no nvcc run) and the serve
+    launcher (its row printed)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.warm", "--json", "-",
+         "--device", DEVICE],
+        env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"serve.warm exited {proc.returncode}:\n"
+                         f"{proc.stderr[-4000:]}")
+    doc = json.loads(proc.stdout)
+    for rep in doc["warmed"]:
+        print(f"warm plan {rep['plan']} {rep['backend']} blocks "
+              f"{rep['blocks']}: build {rep['build_ms']} ms, first "
+              f"{rep['first_ms']} ms, library hits {rep['cache_hits']}, "
+              f"nvcc runs {rep['cache_misses']}", flush=True)
+    cc = doc["compile_cache"]
+    print(f"warm: {len(doc['warmed'])} of {n_records} records warmed, "
+          f"unmatched {doc['unmatched']}, nvcc runs {cc['misses']}, "
+          f"library hits {cc['hits']}", flush=True)
+    if (doc["unmatched"] or len(doc["warmed"]) != n_records
+            or cc["misses"]):
+        raise SystemExit("serve.warm did not warm every record from the "
+                         "library directory")
+    from repro_torch.core import compile_cache
+
+    libs = set(Path(compile_cache.cache_dir()).glob("*.so"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--case",
+         "j3d27pt", "--n", "64", "--requests", "256", "--concurrency", "8",
+         "--device", DEVICE],
+        env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith(
+            "serve j3d27pt n=64"):
+        raise SystemExit(f"launch.serve exited {proc.returncode}:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    built = sorted(p.name for p in set(Path(
+        compile_cache.cache_dir()).glob("*.so")) - libs)
+    print(f"launch.serve: {lines[-1]}; libraries it built: {built}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1404,8 +1948,21 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
     import numpy as np
+
+    if sys.argv[1:] == ["--store-hit"]:  # phase 12's fresh process
+        store_hit(torch)
+        return 0
+    # a fresh tuning store: phases 1-11 hold "auto" to the kernel on an
+    # empty store, and no record of the user's can change them
+    store = root / "build" / "smoke_tuning"
+    import shutil
+
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    os.environ["RACE_TUNING_CACHE"] = str(store)
 
     # the library yardsticks (cuDNN, cuBLAS) and the plain versions compute
     # in full float32; cuDNN picks its fastest algorithm during the warm-up
@@ -1478,6 +2035,14 @@ def main() -> int:
         shapes = required_shapes(case.program)
         sources.append(specialize_stencil(
             res.plan, shapes, {k: np.dtype(dt).name for k in shapes}).source)
+    # phase 12: every tile candidate of the tuner's grid
+    from repro_torch.tuning import candidate_sources
+
+    for _, case, dt, _ in tuning_cells():
+        sources += candidate_sources(case.program, shape_env(case, dt),
+                                     **{k: v for k, v in tune_opts(
+                                         case).items()
+                                        if k != "batch_sizes"})
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -1639,6 +2204,33 @@ def main() -> int:
     obs_trace(torch)
     torch.cuda.empty_cache()
     obs_cost(torch)
+
+    # ---- phase 12: the autotuner on the card -------------------------------
+    marks.append((12, time.time()))
+    from repro_torch.serve.warm import store_plan_keys
+
+    decisions = [(case, dt, tune_main(label, case, dt, batch_sizes, torch))
+                 for label, case, dt, batch_sizes in tuning_cells()]
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--store-hit"],
+        capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 12's fresh process exited "
+                         f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    for case, dt, dec in decisions[:len(TUNE_CELLS)]:
+        kernels.append(tuned_check(case, dt, dec, torch))
+        torch.cuda.empty_cache()
+    n_records = len({(ph, sig) for ph, sig, _ in store_plan_keys()})
+    store_cost(torch)
+
+    # ---- phase 13: the serving runtime on the card -------------------------
+    marks.append((13, time.time()))
+    for cell in SERVE_CELLS:
+        kernels.append(serve_main(*cell, torch))
+        torch.cuda.empty_cache()
+    serve_tools(n_records)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

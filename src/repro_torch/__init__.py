@@ -16,6 +16,9 @@ same module paths.  Entry points run on ``cuda`` unless the caller passes
     obs.configure(enabled=True)         # spans, counters, events
     blur = race_kernel(reassociate=3)(blur_loops)   # a plain-Python nest
     out = blur.run({"u": u, "out": out})
+
+    from repro_torch.tuning import autotune      # measured tiles, stored
+    from repro_torch.serve import ServeRuntime   # coalesced run_batch
 """
 from .core.backend import (BACKENDS, BackendUnavailable, Capability,
                            Selection, probe_hopper, select_backend)

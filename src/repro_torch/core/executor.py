@@ -26,7 +26,9 @@ specialization (and, on the card, the kernel build) once.
     (:mod:`.adjoint`) through this executor layer again; otherwise it calls
     the bare core;
   * :class:`ExecutorCache` — thread-safe LRU with hit/miss/eviction stats;
-    :func:`compile_plan` is the front door.
+    :func:`compile_plan` is the front door.  On ``"auto"`` it consults the
+    persistent autotuning store (:mod:`repro_torch.tuning`) first, as the
+    reference's does.
 
 With ``RACE_OBS`` on (:mod:`repro_torch.obs`), the reference's telemetry:
 a ``lower`` span around each specialization, a ``compile`` span on an
@@ -41,6 +43,7 @@ from __future__ import annotations
 import hashlib
 import os
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from fractions import Fraction
@@ -59,6 +62,9 @@ from .ir import Const, Expr, FuncName, Node, Program, Ref
 #: cache; RACE_BACKEND — backend when a caller doesn't pick one
 ENV_CACHE_SIZE = "RACE_EXECUTOR_CACHE_SIZE"
 ENV_BACKEND = "RACE_BACKEND"
+#: seconds between two consults of the tuning store for one plan,
+#: signature and device on the ``"auto"`` path (see :func:`_tuned_choice`)
+STORE_RECHECK_S = 1.0
 
 
 def _env_cache_size(default: int = 128) -> int:
@@ -191,6 +197,22 @@ def env_signature(env: Mapping) -> tuple:
     types."""
     return tuple((nm, tuple(env[nm].shape), _dt_name(env[nm].dtype))
                  for nm in sorted(env))
+
+
+def host_signature(env: Mapping) -> tuple:
+    """The :func:`env_signature` that :func:`env_to_torch` of ``env`` would
+    give, read off shapes and dtypes without copying anything to a device:
+    tensors as they are, other values through ``np.asarray`` (python floats
+    become float64, ints int64, as there)."""
+    sig = []
+    for nm in sorted(env):
+        v = env[nm]
+        if isinstance(v, torch.Tensor):
+            sig.append((nm, tuple(v.shape), _dt_name(v.dtype)))
+        else:
+            a = np.asarray(v)
+            sig.append((nm, a.shape, a.dtype.name))
+    return tuple(sig)
 
 
 def stacked_signature(stacked: Mapping) -> tuple:
@@ -546,19 +568,110 @@ def _resolve(plan: Plan, backend: str, dtypes: tuple) -> Selection:
     return sel
 
 
+def operand_dtypes(plan: Plan, sig: tuple) -> tuple:
+    """The dtype names the signature gives the plan's kernel operands (what
+    the Hopper probe checks)."""
+    arrays = kernel_analysis(plan).arrays
+    return tuple(dt for nm, _, dt in sig if nm in arrays)
+
+
+def _tuned_choice(plan: Plan, sig: tuple, device: torch.device,
+                  dtypes: tuple, batch: int = 0) -> Optional[tuple]:
+    """The persistent autotuning store's (:mod:`repro_torch.tuning`) record
+    for this (plan, env signature) on this device's runtime fence, as
+    ``(backend, blocks)`` (``blocks`` None for ``"torch"``), or None — and
+    *never* raises: a corrupt or stale store must degrade to the chooser,
+    not take the serving path down.  A ``"hopper"`` record counts only
+    where the probe still passes for the plan and ``dtypes``; its blocks
+    are ``(0, 0, 0)``, the chooser's tile, where the chooser cannot honour
+    the stored ones.  ``batch > 1`` (the serving runtime's coalesced
+    dispatch) prefers the record measured at or nearest that batch size
+    (:func:`~repro_torch.tuning.store.plan_batch_choice`) over the
+    per-call one.
+
+    Runs on every ``backend="auto"`` call, so the key (JSON of the
+    signature plus the fence) and the record's reading are memoized per
+    plan instance, signature and device, and the store (one ``os.stat``
+    freshness check, which keeps other processes' records live) is asked
+    again only :data:`STORE_RECHECK_S` after the last time: on a network
+    file system (9p) that ``stat`` cost 100 µs a call beside an H100 and
+    slowed the launch after it (``PERF.md`` §6).  A record written since
+    is picked up on the first call after that."""
+    try:
+        from ..tuning.store import (plan_batch_choice, plan_choice,
+                                    record_key, runtime_fence)
+
+        batch = batch if batch > 1 else 0
+        memo = kernel_memo(plan).setdefault("tuning", {})
+        entry = memo.get((sig, str(device), batch))
+        now = time.monotonic()
+        if entry is None:  # [key, fence, last check, the choice, reading]
+            fence = runtime_fence(device)
+            entry = memo[(sig, str(device), batch)] = [record_key(
+                "plan", plan_hash(plan), sig, fence), fence, None, None,
+                None]
+        elif now - entry[2] < STORE_RECHECK_S:
+            return entry[4]
+        entry[2] = now
+        choice = None
+        if batch:
+            choice = plan_batch_choice(plan_hash(plan), sig, batch,
+                                       fence=entry[1])
+        if choice is None:
+            choice = plan_choice(entry[0])
+        if choice is not entry[3]:
+            entry[3:] = [choice, _read_choice(plan, choice, dtypes)]
+        return entry[4]
+    except Exception:
+        return None
+
+
+def _read_choice(plan: Plan, choice, dtypes: tuple) -> Optional[tuple]:
+    """``(backend, blocks)`` of a stored choice dict (see
+    :func:`_tuned_choice`), or None for no usable record."""
+    if not isinstance(choice, dict):
+        return None
+    if choice.get("backend") == "torch":
+        return ("torch", None)
+    if (choice.get("backend") != "hopper"
+            or _resolve(plan, "auto", dtypes).backend != "hopper"):
+        return None
+    from ..tuning.space import Config, blocks_refusal
+
+    try:
+        tuned = Config.from_dict(choice)
+    except (TypeError, ValueError):
+        return ("hopper", (0, 0, 0))  # a bad record: the chooser's tile
+    if blocks_refusal(plan, tuned):
+        return ("hopper", (0, 0, 0))
+    return ("hopper", (tuned.block_rows, tuned.block_cols,
+                       tuned.block_inner))
+
+
 def compile_plan(plan: Plan, env: Union[Mapping, tuple],
                  backend: Optional[str] = None, *, device=None,
                  block_rows: int = 0, block_cols: int = 0,
                  block_inner: int = 0,
-                 cache: Optional[ExecutorCache] = None) -> CompiledRace:
+                 cache: Optional[ExecutorCache] = None,
+                 batch: int = 0) -> CompiledRace:
     """Fetch (or build) the executor for this (plan, tensor env) pairing.
 
     ``env`` is a tensor env, whose tensors fix the device, or a precomputed
     signature (:func:`env_signature`, :func:`stacked_signature`) with the
     ``device`` given.  ``backend=None`` resolves to ``$RACE_BACKEND``
-    (default ``"auto"``); ``"auto"`` takes the kernel when the probe passes
-    for the plan and the env's dtypes.  The selection is memoized per plan
-    and request, so its telemetry fires once, not per run."""
+    (default ``"auto"``).  ``"auto"`` consults the persistent autotuning
+    store first (:func:`_tuned_choice`): a measured, gated winner recorded
+    for this (plan hash, signature, card, torch and CUDA versions) — by this
+    or any earlier process — supplies the backend and K1's block overrides.
+    A stored tile the chooser cannot honour (larger than an extent, rings
+    over shared memory) falls back to the chooser's tile on the same
+    backend.  ``batch > 1`` names the coalesced batch the executor will
+    run, so ``"auto"`` prefers the record measured at (or nearest) that
+    batch size.  Without a record, ``"auto"`` takes the kernel when the probe
+    passes for the plan and the env's dtypes.  Explicit ``"torch"`` /
+    ``"hopper"`` requests bypass the store (that is how the tuner measures).
+    The selection is memoized per plan and request, so its telemetry fires
+    once, not per run."""
     if isinstance(env, tuple):
         if device is None:
             raise ValueError("compile_plan on a signature needs device=")
@@ -573,13 +686,31 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
             raise ValueError(f"env tensors lie on several devices: "
                              f"{devices}")
         (device,) = devices
-    arrays = kernel_analysis(plan).arrays
-    base = tuple(dt for nm, _, dt in sig if nm in arrays)
-    sel = _resolve(plan, backend or default_backend(), base)
-    blocks = ((block_rows, block_cols, block_inner)
-              if sel.backend == "hopper" else None)
-    key = ExecutorKey(plan_hash(plan), sig, sel.backend, blocks, str(device))
+    base = operand_dtypes(plan, sig)
+    backend = backend or default_backend()
+    blocks = (block_rows, block_cols, block_inner)
+    if backend == "auto":
+        tuned = _tuned_choice(plan, sig, device, base, batch)
+        if tuned is not None:
+            backend, tuned_blocks = tuned
+            if tuned_blocks is not None:
+                try:
+                    return _executor(plan, sig, _resolve(plan, "hopper", base),
+                                     tuned_blocks, device, cache)
+                except ValueError:
+                    pass  # e.g. hopper-smem: the chooser's tile below
+                blocks = (0, 0, 0)
+    return _executor(plan, sig, _resolve(plan, backend, base), blocks, device,
+                     cache)
+
+
+def _executor(plan: Plan, sig: tuple, sel: Selection, blocks: tuple,
+              device, cache: Optional[ExecutorCache]) -> CompiledRace:
+    """The cached executor of one resolved selection and block config."""
+    key = ExecutorKey(plan_hash(plan), sig, sel.backend,
+                      blocks if sel.backend == "hopper" else None,
+                      str(device))
     c = cache if cache is not None else _CACHE
     return c.get_or_build(key, lambda: CompiledRace(
-        plan, sig, sel, device=device, block_rows=block_rows,
-        block_cols=block_cols, block_inner=block_inner))
+        plan, sig, sel, device=device, block_rows=blocks[0],
+        block_cols=blocks[1], block_inner=blocks[2]))

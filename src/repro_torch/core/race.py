@@ -7,6 +7,7 @@ execution behind one call (paper Fig. 3 workflow).  Port of
     out = result.run(env)                       # on cuda; device="cpu" asks
                                                 # for the CPU
     outs = result.run_batch([env0, env1])       # (B, ...) per output
+    result = race(program, tune=True)           # autotuned on first run
     result = race_from_fn(fn, shapes)           # a plain-Python loop nest
     result.telemetry()                          # hashes, verdicts, obs view
 
@@ -14,7 +15,7 @@ execution behind one call (paper Fig. 3 workflow).  Port of
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from .. import obs as _obs
@@ -32,6 +33,8 @@ class RaceResult:
     plan: Plan
     transformed: Transformed
     options: dict
+    # per-env-signature tuned delegation: sig -> (TuningDecision, RaceResult)
+    _tuned: dict = field(default_factory=dict, repr=False)
 
     # --- analysis ----------------------------------------------------------
     def profit(self):
@@ -72,6 +75,68 @@ class RaceResult:
         """Resolve a backend request (default: the one given to ``race``)."""
         return select_backend(self.plan, backend or self.options["backend"])
 
+    def tune(self, env: dict, *, device=None, **autotune_kw):
+        """Measure-and-pick the best (reassociate, backend, blocks) for
+        ``env`` on ``device`` (``None``: cuda) via
+        :func:`repro_torch.tuning.autotune` (or the persistent store, when
+        this machine already tuned this program + signature).
+
+        The decision is remembered on this result: later :meth:`run` /
+        :meth:`run_batch` calls with the same env signature and no explicit
+        backend execute the winner — including a different reassociation
+        level's plan when that measured faster.  Returns the
+        :class:`~repro_torch.tuning.TuningDecision`.
+        """
+        from ..tuning import autotune
+        from .executor import host_signature
+
+        opts = self.options
+        # rebuild each level with the same plan-shaping knobs as this
+        # result, so the plans the tuner measures are the plans run() will
+        # execute.  "esr" is deliberately excluded: ESR(+) is a
+        # paper-comparison baseline that restricts detection to the
+        # innermost level, and forwarding it would make the tuner measure
+        # (and persist) those handicapped plans as the winners for the
+        # *unrestricted* search
+        race_opts = {k: opts[k]
+                     for k in ("contraction", "cost_model",
+                               "rewrite_sub", "max_rounds",
+                               "mis_exact_limit")
+                     if k in opts}
+        kw = dict(autotune_kw)
+        kw.setdefault("default_reassociate", opts.get("reassociate", 0))
+        kw.setdefault("rewrite_div", opts.get("rewrite_div", False))
+        kw.setdefault("race_opts", race_opts)
+        dec = autotune(self.program, env, device=device, **kw)
+        ch = dec.choice
+        if (ch.reassociate == opts.get("reassociate", 0)
+                and not opts.get("esr")):
+            target = self
+        else:
+            # an ESR result always rebuilds, even at its own level: the
+            # tuner measured unrestricted plans, so serving must run them
+            target = race(self.program, reassociate=ch.reassociate,
+                          rewrite_div=opts.get("rewrite_div", False),
+                          backend=opts.get("backend"), **race_opts)
+        self._tuned[host_signature(env)] = (dec, target)
+        return dec
+
+    def _tuned_entry(self, env, sig, device):
+        """(decision, target result) for sig, auto-tuning when requested.
+        ``env`` may be a zero-arg callable producing the example env, so
+        callers can defer materializing it (``run_batch`` slices the
+        stacked batch) to the one path that needs concrete values."""
+        entry = self._tuned.get(sig)
+        if entry is None and self.options.get("tune") is not None:
+            if callable(env):
+                env = env()
+            # race(tune=True) stores {}; race(tune={...}) forwards the
+            # kwargs; the run's device is the one tuned
+            self.tune(dict(env), **{**self.options["tune"],
+                                    "device": device})
+            entry = self._tuned.get(sig)
+        return entry
+
     def run(self, env: dict, backend: Optional[str] = None, *, device=None,
             block_rows: int = 0, block_cols: int = 0, block_inner: int = 0):
         """Execute the plan; returns ``{output name: tensor over the
@@ -81,10 +146,27 @@ class RaceResult:
         pass ``device="cpu"`` to run on the CPU, where the ``"hopper"``
         backend runs the kernel's tile emulator.  ``env`` may hold numpy
         arrays, scalars or tensors; they are moved to the device.
-        ``block_*`` override the kernel's tile chooser (0 = choose)."""
-        from .executor import compile_plan, env_to_torch, resolve_device
+        ``block_*`` override the kernel's tile chooser (0 = choose).
 
-        env = env_to_torch(env, resolve_device(device))
+        With ``race(..., tune=True)`` (or after an explicit :meth:`tune`),
+        calls without an explicit ``backend`` run the tuned winner for the
+        env's signature; the first such call pays the search unless the
+        persistent store already has the decision."""
+        from .executor import (compile_plan, env_signature, env_to_torch,
+                               resolve_device)
+
+        dev = resolve_device(device)
+        env = env_to_torch(env, dev)
+        if backend is None and (self._tuned
+                                or self.options.get("tune") is not None):
+            entry = self._tuned_entry(env, env_signature(env), dev)
+            if entry is not None:
+                dec, target = entry
+                ch = dec.choice
+                ex = compile_plan(
+                    target.plan, env, ch.backend, block_rows=ch.block_rows,
+                    block_cols=ch.block_cols, block_inner=ch.block_inner)
+                return ex(env)
         ex = compile_plan(self.plan, env, backend or self.options["backend"],
                           block_rows=block_rows, block_cols=block_cols,
                           block_inner=block_inner)
@@ -100,13 +182,31 @@ class RaceResult:
         :meth:`run` (``None``: cuda, raising without a GPU).  ``run`` and
         ``run_batch`` share one executor: it is keyed on the per-example
         signature.  On ``"hopper"`` the batch is one kernel launch, the
-        examples on the grid's second axis."""
+        examples on the grid's second axis.  A tuned decision for the
+        per-example signature (see :meth:`tune`) is applied as in
+        :meth:`run`."""
         from .executor import (compile_plan, resolve_device, stack_envs,
                                stacked_signature)
 
         dev = resolve_device(device)
         stacked = stack_envs(envs, dev)
-        ex = compile_plan(self.plan, stacked_signature(stacked),
+        sig = stacked_signature(stacked)
+        if backend is None and (self._tuned
+                                or self.options.get("tune") is not None):
+            # the example a tune run needs (batch element 0) is sliced
+            # lazily: only a search reads it
+            entry = self._tuned_entry(
+                lambda: {k: v[0].detach() for k, v in stacked.items()}, sig,
+                dev)
+            if entry is not None:
+                dec, target = entry
+                ch = dec.choice
+                ex = compile_plan(
+                    target.plan, sig, ch.backend, device=dev,
+                    block_rows=ch.block_rows, block_cols=ch.block_cols,
+                    block_inner=ch.block_inner)
+                return ex.run_batch(stacked)
+        ex = compile_plan(self.plan, sig,
                           backend or self.options["backend"], device=dev,
                           block_rows=block_rows, block_cols=block_cols,
                           block_inner=block_inner)
@@ -182,15 +282,24 @@ def race(
     max_rounds: int = 64,
     mis_exact_limit: int = 40,
     backend: Optional[str] = None,
+    tune=False,
 ) -> RaceResult:
     """Run RACE on a program.
 
     ``backend`` records the request :meth:`RaceResult.run` honors:
     ``"torch"`` (whole-array evaluator), ``"hopper"`` (the CUDA stencil
     kernel; raises ``BackendUnavailable`` when the plan is ineligible) or
-    ``"auto"`` (the kernel when the probe passes, the evaluator otherwise,
-    with the reasons in the Selection).  ``None`` resolves to
-    ``$RACE_BACKEND`` or ``"auto"``."""
+    ``"auto"`` (the tuning store's record when there is one, else the kernel
+    when the probe passes and the evaluator otherwise, with the reasons in
+    the Selection).  ``None`` resolves to ``$RACE_BACKEND`` or ``"auto"``.
+
+    ``tune=True`` defers the strategy/backend/block choice to the autotuner
+    (:mod:`repro_torch.tuning`): the first :meth:`RaceResult.run` per env
+    signature measures the candidate space on the run's device (or answers
+    from the persistent store) and every later call runs the winner.  Pass
+    a dict instead of True to forward keyword options to
+    :func:`repro_torch.tuning.autotune`, e.g.
+    ``tune=dict(levels=(0, 3), backends=("torch",))``."""
     if backend is None:
         from .executor import default_backend
 
@@ -232,7 +341,13 @@ def race(
             len(plan.aux_order))
     return RaceResult(program, plan, transformed, dict(
         reassociate=reassociate, esr=esr, contraction=contraction,
-        backend=backend, rewrite_div=rewrite_div))
+        backend=backend, rewrite_div=rewrite_div,
+        # plan-shaping knobs, recorded so RaceResult.tune() measures plans
+        # built with *these* options, not the defaults
+        cost_model=cost_model, rewrite_sub=rewrite_sub,
+        max_rounds=max_rounds, mis_exact_limit=mis_exact_limit,
+        tune=(dict(tune) if isinstance(tune, dict)
+              else {} if tune else None)))
 
 
 def race_from_fn(fn, shapes, consts=None, **race_opts) -> RaceResult:

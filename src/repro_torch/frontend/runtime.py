@@ -30,8 +30,15 @@ exactly once per signature.
 ``device`` is ``RaceResult.run``'s: ``None`` means ``cuda`` (raising when
 no card is present), ``"cpu"`` asks for the CPU.  Shapes are read off each
 value's ``.shape``, so a tensor on the card is never copied to the host to
-learn its shape.  The reference's ``tune=`` option waits for the port of
-the autotuner.
+learn its shape.
+
+``race_kernel(tune=True)`` additionally routes the strategy / backend /
+block-config choice through the persistent autotuner
+(:mod:`repro_torch.tuning`): the first ``run`` per input signature measures
+the candidate space on the run's device — or answers from the on-disk store
+when this machine tuned the kernel before — and every later call executes
+the recorded winner.  Pass a dict to forward options, e.g.
+``race_kernel(tune=dict(levels=(0, 3)))``.
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ def _freeze(mapping: Optional[Mapping]) -> tuple:
     def fz(v):
         if isinstance(v, (tuple, list)):
             return tuple(fz(x) for x in v)
-        if isinstance(v, dict):
+        if isinstance(v, dict):  # e.g. tune=dict(levels=(0, 3))
             return tuple(sorted((k, fz(x)) for k, x in v.items()))
         return v
 
@@ -163,7 +170,8 @@ class RaceKernel:
 def race_kernel(fn: Optional[Callable] = None, **race_opts):
     """Decorator form of the frontend; bare or parametrized.
 
-    ``@race_kernel`` / ``@race_kernel(reassociate=4, backend="hopper")``.
+    ``@race_kernel`` / ``@race_kernel(reassociate=4, backend="hopper")`` /
+    ``@race_kernel(tune=True)`` (autotuned strategy + backend + blocks).
     Keyword options forward to :func:`repro_torch.core.race.race`.
     """
     if fn is None:

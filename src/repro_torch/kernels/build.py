@@ -3,7 +3,8 @@ C interface, loaded with ctypes.
 
 Every source, whether rendered per plan (the stencil kernel) or kept in
 ``csrc/`` (``fused_ce.cu``), is written to ``build/repro_torch/<sha256>.cu``
-at the root of the checkout and compiled at first use with
+at the root of the checkout (``$RACE_COMPILE_CACHE`` moves that directory:
+:mod:`repro_torch.core.compile_cache`) and compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -I src/repro_torch/csrc
@@ -14,7 +15,13 @@ includes) and the flags, so a library is reused exactly while they are
 unchanged.  :func:`compile_sources` builds many sources at once, one nvcc
 process each, all started together; :func:`load` binds the C symbols a
 caller names.  Nothing here includes PyTorch's headers, so a build takes
-seconds, not minutes.
+seconds, not minutes.  A library found on disk counts as a hit of the
+compile cache, an nvcc run as a miss (``compile_cache.counts()``).
+
+Builders may run at once, in threads of one process or in several
+processes: each stages its files under its own process and thread id and
+renames the finished library into place, and a library is loaded once per
+process.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Iterable, Mapping, Optional
 
@@ -34,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: loaded libraries by path (a library is loaded once per process)
 _LIBS: dict = {}
+_LIBS_LOCK = threading.Lock()
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
@@ -70,8 +79,17 @@ def csrc_source(name: str) -> str:
     return (CSRC / name).read_text()
 
 
+def build_dir() -> Path:
+    """Where libraries are built: ``$RACE_COMPILE_CACHE`` when set, else
+    :data:`BUILD_DIR`."""
+    from ..core import compile_cache
+
+    compile_cache.ensure_enabled()
+    return Path(compile_cache.cache_dir())
+
+
 def library_path(source: str) -> Path:
-    return BUILD_DIR / f"{_digest(source)}.so"
+    return build_dir() / f"{_digest(source)}.so"
 
 
 def _nvcc() -> str:
@@ -87,16 +105,20 @@ def compile_sources(sources: Iterable[str],
     """Compile every source whose library is not built yet; return the
     library path of each source, in order.  Raises :class:`BuildError` with
     nvcc's output when any build fails."""
+    from ..core import compile_cache
+
     sources = list(sources)
     paths = [library_path(s) for s in sources]
     todo = {}
     for src, so in zip(sources, paths):
         if not so.exists():
             todo[so] = src
+        else:
+            compile_cache.record("hit", so.parent)
     if not todo:
         return paths
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths[0].parent.mkdir(parents=True, exist_ok=True)
     jobs = jobs or os.cpu_count() or 1
     pending = list(todo.items())
     running: list = []
@@ -105,9 +127,11 @@ def compile_sources(sources: Iterable[str],
         while pending or running:
             while pending and len(running) < jobs:
                 so, src = pending.pop()
-                # per-process staging names: a concurrent builder of the
-                # same source never rewrites a file under this nvcc
-                stage = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+                # per-process, per-thread staging names: a concurrent
+                # builder of the same source never rewrites a file under
+                # this nvcc
+                stage = so.with_name(f"{so.stem}.{os.getpid()}."
+                                     f"{threading.get_ident()}.tmp")
                 cu, tmp = stage.with_suffix(".cu"), stage.with_suffix(".so")
                 cu.write_text(src)
                 proc = subprocess.Popen(
@@ -116,6 +140,7 @@ def compile_sources(sources: Iterable[str],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)
                 running.append((proc, so, tmp, cu))
+                compile_cache.record("miss", so.parent)
             proc, so, tmp, cu = running.pop(0)
             log, _ = proc.communicate()
             if proc.returncode == 0:
@@ -139,11 +164,12 @@ def load(source: str, symbols: Mapping[str, tuple]) -> ctypes.CDLL:
     Pointers and the stream are ``ctypes.c_void_p``: a bare Python int would
     pass as a 32-bit int and cut them."""
     (path,) = compile_sources([source])
-    lib = _LIBS.get(path)
-    if lib is None:
-        lib = _LIBS[path] = ctypes.CDLL(str(path))
-    for name, (restype, argtypes) in symbols.items():
-        fn = getattr(lib, name)
-        fn.restype = restype
-        fn.argtypes = list(argtypes)
+    with _LIBS_LOCK:
+        lib = _LIBS.get(path)
+        if lib is None:
+            lib = _LIBS[path] = ctypes.CDLL(str(path))
+        for name, (restype, argtypes) in symbols.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = list(argtypes)
     return lib

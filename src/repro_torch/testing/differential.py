@@ -70,13 +70,24 @@ def build_env(case, dtype=np.float32, seed: int = 0) -> dict:
 
 def rel_err(got: dict, want: dict) -> float:
     """Worst relative error across outputs: max |got - want| / max |want|,
-    in float64; entries may be tensors (any device) or arrays."""
+    in float64; entries may be tensors (any device) or arrays.  A
+    non-finite value on either side gives ``inf``.  Two tensors
+    on one device are compared there (the same float64 arithmetic, without
+    copying a full-size output to the host)."""
     worst = 0.0
     for k in want:
-        g = np.asarray(_host(got[k]), np.float64)
-        w = np.asarray(_host(want[k]), np.float64)
-        denom = max(float(np.abs(w).max()), 1e-30)
-        worst = max(worst, float(np.abs(g - w).max()) / denom)
+        g, w = got[k], want[k]
+        if (isinstance(g, torch.Tensor) and isinstance(w, torch.Tensor)
+                and g.device == w.device):
+            g, w = g.detach().double(), w.detach().double()
+            diff, scale = float((g - w).abs().max()), float(w.abs().max())
+        else:
+            g = np.asarray(_host(g), np.float64)
+            w = np.asarray(_host(w), np.float64)
+            diff, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        if not (np.isfinite(diff) and np.isfinite(scale)):
+            return float("inf")  # a NaN or inf never passes a tolerance
+        worst = max(worst, diff / max(scale, 1e-30))
     return worst
 
 

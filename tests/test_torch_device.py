@@ -8,6 +8,7 @@ import ctypes
 import importlib.util
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -154,6 +155,60 @@ def test_load_binds_the_symbols_it_is_given(tmp_path, monkeypatch):
                                       [ctypes.c_long, ctypes.c_int])})
     assert lib.scaled(1 << 40, 3) == 3 << 40
     assert build.load(src, {}) is lib
+
+
+@pytest.mark.skipif(shutil.which("gcc") is None, reason="needs gcc")
+def test_concurrent_builds_of_one_source_stage_apart(tmp_path, monkeypatch):
+    """Two threads of one process compile the same source at once (nvcc
+    stood in for by a script that sleeps, then runs gcc): each stages its
+    files under its own process and thread id, both finish, and the library
+    is loaded once."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.delenv("RACE_COMPILE_CACHE", raising=False)
+    script = tmp_path / "fake_nvcc"
+    script.write_text(
+        "#!/bin/sh\nsleep 0.5\n"
+        'out=""; prev=""; src=""\n'
+        'for a in "$@"; do\n'
+        '  if [ "$prev" = "-o" ]; then out="$a"; fi\n'
+        '  prev="$a"; src="$a"\n'
+        "done\n"
+        'exec gcc -shared -fPIC -x c -o "$out" "$src"\n')
+    script.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(script))
+    opened = []
+    real_cdll = ctypes.CDLL
+
+    def counting_cdll(path, *a, **kw):
+        opened.append(path)
+        return real_cdll(path, *a, **kw)
+
+    monkeypatch.setattr(build.ctypes, "CDLL", counting_cdll)
+    src = "int thrice(int x) { return 3 * x; }\n"
+    barrier = threading.Barrier(2)
+    libs, errors = [], []
+
+    def builder():
+        try:
+            barrier.wait(timeout=30)
+            libs.append(build.load(src, {"thrice": (ctypes.c_int,
+                                                    [ctypes.c_int])}))
+        except Exception as e:  # the assertion target
+            errors.append(e)
+
+    threads = [threading.Thread(target=builder) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert errors == []
+    assert len(libs) == 2 and libs[0] is libs[1]
+    assert libs[0].thrice(14) == 42
+    assert opened == [str(build.library_path(src))]
+    assert sorted(p.name for p in (tmp_path / "lib").iterdir()) == sorted(
+        [build.library_path(src).name,
+         build.library_path(src).with_suffix(".cu").name])
 
 
 def _chip_smoke():
@@ -437,3 +492,63 @@ def test_hvp_launches_the_kernel_in_the_second_backward(cuda_device):
     torch.cuda.synchronize()
     assert rel_err({"u": h}, {"u": want}) <= default_tolerances(
         np.float32)["grad"]
+
+
+@pytest.mark.cuda
+def test_autotune_on_card_gates_times_and_is_reused(cuda_device):
+    """``autotune`` on the card: every tile candidate is built before it is
+    timed, the winner passed the gate and is not slower than the default
+    beyond the noise margin, a second call answers from the store, and
+    ``"auto"`` then builds the executor with the record's blocks."""
+    from repro_torch.tuning import autotune, record_key, runtime_fence
+
+    case = get_case("j3d27pt", 4 * SWEEP_SIZES["j3d27pt"])
+    env = {k: v for k, v in build_env(case).items() if k != "j27"}
+    lvl = case.reassociate
+    dec = autotune(case.program, env, levels=(lvl,), default_reassociate=lvl,
+                   repeats=3, warmup=1)
+    assert any(m.config == dec.choice and m.ok for m in dec.measurements)
+    assert dec.tuned_us <= dec.default_us
+    assert all(m.status != "error" or "tile-extent" in m.detail
+               for m in dec.measurements)
+    assert autotune(case.program, env, levels=(lvl,),
+                    default_reassociate=lvl, repeats=3,
+                    warmup=1).from_cache
+    res = repro_torch.race(case.program, reassociate=lvl)
+    tenv = env_to_torch(env, cuda_device)
+    ex = repro_torch.compile_plan(res.plan, tenv)
+    assert ex.backend == dec.choice.backend
+    if ex.backend == "hopper":
+        forced = repro_torch.compile_plan(
+            res.plan, tenv, "hopper", block_rows=dec.choice.block_rows,
+            block_cols=dec.choice.block_cols,
+            block_inner=dec.choice.block_inner)
+        assert forced is ex
+    got = res.run(tenv)
+    torch.cuda.synchronize()
+    assert rel_err(got, res.run(tenv, "torch")) <= default_tolerances(
+        np.float32)["plan"]
+
+
+@pytest.mark.cuda
+def test_serve_runtime_on_card_launches_once_per_batch(cuda_device):
+    """``ServeRuntime`` on the card (its default device): each response is
+    bit-equal to ``run`` of its env, and K1 launches once per dispatch."""
+    from repro_torch.serve import ServeRuntime
+
+    case = get_case("j3d27pt", 2 * SWEEP_SIZES["j3d27pt"])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    envs = [{k: v for k, v in build_env(case, seed=s).items() if k != "j27"}
+            for s in range(6)]
+    ex = repro_torch.compile_plan(res.plan, env_to_torch(envs[0],
+                                                         cuda_device))
+    assert ex.backend == "hopper"
+    before = ex.kernel_launches
+    with ServeRuntime(max_batch=4, window_us=50000, workers=1) as rt:
+        got = [f.result(timeout=120) for f in rt.submit_many(res, envs)]
+        stats = rt.stats()
+    assert stats["batches"] == 2 and stats["rejected"] == 0
+    assert ex.kernel_launches - before == stats["batches"]
+    for env, g in zip(envs, got):
+        want = res.run(env)
+        assert all(np.array_equal(g[k], want[k].cpu().numpy()) for k in want)

@@ -1,6 +1,6 @@
 """The PyTorch port imports neither jax nor anything of the JAX package,
 not even the jax-free ``repro.obs`` and ``repro.frontend``: it carries its
-own copies."""
+own copies.  Its tuner, serving runtime and launcher included."""
 import os
 import re
 import subprocess
@@ -28,7 +28,12 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.obs.check, repro_torch.frontend, "
             "repro_torch.frontend.capture, repro_torch.frontend.affine, "
             "repro_torch.frontend.diagnostics, repro_torch.frontend.runtime, "
-            "repro_torch.apps.frontend_kernels"
+            "repro_torch.apps.frontend_kernels, repro_torch.tuning, "
+            "repro_torch.tuning.space, repro_torch.tuning.store, "
+            "repro_torch.tuning.measure, repro_torch.tuning.tuner, "
+            "repro_torch.core.compile_cache, repro_torch.serve, "
+            "repro_torch.serve.runtime, repro_torch.serve.warm, "
+            "repro_torch.launch.serve"
             "\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -45,7 +50,7 @@ def test_sources_import_no_jax_and_no_repro():
     assert len(files) > 15
     scanned = {f.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for f in files[:-1]}
-    assert {"obs", "frontend"} <= scanned
+    assert {"obs", "frontend", "tuning", "serve", "launch"} <= scanned
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert bad == []

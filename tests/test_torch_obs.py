@@ -579,6 +579,30 @@ def test_frontend_capture_success_counts():
     assert obs.span_summary()["capture"]["count"] == 1
 
 
+
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_tuning_gate_event(backend):
+    from repro_torch.tuning.measure import measure_candidate
+    from repro_torch.tuning.space import Config
+
+    _enable()
+    case = get_case("gaussian", 16)
+    res = race(case.program, reassociate=0)
+    env = _cpu_env(case)
+    truth = {k: v.numpy() + 1e3  # deliberately wrong baseline
+             for k, v in compile_plan(res.plan, env, "torch")(env).items()}
+    m = measure_candidate(res.plan, Config(0, backend), env, truth, 1e-6)
+    assert m.status == "gated"
+    evs = obs.events(kind="tuning_gate")
+    assert len(evs) == 1
+    assert evs[0]["status"] == "gated"
+    assert evs[0]["plan"] == plan_hash(res.plan)
+    assert evs[0]["config"] == Config(0, backend).describe()
+    snap = obs.snapshot()
+    assert snap["counters"][
+        "race_tuning_candidates_total{status=gated}"] == 1
+
+
 # ---------------------------------------------------------------------------
 # dump + report CLI
 # ---------------------------------------------------------------------------
