@@ -141,7 +141,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
      processes run ``python -m repro_torch.serve.warm`` on phase 12's
      store (every record warmed, none unmatched, no nvcc run) and
      ``python -m repro_torch.launch.serve --case j3d27pt --n 64`` (its
-     row printed).
+     row printed);
+ 14. sharded execution (``repro_torch.shard``) on a 2x2 mesh: four
+     distinct cards where there are four, else ``["cuda:0"] * 4`` (one
+     controller, four shards on one card).  j3d27pt and poisson n=512 f32
+     (each level extent, 510, splits in two) through ``race(...,
+     mesh=mesh, halo=h).run(env)`` for h = ``"exchange"``,
+     ``"recompute"`` and ``"auto"``: the local backend must be
+     ``"hopper"``, K1 must launch once per shard (4 per call, zeroed just
+     before), and the outputs must be within ``plan`` of the single-device
+     kernel and within ``baseline`` of the float64 baseline program; the
+     partition, the local plan hash, halo, restack and slab bytes and the
+     strategy ``"auto"`` picked are printed, and the sharded call is timed
+     (CUDA events, median of 10 after a warm-up; the host clock with every
+     card synchronized when the shards span cards) beside the
+     single-device ``res.run``, then split into its prologue (local slabs
+     and halo copies), the four K1 launches, the epilogue (local interiors
+     into the global outputs), the local plans on ``"torch"``, the bound
+     and (j3d27pt) ``F.conv3d`` of the whole grid.  Then
+     ``torch.autograd.grad`` through the sharded ``run`` of poisson
+     against the single-device one within ``grad``: every adjoint spec
+     sharded (4 launches) or fallen back (1) and on K1, both backwards
+     timed; rprj3 must raise ``ShardingUnavailable`` with
+     ``shard-strided``; last, a 1 GiB device-to-device copy is timed (and
+     a peer copy from card 0 to card 1 where there are two cards).  The
+     local plans' sources (forward and adjoint) are built in phase 2.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -234,6 +258,10 @@ SERVE_MAX_BATCH = (8, 32)
 SERVE_REQUESTS = 512
 SERVE_FULL = (32, 32)  # (concurrency, max_batch)
 SERVE_SHORT = {"derivative_b8": 64}
+#: phase 14: (case, n) run sharded on a 2x2 mesh at float32 (every level
+#: extent, 510, splits in two), the gradient cell
+SHARD_CELLS = (("j3d27pt", 512), ("poisson", 512))
+SHARD_GRAD_CELL = ("poisson", 512)
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -1941,7 +1969,340 @@ def serve_tools(n_records: int) -> None:
           flush=True)
 
 
+def shard_mesh(torch):
+    """Phase 14's 2x2 mesh: four distinct cards where there are four, else
+    the first card four times (one process, one controller)."""
+    from repro_torch.launch.mesh import make_stencil_mesh
+
+    if torch.cuda.device_count() >= 4:
+        return make_stencil_mesh(4)
+    return make_stencil_mesh(devices=["cuda:0"] * 4)
+
+
+def shard_sources(mesh) -> list:
+    """The K1 sources phase 14 runs, built in phase 2: each forward cell's
+    local plan (one source, whichever halo strategy), and each adjoint
+    spec's local plan where the partitioner admits its program (a refused
+    spec runs its single-device adjoint plan, whose source phase 6 has).
+    The executors go into a cache of their own: phases 10 and 12 read the
+    process-wide one and expect single-device executors only."""
+    import numpy as np
+
+    from repro_torch import env_signature, race
+    from repro_torch.core.executor import ExecutorCache
+    from repro_torch.apps import get_case
+    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.shard import ShardingUnavailable, compile_sharded
+
+    out = []
+    cache = ExecutorCache()
+    for name, n in SHARD_CELLS:
+        case = get_case(name, n)
+        res = race(case.program, reassociate=case.reassociate)
+        sr = compile_sharded(res, env_signature(shape_env(case, np.float32)),
+                             mesh, cache=cache)
+        if sr.backend != "hopper":
+            raise SystemExit(f"sharded {name}: the local plan is on "
+                             f"{sr.backend}: "
+                             f"{sr.local.selection.capability.explain()}")
+        out += [ex.spec.source for ex in sr.locals.values()]
+    case = get_case(*SHARD_GRAD_CELL)
+    outs = {st.lhs.name for st in case.program.body}
+    shapes = {k: v for k, v in required_shapes(case.program).items()
+              if k not in outs}
+    for spec in adjoint_build(case.program).specs:
+        adj = adjoint_env_shapes(spec, case.program, shapes)
+        sig = tuple((k, tuple(adj[k]), "float32") for k in sorted(adj))
+        try:
+            sr = compile_sharded(spec.result(), sig, mesh, cache=cache)
+        except ShardingUnavailable:
+            continue
+        out += [ex.spec.source for ex in sr.locals.values()
+                if ex.spec is not None]
+    return out
+
+
+def _wall_ms(fn, torch) -> float:
+    """Median over REPS of one call by the host clock, every card
+    synchronized before and after (CUDA events time one card's stream;
+    a mesh over several cards needs them all), after a warm-up."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    fn()
+    sync()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _shard_timer(sr):
+    """CUDA events where every shard is on one card, else the host clock
+    with every card synchronized."""
+    return _time_ms if len(sr.locals) == 1 else _wall_ms
+
+
+def _zero_launches(executors) -> None:
+    """Zero the K1 launch counts of single-device executors and of every
+    local executor of sharded ones."""
+    for ex in executors:
+        for local in getattr(ex, "locals", {None: ex}).values():
+            if local.spec is not None:
+                local.spec.launches = 0
+
+
+def shard_main(name, n, mesh, torch) -> dict:
+    """Phase 14's forward for one cell; returns its kernel line (the four
+    local K1 launches of one ``"auto"`` call)."""
+    import numpy as np
+
+    from repro_torch import compile_plan, plan_hash, race
+    from repro_torch.apps import get_case
+    from repro_torch.core.codegen import interior
+    from repro_torch.shard import compile_sharded
+    from repro_torch.testing import build_env, default_tolerances, rel_err
+
+    case = get_case(name, n)
+    dt = np.float32
+    tol = default_tolerances(dt)
+    outs = {st.lhs.name for st in case.program.body}
+    env = {k: torch.as_tensor(v, device=DEVICE)
+           for k, v in build_env(case, dt, seed=0).items() if k not in outs}
+    res = race(case.program, reassociate=case.reassociate)
+    ex1 = compile_plan(res.plan, env, "hopper")
+    want = ex1(env)
+    env64 = {k: v.double() for k, v in env.items()}
+    truth = interior(res.plan, res.baseline_evaluator()(env64))
+    del env64
+    torch.cuda.synchronize()
+    single_ms = _time_ms(lambda: res.run(env, device=DEVICE), torch)
+    single_kernel_ms = _time_ms(lambda: ex1(env), torch)
+    line = None
+    for halo in ("exchange", "recompute", "auto"):
+        res_m = race(case.program, reassociate=case.reassociate, mesh=mesh,
+                     halo=halo)
+        sr = compile_sharded(res_m, env, mesh, halo=halo)
+        hp = sr.halo_prog
+        if sr.backend != "hopper":
+            raise SystemExit(f"sharded {name} {halo}: local backend "
+                             f"{sr.backend}")
+        _zero_launches([sr])
+        got = res_m.run(env)
+        torch.cuda.synchronize()
+        launches = sr.kernel_launches
+        if launches != mesh.size:
+            raise SystemExit(f"sharded {name} {halo}: {launches} K1 "
+                             f"launches for {mesh.size} shards")
+        e_plan = rel_err(got, want)
+        e_base = rel_err(got, truth)
+        max_abs = max(float((got[k].double() - want[k].double()).abs().max())
+                      for k in want)
+        ok = e_plan <= tol["plan"] and e_base <= tol["baseline"]
+        del got
+        sharded_ms = _shard_timer(sr)(lambda: res_m.run(env), torch)
+        print(f"shard {name} n={n} f32 halo={halo}: strategy {hp.strategy}, "
+              f"local backend {sr.backend}, partition "
+              f"{sr.partition.key()}, local plan "
+              f"{plan_hash(sr.local.plan)} (global {plan_hash(res.plan)}), "
+              f"K1 launches per call {launches}, halo_bytes "
+              f"{hp.halo_bytes}, restack_bytes {hp.restack_bytes}, "
+              f"slab_bytes {hp.slab_bytes}; vs single-device hopper "
+              f"{e_plan:.2e} (<= {tol['plan']:.0e}), vs float64 baseline "
+              f"{e_base:.2e} (<= {tol['baseline']:.0e}), max_abs_err "
+              f"{max_abs:.3e}; sharded_ms {sharded_ms:.4f}, single-device "
+              f"res.run ms {single_ms:.4f} (its kernel {single_kernel_ms:.4f})"
+              f" {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"sharded {name} {halo} disagrees")
+        if halo == "auto":
+            line = shard_parts(name, n, case, env, sr, launches, max_abs,
+                               sharded_ms, single_ms, torch)
+    return line
+
+
+def shard_parts(name, n, case, env, sr, launches, max_abs, sharded_ms,
+                single_ms, torch) -> dict:
+    """Phase 14's split of one sharded call into its glue and its kernels:
+    the prologue (local slabs, halo copies), the local K1 launches, the
+    epilogue (local interiors into the global outputs), each timed alone;
+    the local plans on ``"torch"``; the bound of the four local calls."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+
+    hp, shards = sr.halo_prog, sr.shards
+    local_sig = sr.local.env_sig
+    envs = hp.local_envs(env, shards)
+    cores = [sr.locals[str(dev)].core_fn for _, dev in shards]
+    plains = [compile_plan(sr.local.plan, local_sig, "torch", device=dev)
+              for _, dev in shards]
+    louts = [core(e) for core, e in zip(cores, envs)]
+    nbytes = ops = 0
+    for e in envs:
+        b, o = plan_work(sr.local.plan, e, np.dtype(np.float32).itemsize)
+        nbytes, ops = nbytes + b, ops + o
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS["float32"])
+    lib = library_call(case, env)
+    library_ms = None if lib is None else _time_ms(lib, torch)
+    timer = _shard_timer(sr)
+
+    def run_shards(fns):
+        for fn, e, (_, dev) in zip(fns, envs, shards):
+            with torch.cuda.device(dev):
+                fn(e)
+
+    prologue_ms = timer(lambda: hp.local_envs(env, shards), torch)
+    k1_ms = timer(lambda: run_shards(cores), torch)
+    plain_ms = timer(lambda: run_shards(plains), torch)
+    epilogue_ms = timer(lambda: hp.assemble(louts, shards, sr.device), torch)
+    parts = prologue_ms + k1_ms + epilogue_ms
+    print(f"shard-split {name} n={n} ({hp.strategy}, {len(shards)} shards "
+          f"on {len(sr.locals)} card(s), {timer.__name__}): prologue_ms "
+          f"{prologue_ms:.4f}, K1 x{len(shards)} ms {k1_ms:.4f}, "
+          f"epilogue_ms {epilogue_ms:.4f}, sum {parts:.4f}; whole call "
+          f"{sharded_ms:.4f}, single-device res.run {single_ms:.4f} "
+          f"(sharded / single {sharded_ms / single_ms:.3f}); local plans on "
+          f"torch x{len(shards)} {plain_ms:.4f}; bytes {nbytes}, bound_ms "
+          f"{bound_ms:.4f} ({by}), share of bound {bound_ms / k1_ms:.3f}, "
+          f"library_ms {library_ms}", flush=True)
+    return dict(name=f"race_stencil[{name} sharded 2x2]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273", launches=launches,
+                max_abs_err=max_abs, ms=k1_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+
+
+def shard_grad(mesh, torch) -> None:
+    """Phase 14's gradient: ``torch.autograd.grad`` through the sharded
+    ``run`` against the same gradient through the single-device ``run``
+    within ``grad``; per adjoint spec, sharded or fallen back and its K1
+    launches in one backward (zeroed just before)."""
+    import numpy as np
+
+    from repro_torch import race
+    from repro_torch.apps import get_case
+    from repro_torch.shard import ShardedRace, compile_sharded
+    from repro_torch.testing import build_env, default_tolerances, rel_err
+
+    case = get_case(*SHARD_GRAD_CELL)
+    outs = {st.lhs.name for st in case.program.body}
+    env = {k: torch.as_tensor(v, device=DEVICE)
+           for k, v in build_env(case, np.float32, seed=0).items()
+           if k not in outs}
+    keys = sorted(k for k, v in env.items() if v.is_floating_point())
+    res = race(case.program, reassociate=case.reassociate)
+    res_m = race(case.program, reassociate=case.reassociate, mesh=mesh)
+    runs = {}
+    for label, r in (("single", res), ("sharded", res_m)):
+        p = {k: env[k].clone().requires_grad_() for k in keys}
+        out = (r.run({**env, **p}) if label == "sharded"
+               else r.run({**env, **p}, device=DEVICE))
+        g = cos_weights(out, torch)
+
+        def bwd(out=out, p=p, g=g):
+            return torch.autograd.grad([out[k] for k in g],
+                                       [p[k] for k in keys],
+                                       [g[k] for k in g], retain_graph=True,
+                                       allow_unused=True)
+
+        runs[label] = (bwd, bwd())
+    torch.cuda.synchronize()
+    sr = compile_sharded(res_m, env, mesh, halo="auto")
+    adj = sr.adjoint_executors()
+    _zero_launches(adj.values())
+    bwd, _ = runs["sharded"]
+    grads = bwd()
+    torch.cuda.synchronize()
+    single = dict(zip(keys, runs["single"][1]))
+    got = dict(zip(keys, grads))
+    e = rel_err({k: v for k, v in got.items() if v is not None},
+                {k: single[k] for k, v in got.items() if v is not None})
+    tol = default_tolerances(np.float32)["grad"]
+    specs = []
+    bad = []
+    for inp, ex in sorted(adj.items()):
+        n_launch = ex.kernel_launches
+        sharded = isinstance(ex, ShardedRace)
+        want = mesh.size if sharded else 1
+        specs.append(f"{inp} {'sharded' if sharded else 'fallback'} "
+                     f"{ex.backend} launches {n_launch}")
+        if ex.backend != "hopper" or n_launch != want:
+            bad.append(inp)
+    single_ms = _time_ms(runs["single"][0], torch)
+    sharded_ms = _shard_timer(sr)(bwd, torch)
+    print(f"shard-grad {SHARD_GRAD_CELL[0]} n={SHARD_GRAD_CELL[1]} f32: "
+          f"specs: {'; '.join(specs)}; grads vs single-device {e:.2e} (<= "
+          f"{tol:.0e}); backward_ms sharded {sharded_ms:.4f}, single-device "
+          f"{single_ms:.4f}", flush=True)
+    if e > tol or bad or set(adj) != set(keys):
+        raise SystemExit(f"sharded gradient failed: rel_err {e:.2e}, specs "
+                         f"off K1 or with wrong launches {bad}, specs "
+                         f"{sorted(adj)} for inputs {keys}")
+
+
+def shard_refusal(mesh, torch) -> None:
+    """Phase 14: rprj3's stride-2 reads refuse sharding with
+    ``shard-strided``."""
+    import numpy as np
+
+    from repro_torch import race
+    from repro_torch.apps import get_case
+    from repro_torch.shard import S_STRIDED, ShardingUnavailable
+    from repro_torch.testing import SWEEP_SIZES, build_env
+
+    case = get_case("rprj3", SWEEP_SCALE * SWEEP_SIZES["rprj3"])
+    res = race(case.program, reassociate=case.reassociate, mesh=mesh)
+    try:
+        res.run(build_env(case, np.float32, seed=0))
+    except ShardingUnavailable as err:
+        codes = sorted({r.code for r in err.refusals})
+        print(f"shard-refusal rprj3: ShardingUnavailable {codes}",
+              flush=True)
+        if S_STRIDED not in codes:
+            raise SystemExit(f"rprj3 refused without {S_STRIDED}: {err}")
+        return
+    raise SystemExit("rprj3 ran sharded; shard-strided expected")
+
+
+def copy_bandwidth(torch) -> None:
+    """Phase 14: the card's device-to-device copy rate of 1 GiB (and, with
+    two cards or more, the peer copy rate from card 0 to card 1)."""
+    n = 1 << 30
+    a = torch.empty(n, dtype=torch.uint8, device="cuda:0")
+    b = torch.empty_like(a)
+    ms = _time_ms(lambda: b.copy_(a), torch)
+    print(f"copy 1 GiB cuda:0 -> cuda:0: {ms:.4f} ms, {n / ms / 1e6:.1f} "
+          f"GB/s copied ({2 * n / ms / 1e6:.1f} GB/s read + written)",
+          flush=True)
+    del b
+    if torch.cuda.device_count() >= 2:
+        c = torch.empty(n, dtype=torch.uint8, device="cuda:1")
+        ms = _time_ms(lambda: c.copy_(a), torch)
+        torch.cuda.synchronize(1)
+        print(f"copy 1 GiB cuda:0 -> cuda:1: {ms:.4f} ms, "
+              f"{n / ms / 1e6:.1f} GB/s", flush=True)
+
+
+#: the string hash seed every process of the run uses (see :func:`main`)
+HASH_SEED = "0"
+
+
 def main() -> int:
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        # RACE's n-ary detection breaks some ties in set order, which the
+        # string hash seed fixes, so a plan's hash can differ between two
+        # processes (j3d27pt at reassociate=3: another plan in 3 of 60
+        # seeds, in the reference as in the port).  The fresh processes of
+        # phases 12-13 must derive the plans this one stored: one seed for
+        # them all
+        env = dict(os.environ, PYTHONHASHSEED=HASH_SEED)
+        os.execve(sys.executable, [sys.executable] + sys.argv, env)
     import torch
 
     if not torch.cuda.is_available():
@@ -2043,6 +2404,9 @@ def main() -> int:
                                      **{k: v for k, v in tune_opts(
                                          case).items()
                                         if k != "batch_sizes"})
+    # phase 14: the sharded local plans, forward and adjoint
+    mesh = shard_mesh(torch)
+    sources += shard_sources(mesh)
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -2231,6 +2595,18 @@ def main() -> int:
         kernels.append(serve_main(*cell, torch))
         torch.cuda.empty_cache()
     serve_tools(n_records)
+
+    # ---- phase 14: sharded execution on a 2x2 mesh -------------------------
+    marks.append((14, time.time()))
+    print(f"shard mesh: {mesh}", flush=True)
+    for name, n in SHARD_CELLS:
+        kernels.append(shard_main(name, n, mesh, torch))
+        torch.cuda.empty_cache()
+    shard_grad(mesh, torch)
+    torch.cuda.empty_cache()
+    shard_refusal(mesh, torch)
+    copy_bandwidth(torch)
+    torch.cuda.empty_cache()
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

@@ -268,9 +268,16 @@ class ExecutorKey:
 
     plan: str  # structural plan hash
     env: tuple  # env_signature
-    backend: str  # resolved: "torch" | "hopper"
+    backend: str  # resolved: "torch" | "hopper" (sharded: as requested)
     blocks: Optional[tuple]  # (block_rows, block_cols, block_inner) | None
-    device: str  # torch device the executor runs on
+    device: str  # torch device the executor runs on (sharded: the outputs')
+    #: sharded entries only (:mod:`repro_torch.shard`): the mesh's
+    #: ``(((axis, size), ...), (device, ...))``
+    mesh: Optional[tuple] = None
+    #: sharded entries only: the partition ``((level, axis, shards), ...)``
+    partition: Optional[tuple] = None
+    #: sharded entries only: the requested halo strategy
+    halo: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -439,8 +446,11 @@ class CacheStats:
 
 
 class ExecutorCache:
-    """Thread-safe LRU of :class:`CompiledRace` executors.  The build happens
-    under the lock, so concurrent first calls make exactly one executor."""
+    """Thread-safe LRU of :class:`CompiledRace` executors (and the sharded
+    :class:`~repro_torch.shard.ShardedRace`).  The build happens under the
+    lock, so concurrent first calls make exactly one executor; the lock is
+    reentrant because a sharded executor's builder compiles its per-shard
+    local executors through this cache."""
 
     def __init__(self, maxsize: Optional[int] = None):
         self.maxsize = _env_cache_size() if maxsize is None else maxsize
@@ -530,10 +540,14 @@ class ExecutorCache:
 
     def cache_info(self) -> dict:
         """Stats plus the capacity (``RACE_EXECUTOR_CACHE_SIZE``), the
-        entry count and the distinct devices keyed."""
+        entry count, the distinct devices keyed and how many entries are
+        sharded executors (mesh-bearing keys from
+        :mod:`repro_torch.shard`)."""
         with self._lock:
             return dict(maxsize=self.maxsize, currsize=len(self._entries),
                         devices=sorted({k.device for k in self._entries}),
+                        sharded=sum(1 for k in self._entries
+                                    if k.mesh is not None),
                         **self.stats.snapshot())
 
 

@@ -7,6 +7,7 @@ execution behind one call (paper Fig. 3 workflow).  Port of
     out = result.run(env)                       # on cuda; device="cpu" asks
                                                 # for the CPU
     outs = result.run_batch([env0, env1])       # (B, ...) per output
+    out = result.run_sharded(env, mesh)         # partitioned over a mesh
     result = race(program, tune=True)           # autotuned on first run
     result = race_from_fn(fn, shapes)           # a plain-Python loop nest
     result.telemetry()                          # hashes, verdicts, obs view
@@ -151,10 +152,21 @@ class RaceResult:
         With ``race(..., tune=True)`` (or after an explicit :meth:`tune`),
         calls without an explicit ``backend`` run the tuned winner for the
         env's signature; the first such call pays the search unless the
-        persistent store already has the decision."""
+        persistent store already has the decision.
+
+        With ``race(..., mesh=...)``, a call without an explicit backend
+        runs :meth:`run_sharded` on that mesh (whose devices decide where
+        it runs, so ``device`` is not read); ``backend=`` opts back into
+        the single-device path."""
         from .executor import (compile_plan, env_signature, env_to_torch,
                                resolve_device)
 
+        if backend is None and self.options.get("mesh") is not None:
+            # race(..., mesh=...) makes sharded the default execution path;
+            # an explicit backend= on run() opts back into single-device
+            return self.run_sharded(
+                env, block_rows=block_rows, block_cols=block_cols,
+                block_inner=block_inner)
         dev = resolve_device(device)
         env = env_to_torch(env, dev)
         if backend is None and (self._tuned
@@ -170,6 +182,46 @@ class RaceResult:
         ex = compile_plan(self.plan, env, backend or self.options["backend"],
                           block_rows=block_rows, block_cols=block_cols,
                           block_inner=block_inner)
+        return ex(env)
+
+    def run_sharded(self, env: dict, mesh=None,
+                    backend: Optional[str] = None, *,
+                    halo: Optional[str] = None, block_rows: int = 0,
+                    block_cols: int = 0, block_inner: int = 0):
+        """Execute spatially partitioned over a mesh of torch devices.
+
+        The plan's iteration box is split across ``mesh`` (a
+        :class:`~repro_torch.launch.mesh.StencilMesh`, falling back to the
+        mesh given to :func:`race`), each shard runs the ordinary compiled
+        executor on its chunk on its own device, and halos sized by the
+        geometry envelopes travel between neighbours — see
+        :mod:`repro_torch.shard`.  ``env`` is moved to the mesh's first
+        device, where the outputs come back: the same interior convention
+        as :meth:`run`, and gradients flow through an autograd backward
+        that re-partitions the adjoint-stencil plans under the same mesh.
+
+        Raises :class:`repro_torch.shard.ShardingUnavailable` with
+        structured refusal reasons when no mesh axis can be placed on any
+        grid level.  ``halo`` picks the transport strategy (``"auto"`` |
+        ``"exchange"`` | ``"recompute"``), defaulting to the one recorded
+        by :func:`race`; ``backend`` (default: the one recorded by
+        :func:`race`) and ``block_*`` go to every shard's executor."""
+        from ..shard import compile_sharded
+        from .executor import env_to_torch
+
+        mesh = mesh if mesh is not None else self.options.get("mesh")
+        if mesh is None:
+            raise ValueError(
+                "run_sharded needs a device mesh: pass mesh= here or to "
+                "race(..., mesh=...)")
+        env = env_to_torch(env, mesh.devices.flat[0])
+        ex = compile_sharded(
+            self, env, mesh,
+            halo=halo if halo is not None
+            else self.options.get("halo", "auto"),
+            backend=backend or self.options["backend"],
+            block_rows=block_rows, block_cols=block_cols,
+            block_inner=block_inner)
         return ex(env)
 
     def run_batch(self, envs, backend: Optional[str] = None, *, device=None,
@@ -283,6 +335,8 @@ def race(
     mis_exact_limit: int = 40,
     backend: Optional[str] = None,
     tune=False,
+    mesh=None,
+    halo: str = "auto",
 ) -> RaceResult:
     """Run RACE on a program.
 
@@ -299,7 +353,14 @@ def race(
     from the persistent store) and every later call runs the winner.  Pass
     a dict instead of True to forward keyword options to
     :func:`repro_torch.tuning.autotune`, e.g.
-    ``tune=dict(levels=(0, 3), backends=("torch",))``."""
+    ``tune=dict(levels=(0, 3), backends=("torch",))``.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.StencilMesh`, e.g. from
+    :func:`repro_torch.launch.mesh.make_stencil_mesh`) makes sharded
+    execution the default: :meth:`RaceResult.run` delegates to
+    :meth:`RaceResult.run_sharded` when no explicit backend is passed.
+    ``halo`` records the transport strategy for that path (see
+    :data:`repro_torch.shard.HALO_STRATEGIES`)."""
     if backend is None:
         from .executor import default_backend
 
@@ -347,7 +408,8 @@ def race(
         cost_model=cost_model, rewrite_sub=rewrite_sub,
         max_rounds=max_rounds, mis_exact_limit=mis_exact_limit,
         tune=(dict(tune) if isinstance(tune, dict)
-              else {} if tune else None)))
+              else {} if tune else None),
+        mesh=mesh, halo=halo))
 
 
 def race_from_fn(fn, shapes, consts=None, **race_opts) -> RaceResult:

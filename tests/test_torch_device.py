@@ -552,3 +552,57 @@ def test_serve_runtime_on_card_launches_once_per_batch(cuda_device):
     for env, g in zip(envs, got):
         want = res.run(env)
         assert all(np.array_equal(g[k], want[k].cpu().numpy()) for k in want)
+
+
+@pytest.mark.cuda
+def test_run_sharded_on_one_card_launches_k1_per_shard(cuda_device):
+    """A 2x2 mesh of one card repeated: ``run_sharded`` on ``"hopper"``
+    launches K1 once per shard (4 per call, on one local executor) and
+    matches the single-device ``run`` within ``plan``, for both halo
+    strategies."""
+    from repro_torch.launch.mesh import make_stencil_mesh
+    from repro_torch.shard import compile_sharded
+
+    case = get_case("poisson", 4 * SWEEP_SIZES["poisson"] + 2)
+    res = repro_torch.race(case.program, reassociate=case.reassociate,
+                           backend="hopper")
+    env = env_to_torch(build_env(case), cuda_device)
+    mesh = make_stencil_mesh(devices=[cuda_device] * 4)
+    want = res.run(env)
+    for halo in ("exchange", "recompute"):
+        sr = compile_sharded(res, env, mesh, halo=halo, backend="hopper")
+        assert sr.backend == "hopper" and len(sr.locals) == 1
+        before = sr.kernel_launches
+        got = res.run_sharded(env, mesh, halo=halo)
+        torch.cuda.synchronize()
+        assert sr.kernel_launches - before == 4
+        assert {t.device for t in got.values()} == {env["u"].device}
+        assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]
+
+
+@pytest.mark.cuda
+def test_run_sharded_over_two_cards():
+    """A 2-shard mesh over ``cuda:0`` and ``cuda:1``: each shard's K1
+    launches on its own card, the halo crosses between them, and the
+    outputs on ``cuda:0`` match the single-device ``run``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.launch.mesh import make_stencil_mesh
+    from repro_torch.shard import compile_sharded
+
+    case = get_case("poisson", 4 * SWEEP_SIZES["poisson"] + 2)
+    res = repro_torch.race(case.program, reassociate=case.reassociate,
+                           backend="hopper")
+    env = env_to_torch(build_env(case), "cuda:0")
+    mesh = make_stencil_mesh(2)
+    want = res.run(env)
+    sr = compile_sharded(res, env, mesh, halo="exchange", backend="hopper")
+    assert sorted(sr.locals) == ["cuda:0", "cuda:1"]
+    before = {d: ex.kernel_launches for d, ex in sr.locals.items()}
+    got = res.run_sharded(env, mesh, halo="exchange")
+    for i in range(2):
+        torch.cuda.synchronize(i)
+    assert {d: ex.kernel_launches - before[d]
+            for d, ex in sr.locals.items()} == {"cuda:0": 1, "cuda:1": 1}
+    assert {t.device for t in got.values()} == {torch.device("cuda:0")}
+    assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]

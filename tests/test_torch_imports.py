@@ -1,6 +1,7 @@
 """The PyTorch port imports neither jax nor anything of the JAX package,
 not even the jax-free ``repro.obs`` and ``repro.frontend``: it carries its
-own copies.  Its tuner, serving runtime and launcher included."""
+own copies.  Its tuner, serving runtime, launchers and sharded execution
+included."""
 import os
 import re
 import subprocess
@@ -33,7 +34,9 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.tuning.measure, repro_torch.tuning.tuner, "
             "repro_torch.core.compile_cache, repro_torch.serve, "
             "repro_torch.serve.runtime, repro_torch.serve.warm, "
-            "repro_torch.launch.serve"
+            "repro_torch.launch.serve, repro_torch.launch.mesh, "
+            "repro_torch.shard, repro_torch.shard.partition, "
+            "repro_torch.shard.halo, repro_torch.shard.executor"
             "\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
@@ -50,7 +53,9 @@ def test_sources_import_no_jax_and_no_repro():
     assert len(files) > 15
     scanned = {f.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for f in files[:-1]}
-    assert {"obs", "frontend", "tuning", "serve", "launch"} <= scanned
+    assert {"obs", "frontend", "tuning", "serve", "launch",
+            "shard"} <= scanned
+    assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert bad == []
