@@ -139,7 +139,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      plain version within ``plan``, and its K1 timed beside that plain
      version, the library call and the bound.  Last, fresh
      processes run ``python -m repro_torch.serve.warm`` on phase 12's
-     store (every record warmed, none unmatched, no nvcc run) and
+     store under ``PYTHONHASHSEED=4`` (a seed under which the reference
+     derives another j3d27pt plan, ROADMAP F7; every record warmed, none
+     unmatched, no nvcc run) and
      ``python -m repro_torch.launch.serve --case j3d27pt --n 64`` (its
      row printed);
  14. sharded execution (``repro_torch.shard``) on a 2x2 mesh: four
@@ -165,7 +167,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
      timed; rprj3 must raise ``ShardingUnavailable`` with
      ``shard-strided``; last, a 1 GiB device-to-device copy is timed (and
      a peer copy from card 0 to card 1 where there are two cards).  The
-     local plans' sources (forward and adjoint) are built in phase 2.
+     local plans' sources (forward and adjoint) are built in phase 2;
+ 15. the LM stack (``repro_torch.models``) on the card.  ``lm:qwen2-7b``:
+     qwen2-7b at full width and depth in bfloat16 with
+     ``race_smooth_radius=2``, random weights and nonzero taps from a seeded
+     generator; the mixer at the prefill's shape (``sx`` 516 x 14,336
+     float32) on K1 against ``"torch"`` within ``plan`` and against
+     ``F.conv1d`` (the library call) within ``baseline``, each timed
+     beside the bound; ``prefill_logits`` of a batch of 4 x 512 random
+     tokens must launch K1 exactly once (counted on the mixer's executor,
+     zeroed just before) and agree with the same prefill on a ``"torch"``
+     mixer (argmax on every row, max |diff| <= 1e-2 x max |logit|); then
+     the prompt is decoded teacher-forced into ``init_caches(cfg, 4, 544)``
+     and 32 greedy ``decode_step``s are timed one by one.  Prefill ms and
+     tok/s beside the bound of its operations, decode p50 / p90 µs and
+     tok/s beside the bound of the weights' bytes, and K1's share of the
+     prefill are printed.  ``lm:parity``: full width at float32, depth cut
+     to 4 layers, zero taps: teacher-forced decode of a 32-token prompt
+     reproduces ``forward_hidden``'s last-position logits within 1e-3 x
+     max |logit|.  ``lm:families``: every architecture's ``reduced()``
+     config at float32 (MoE at capacity E): prefill and 4 decode steps
+     finite, teacher-forced decode equal to the prefill (the reference's
+     ``tests/test_arch_smoke.py`` check) for the decoding families but
+     vlm, hubert prefill only; qwen2's reduced config with
+     ``race_smooth_radius=2`` launches K1 once in its prefill.  The
+     mixers' K1 sources are built in phase 2.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -178,6 +204,10 @@ times the stencil kernel instead at forced plane tiles (and, for the 2-D
 cell, segment lengths) on the full-size cells of
 phase 4, each checked against ``"torch"`` first: the sweep the tile chooser
 (``lowering/blocks.py``) is set from.
+
+    python3 chip_smoke.py --lm
+
+runs phases 1, 2 (the mixers' sources only) and 15 alone.
 
     python3 chip_smoke.py --tf32-sweep
 
@@ -262,6 +292,16 @@ SERVE_SHORT = {"derivative_b8": 64}
 #: extent, 510, splits in two), the gradient cell
 SHARD_CELLS = (("j3d27pt", 512), ("poisson", 512))
 SHARD_GRAD_CELL = ("poisson", 512)
+#: phase 15: the LM at full width (src/repro_torch/configs/qwen2_7b.py) with
+#: the RACE mixer at examples/train_lm.py's default radius; batch, prompt
+#: and generated tokens; the parity cell's depth and prompt; decode steps
+#: of the family cells
+LM_ARCH = "qwen2_7b"
+LM_RADIUS = 2
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
+LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_BATCH = 4, 32, 2
+LM_FAMILY_STEPS = 4
+LM_FAMILY_SHAPE = (2, 16)  # (batch, prompt) of the reduced configs
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -1929,10 +1969,13 @@ def serve_tools(n_records: int) -> None:
     launcher (its row printed)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    # a string hash seed under which the reference derives another j3d27pt
+    # plan (ROADMAP F7): the port's plans must not follow it
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.serve.warm", "--json", "-",
          "--device", DEVICE],
-        env=env, capture_output=True, text=True, timeout=600)
+        env=dict(env, PYTHONHASHSEED="4"), capture_output=True, text=True,
+        timeout=600)
     if proc.returncode != 0:
         raise SystemExit(f"serve.warm exited {proc.returncode}:\n"
                          f"{proc.stderr[-4000:]}")
@@ -2289,20 +2332,414 @@ def copy_bandwidth(torch) -> None:
               f"{n / ms / 1e6:.1f} GB/s", flush=True)
 
 
-#: the string hash seed every process of the run uses (see :func:`main`)
-HASH_SEED = "0"
+def lm_mixer_cells() -> list:
+    """(label, S, channels) of every mixer phase 15 runs: the prefill of
+    lm:qwen2-7b, the prefill of lm:parity and qwen2's reduced config."""
+    from repro_torch.configs import get_config
+
+    full = get_config(LM_ARCH)
+    small = full.reduced()
+    return [("qwen2-7b", LM_PROMPT, LM_BATCH * full.d_model),
+            ("parity", LM_PARITY_PROMPT, LM_PARITY_BATCH * full.d_model),
+            ("families", LM_FAMILY_SHAPE[1],
+             LM_FAMILY_SHAPE[0] * small.d_model)]
+
+
+def lm_sources() -> list:
+    """The K1 sources of phase 15's mixers (float32 streams), built in
+    phase 2."""
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.models.ssm import _smooth_result
+
+    out = []
+    for _, S, C in lm_mixer_cells():
+        res = _smooth_result(S, C, LM_RADIUS)
+        shapes = required_shapes(res.program)
+        out.append(specialize_stencil(res.plan, shapes, {
+            k: "float32" for k in shapes}).source)
+    return out
+
+
+def mixer_library_call(env, radius: int, torch):
+    """``F.conv1d`` of the mixer's stream with its effective 5-tap filter:
+    ``y[s] = sum_d sw_d (x[s+R-d] + x[s+R-d+1] + x[s+R-d+2])`` is one
+    cross-correlation whose tap ``k`` sums the ``sw_d`` with ``R - d <= k
+    <= R - d + 2``.  The channels become the batch (a transposed view)."""
+    import torch.nn.functional as F
+
+    w = torch.zeros(radius + 3, dtype=torch.float64)
+    for d in range(radius + 1):
+        for e in range(3):
+            w[radius - d + e] += float(env[f"sw{d}"])
+    w = w.to(device=env["sx"].device, dtype=torch.float32)[None, None]
+    x = env["sx"].t()[:, None, :]
+    return lambda: {"sy": F.conv1d(x, w)[:, 0].t()}
+
+
+def lm_mixer_check(x, taps, torch) -> tuple:
+    """The mixer of lm:qwen2-7b's prefill on K1 against ``"torch"`` and the
+    library call, each timed; returns (its kernel-line entry without the
+    launches, K1 ms)."""
+    from repro_torch import compile_plan
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances, rel_err
+
+    B, S, C = x.shape
+    env = smooth_env(x, taps, LM_RADIUS)
+    res = _smooth_result(S, B * C, LM_RADIUS)
+    ex = compile_plan(res.plan, env, "hopper")
+    ex_t = compile_plan(res.plan, env, "torch")
+    before = ex.kernel_launches
+    got = ex(env)
+    plain = ex_t(env)
+    torch.cuda.synchronize()
+    if ex.kernel_launches != before + 1:
+        raise SystemExit("lm mixer: K1 did not launch")
+    tol = default_tolerances("float32")
+    e_plan = rel_err(got, plain)
+    max_abs = float((got["sy"] - plain["sy"]).abs().max())
+    lib = mixer_library_call(env, LM_RADIUS, torch)
+    e_lib = rel_err(lib(), got)
+    print(f"lm mixer sx {tuple(env['sx'].shape)} float32: K1 vs torch "
+          f"{e_plan:.2e} (<= {tol['plan']:.0e}), max_abs_err {max_abs:.3e}; "
+          f"conv1d vs K1 {e_lib:.2e} (<= {tol['baseline']:.0e}); aux "
+          f"{[a.name for a in res.plan.aux_order]}", flush=True)
+    if e_plan > tol["plan"] or e_lib > tol["baseline"]:
+        raise SystemExit("lm mixer: K1 disagrees with its plain version or "
+                         "the library call")
+    kernel_ms = _time_ms(lambda: ex(env), torch)
+    torch_ms = _time_ms(lambda: ex_t(env), torch)
+    library_ms = _time_ms(lib, torch)
+    nbytes, ops = plan_work(res.plan, env, 4)
+    bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS["float32"])
+    tp = ex.spec.tp
+    geo = tp.geometry
+    print(f"lm mixer schedule: stream level {geo.s_level}, plane tile "
+          f"{tuple(geo.tile[l - 1] for l in geo.order)} (levels "
+          f"{geo.order}), segment {geo.seg}, warm-up {-geo.k0}, blocks "
+          f"{geo.n_tiles}, smem {tp.smem_bytes} B, aux_evals_per_point "
+          f"{tp.aux_evals_per_point:.3f}", flush=True)
+    print(f"lm mixer: kernel_ms {kernel_ms:.4f}, torch_ms {torch_ms:.4f}, "
+          f"library_ms (conv1d) {library_ms:.4f}, bytes {nbytes}, bound_ms "
+          f"{bound_ms:.4f} ({by}), share of bound "
+          f"{bound_ms / kernel_ms:.3f}", flush=True)
+    return dict(name="race_stencil[race_smooth]", route="cuda",
+                source="src/repro_torch/lowering/emit.py",
+                replaces="src/repro/lowering/emit.py:273",
+                max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
+                bound_ms=bound_ms, bound_by=by,
+                library_ms=library_ms), kernel_ms
+
+
+def mixer_executor(model, cfg, tokens):
+    """The executor ``race_smooth`` resolves on ``"auto"`` for this model's
+    prefill of ``tokens`` (the same cached instance the prefill runs)."""
+    from repro_torch import compile_plan
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+
+    x = model.embed[tokens]
+    B, S, C = x.shape
+    res = _smooth_result(S, B * C, cfg.race_smooth_radius)
+    return compile_plan(res.plan, smooth_env(x, model.smooth_taps,
+                                             cfg.race_smooth_radius))
+
+
+def lm_weights(model) -> tuple:
+    """(parameters in the layers, bytes every decode step reads: every
+    weight but the embedding table, of which one row a token)."""
+    layers = sum(p.numel() for part in (model.prelude, model.units,
+                                        model.trailing)
+                 for p in part.parameters())
+    table = model.embed.numel() * model.embed.element_size()
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    return layers, total - table
+
+
+def device_split(label, fn, torch, top: int = 6) -> None:
+    """One call of ``fn`` under ``torch.profiler``: the card's busy time
+    (the kernels' summed device time) against the call's wall time (which
+    the profiler itself lengthens), so the idle share, and the ``top``
+    operators by the device time of the kernels they launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    if not busy_ms:
+        print(f"{label} profile: no device time in the trace (not "
+              f"measured); wall {wall_ms:.3f} ms", flush=True)
+        return
+    print(f"{label} profile: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms in {len(kernels)} kernels, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; top operators by device ms: "
+          + "; ".join(f"{e.key} x{e.count} {e.self_device_time_total / 1e3:.3f}"
+                      for e in ops[:top] if e.self_device_time_total > 0),
+          flush=True)
+
+
+def lm_main(torch) -> dict:
+    """lm:qwen2-7b: the mixer on K1, then prefill and decode at full
+    width; returns the mixer's kernel-line entry."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ExecConfig, init_caches, init_params,
+                                    prefill_logits)
+    from repro_torch.models.steps import make_decode_step
+
+    cfg = get_config(LM_ARCH).scaled(race_smooth_radius=LM_RADIUS)
+    full = get_config(LM_ARCH)
+    assert dataclasses.replace(cfg, race_smooth_radius=0) == full
+    t0 = time.time()
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    model = init_params(cfg, generator=gen, device=DEVICE)
+    with torch.no_grad():
+        model.smooth_taps.copy_(0.5 * torch.randn(
+            LM_RADIUS + 1, generator=gen, device=DEVICE))
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in model.parameters())
+    layers, step_bytes = lm_weights(model)
+    print(f"lm:qwen2-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, {n_all} parameters "
+          f"({n_all * 2 / 1e9:.2f} GB), taps "
+          f"{[round(float(t), 4) for t in model.smooth_taps]}, init "
+          f"{time.time() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (LM_BATCH, LM_PROMPT)),
+                             device=DEVICE)
+    batch = {"tokens": tokens}
+    exec_cfg = ExecConfig()
+
+    entry, k1_ms = lm_mixer_check(model.embed[tokens], model.smooth_taps,
+                                  torch)
+    ex = mixer_executor(model, cfg, tokens)
+    if ex.backend != "hopper":
+        raise SystemExit(f"lm: the mixer selected {ex.backend}: "
+                         f"{ex.selection.capability.explain()}")
+    # the main path: one prefill, K1's launches counted from 0
+    ex.spec.launches = 0
+    logits = prefill_logits(model, cfg, exec_cfg, batch)
+    torch.cuda.synchronize()
+    entry["launches"] = launches = ex.kernel_launches
+    if launches != 1:
+        raise SystemExit(f"lm: the prefill launched K1 {launches} times, "
+                         f"not once")
+    os.environ["RACE_BACKEND"] = "torch"
+    try:
+        plain = prefill_logits(model, cfg, exec_cfg, batch)
+    finally:
+        del os.environ["RACE_BACKEND"]
+    torch.cuda.synchronize()
+    scale = float(plain.abs().max())
+    diff = float((logits - plain).abs().max())
+    same = bool((logits.argmax(-1) == plain.argmax(-1)).all())
+    print(f"lm prefill: logits {tuple(logits.shape)} finite "
+          f"{bool(torch.isfinite(logits).all())}, K1 launches {launches}; "
+          f"vs the torch mixer: argmax equal on every row {same}, max |diff| "
+          f"{diff:.3e} (<= 1e-2 x {scale:.3e})", flush=True)
+    if not (same and diff <= 1e-2 * scale
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit("lm prefill: K1's prefill disagrees with the "
+                         "torch mixer's")
+    prefill_ms = _time_ms(lambda: prefill_logits(model, cfg, exec_cfg,
+                                                 batch), torch)
+    tok = LM_BATCH * LM_PROMPT
+    attn = (cfg.num_layers * 2 * LM_BATCH * cfg.n_heads * cfg.d_head
+            * LM_PROMPT * (LM_PROMPT + 1))
+    ops = 2 * layers * tok + attn + 2 * LM_BATCH * cfg.d_model * cfg.vocab
+    pre_bound, pre_by = bound_of(sum(p.numel() * p.element_size()
+                                     for p in model.parameters()), ops,
+                                 PEAK_BF16_TC_FLOPS)
+    print(f"lm prefill: {prefill_ms:.4f} ms, {tok / prefill_ms * 1e3:.1f} "
+          f"tok/s; bound {pre_bound:.4f} ms ({pre_by}: {ops:.4e} flop at "
+          f"{PEAK_BF16_TC_FLOPS:.3e}/s), share of bound "
+          f"{pre_bound / prefill_ms:.3f}; K1 {k1_ms:.4f} ms = "
+          f"{k1_ms / prefill_ms:.4f} of the prefill", flush=True)
+
+    device_split("lm prefill", lambda: prefill_logits(
+        model, cfg, exec_cfg, batch), torch)
+
+    # decode: the prompt teacher-forced into the caches, then greedy steps
+    max_len = LM_PROMPT + LM_GEN
+    caches = init_caches(cfg, LM_BATCH, max_len, device=DEVICE)
+    step = make_decode_step(cfg, exec_cfg, max_len)
+    t0 = time.time()
+    for t in range(LM_PROMPT):
+        out, caches = step(model, caches, tokens[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    forced_s = time.time() - t0
+    nxt = out.argmax(-1)[:, None]
+    lat = []
+    for t in range(LM_PROMPT, max_len):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, caches = step(model, caches, nxt, t)
+        nxt = out.argmax(-1)[:, None]
+        end.record()
+        end.synchronize()
+        lat.append(start.elapsed_time(end) * 1e3)
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit("lm decode: non-finite logits")
+    # one more step at the last position (it rewrites that slot in place)
+    device_split("lm decode step", lambda: step(model, caches, nxt,
+                                                max_len - 1), torch)
+    p50, p90 = _pct(lat, 0.50), _pct(lat, 0.90)
+    kv = sum(v.numel() * v.element_size() for c in caches["units"]
+             for v in c.values())
+    dec_bound, dec_by = bound_of(step_bytes + kv, 2 * layers * LM_BATCH,
+                                 PEAK_BF16_TC_FLOPS)
+    print(f"lm decode: teacher-forced {LM_PROMPT} steps in {forced_s:.2f} "
+          f"s; {LM_GEN} greedy steps p50 {p50:.1f} us, p90 {p90:.1f} us, "
+          f"{LM_BATCH / p50 * 1e6:.1f} tok/s at p50; bound {dec_bound:.4f} "
+          f"ms ({dec_by}: {step_bytes + kv} B), share of bound "
+          f"{dec_bound * 1e3 / p50:.3f}", flush=True)
+    del model, caches, logits, plain
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _decode_parity(model, cfg, exec_cfg, tokens, torch) -> tuple:
+    """(prefill's last-position logits, teacher-forced decode's)."""
+    from repro_torch.models import decode_step, forward_hidden, init_caches
+    from repro_torch.models.common import mm
+
+    B, S = tokens.shape
+    with torch.no_grad():
+        h = forward_hidden(model, cfg, exec_cfg, {"tokens": tokens})
+        want = mm(h[:, -1], model.head).float()
+    caches = init_caches(cfg, B, S, device=DEVICE)
+    for t in range(S):
+        got, caches = decode_step(model, caches, cfg, exec_cfg,
+                                  tokens[:, t:t + 1], t, max_len=S)
+    return want, got
+
+
+def lm_parity(torch) -> None:
+    """lm:parity: full width at float32, 4 layers, zero taps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ExecConfig, init_params
+
+    cfg = get_config(LM_ARCH).scaled(num_layers=LM_PARITY_LAYERS,
+                                     dtype="float32",
+                                     race_smooth_radius=LM_RADIUS)
+    model = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(1),
+                        device=DEVICE)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT)), device=DEVICE)
+    want, got = _decode_parity(model, cfg, ExecConfig(), tokens, torch)
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    print(f"lm:parity ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"float32, zero taps, {LM_PARITY_PROMPT} tokens): decode vs "
+          f"prefill max |diff| {diff:.3e} (<= 1e-3 x {scale:.3e})",
+          flush=True)
+    if not diff <= 1e-3 * scale:
+        raise SystemExit("lm:parity: teacher-forced decode does not "
+                         "reproduce the prefill")
+    del model
+    torch.cuda.empty_cache()
+
+
+def lm_families(torch) -> None:
+    """lm:families: every architecture's reduced config on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models import (ExecConfig, init_caches, init_params,
+                                    prefill_logits)
+    from repro_torch.models.steps import make_decode_step
+
+    B, S = LM_FAMILY_SHAPE
+    exec_cfg = ExecConfig(attn_chunk_q=8, attn_chunk_k=8, ssm_chunk=8)
+    failures = []
+    for arch in ARCHS + [LM_ARCH + "+race_smooth"]:
+        name = arch.split("+")[0]
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  dtype="float32")
+        if cfg.kind == "moe":
+            cfg = dataclasses.replace(cfg,
+                                      moe_capacity=float(cfg.moe_experts))
+        if "+" in arch:
+            cfg = dataclasses.replace(cfg, race_smooth_radius=LM_RADIUS)
+        model = init_params(cfg, generator=torch.Generator(
+            DEVICE).manual_seed(2), device=DEVICE)
+        rng = np.random.default_rng(2)
+        batch = {}
+        if cfg.input_embed_dim:
+            batch["embeds"] = torch.as_tensor(rng.standard_normal(
+                (B, S, cfg.input_embed_dim)), dtype=torch.float32,
+                device=DEVICE)
+        else:
+            batch["tokens"] = torch.as_tensor(rng.integers(
+                0, cfg.vocab, (B, S)), device=DEVICE)
+        if cfg.kind == "vlm":
+            batch["vision"] = torch.as_tensor(rng.standard_normal(
+                (B, cfg.vision_tokens, cfg.vision_dim)), dtype=torch.float32,
+                device=DEVICE)
+        ex = None
+        if cfg.race_smooth_radius:
+            with torch.no_grad():
+                model.smooth_taps.copy_(torch.tensor([0.3, -0.2, 0.1]))
+            ex = mixer_executor(model, cfg, batch["tokens"])
+            ex.spec.launches = 0
+        logits = prefill_logits(model, cfg, exec_cfg, batch)
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(logits).all()) and tuple(
+            logits.shape) == (B, cfg.vocab)
+        line = f"lm:families {arch}: prefill {tuple(logits.shape)} finite {ok}"
+        if ex is not None:
+            line += f", K1 launches {ex.kernel_launches} ({ex.backend})"
+            ok = ok and ex.backend == "hopper" and ex.kernel_launches == 1
+        if cfg.supports_decode():
+            caches = init_caches(cfg, B, S, device=DEVICE)
+            step = make_decode_step(cfg, exec_cfg, S)
+            tok = batch["tokens"][:, :1]
+            for t in range(LM_FAMILY_STEPS):
+                out, caches = step(model, caches, tok, t)
+                tok = out.argmax(-1)[:, None]
+                ok = ok and bool(torch.isfinite(out).all())
+            line += f"; {LM_FAMILY_STEPS} decode steps finite {ok}"
+            if cfg.kind != "vlm" and not cfg.race_smooth_radius:
+                want, got = _decode_parity(model, cfg, exec_cfg,
+                                           batch["tokens"], torch)
+                # the reference's tests/test_arch_smoke.py tolerance
+                close = bool(torch.allclose(got, want, rtol=2e-3,
+                                            atol=2e-4))
+                line += (f"; decode vs prefill max |diff| "
+                         f"{float((got - want).abs().max()):.3e} "
+                         f"(rtol 2e-3, atol 2e-4) {close}")
+                ok = ok and close
+        print(line + (" ok" if ok else " FAIL"), flush=True)
+        if not ok:
+            failures.append(line)
+        del model
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("lm:families failed:\n" + "\n".join(failures))
 
 
 def main() -> int:
-    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
-        # RACE's n-ary detection breaks some ties in set order, which the
-        # string hash seed fixes, so a plan's hash can differ between two
-        # processes (j3d27pt at reassociate=3: another plan in 3 of 60
-        # seeds, in the reference as in the port).  The fresh processes of
-        # phases 12-13 must derive the plans this one stored: one seed for
-        # them all
-        env = dict(os.environ, PYTHONHASHSEED=HASH_SEED)
-        os.execve(sys.executable, [sys.executable] + sys.argv, env)
     import torch
 
     if not torch.cuda.is_available():
@@ -2349,6 +2786,18 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] in sweeps:
         sweeps[sys.argv[1]](torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--lm"]:  # phases 1, 2 (the mixers) and 15 alone
+        t0 = time.time()
+        compile_sources(lm_sources())
+        print(f"build: the mixers' sources in {time.time() - t0:.1f} s",
+              flush=True)
+        kernels = [lm_main(torch)]
+        lm_parity(torch)
+        lm_families(torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(json.dumps({"kernels": kernels}))
         print(smi)
         return 0
 
@@ -2407,6 +2856,8 @@ def main() -> int:
     # phase 14: the sharded local plans, forward and adjoint
     mesh = shard_mesh(torch)
     sources += shard_sources(mesh)
+    # phase 15: the LM mixers' plans
+    sources += lm_sources()
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -2607,6 +3058,12 @@ def main() -> int:
     shard_refusal(mesh, torch)
     copy_bandwidth(torch)
     torch.cuda.empty_cache()
+
+    # ---- phase 15: the LM stack on the card --------------------------------
+    marks.append((15, time.time()))
+    kernels.append(lm_main(torch))
+    lm_parity(torch)
+    lm_families(torch)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

@@ -21,6 +21,7 @@ first level that yields a positive-objective solution (Section 7.3).
 from __future__ import annotations
 
 from collections import defaultdict
+from fractions import Fraction
 from dataclasses import dataclass, field
 from typing import Hashable, Iterable, Optional
 
@@ -70,15 +71,115 @@ def _components(vids, adj):
     return comps
 
 
+_M64 = (1 << 64) - 1
+_XXPRIME_1, _XXPRIME_2 = 11400714785074694791, 14029467366897019727
+_XXPRIME_5 = 2870177450012600261
+
+
+def _rotl(x: int, s: int) -> int:
+    return ((x << s) | (x >> (64 - s))) & _M64
+
+
+def _siphash13(data: bytes) -> int:
+    """CPython's SipHash-1-3 string hash (``Python/pyhash.c``) with the
+    all-zero key that ``PYTHONHASHSEED=0`` sets; unsigned 64-bit."""
+    v = [0x736F6D6570736575, 0x646F72616E646F6D,
+         0x6C7967656E657261, 0x7465646279746573]
+
+    def sipround():
+        v[0] = (v[0] + v[1]) & _M64
+        v[2] = (v[2] + v[3]) & _M64
+        v[1] = _rotl(v[1], 13) ^ v[0]
+        v[3] = _rotl(v[3], 16) ^ v[2]
+        v[0] = _rotl(v[0], 32)
+        v[2] = (v[2] + v[1]) & _M64
+        v[0] = (v[0] + v[3]) & _M64
+        v[1] = _rotl(v[1], 17) ^ v[2]
+        v[3] = _rotl(v[3], 21) ^ v[0]
+        v[2] = _rotl(v[2], 32)
+
+    n = len(data) - len(data) % 8
+    for i in range(0, n, 8):
+        m = int.from_bytes(data[i:i + 8], "little")
+        v[3] ^= m
+        sipround()
+        v[0] ^= m
+    b = ((len(data) & 0xFF) << 56) | int.from_bytes(data[n:], "little")
+    v[3] ^= b
+    sipround()
+    v[0] ^= b
+    v[2] ^= 0xFF
+    for _ in range(3):
+        sipround()
+    return v[0] ^ v[1] ^ v[2] ^ v[3]
+
+
+def _signed(x: int) -> int:
+    return x - (1 << 64) if x >> 63 else x
+
+
+def seed0_hash(obj) -> int:
+    """``hash(obj)`` as CPython 3.12 computes it under ``PYTHONHASHSEED=0``,
+    in any process: strings by :func:`_siphash13`, tuples by the xxHash
+    combine of ``Objects/tupleobject.c``; numbers and ``None`` hash the
+    same under every seed.  Anything else hashes as its ``repr``."""
+    if isinstance(obj, str):
+        if not obj:
+            return 0
+        if obj.isascii():
+            data = obj.encode()
+        else:  # the string's internal 1-, 2- or 4-byte representation
+            width = max((1, 2, 4)[(c > 0xFF) + (c > 0xFFFF)]
+                        for c in map(ord, obj))
+            data = b"".join(ord(c).to_bytes(width, "little") for c in obj)
+        h = _signed(_siphash13(data))
+        return -2 if h == -1 else h
+    if isinstance(obj, tuple):
+        acc = _XXPRIME_5
+        for item in obj:
+            lane = seed0_hash(item) & _M64
+            acc = (acc + lane * _XXPRIME_2) & _M64
+            acc = (_rotl(acc, 31) * _XXPRIME_1) & _M64
+        acc = (acc + (len(obj) ^ (_XXPRIME_5 ^ 3527539))) & _M64
+        return 1546275796 if acc == _M64 else _signed(acc)
+    if obj is None or isinstance(obj, (bool, int, float, Fraction)):
+        return hash(obj)
+    return seed0_hash(repr(obj))
+
+
+class ColorVertex(tuple):
+    """A color vertex ``("color", eri_key)`` of G-bar whose hash is the one
+    the plain tuple has under ``PYTHONHASHSEED=0`` (:func:`seed0_hash`).
+
+    The branch and bound of :func:`mis_exact` breaks degree ties by set
+    iteration order, and a plain tuple's slot in a set follows the string
+    hash seed through ``eri_key``'s strings: one program could get another
+    plan in another process.  With this hash every process sees the sets,
+    and so the ties and the plan, that the reference sees under seed 0."""
+
+    __slots__ = ()
+
+    def __hash__(self) -> int:
+        h = _HASHES.get(tuple(self))
+        if h is None:
+            h = _HASHES[tuple(self)] = seed0_hash(tuple(self))
+        return h
+
+
+#: seed-0 hashes of the color vertices seen so far (keyed by plain tuple)
+_HASHES: dict = {}
+
+
 def augment(vids, adj, colors) -> tuple:
     """Build G-bar: one auxiliary vertex per color, adjacent to all vertices
-    of that color (Thm 7.1).  Aux vertices get ids ('color', k)."""
+    of that color (Thm 7.1).  Aux vertices get ids ('color', k), as
+    :class:`ColorVertex`."""
     bar_adj = {v: set(adj[v] & set(vids)) for v in vids}
     by_color = defaultdict(list)
     for v in vids:
         by_color[colors[v]].append(v)
     for k, vs in by_color.items():
-        a = ("color", k)
+        a = ColorVertex(("color", k))
         bar_adj[a] = set(vs)
         for v in vs:
             bar_adj[v].add(a)
@@ -86,7 +187,10 @@ def augment(vids, adj, colors) -> tuple:
 
 
 def mis_exact(adj: dict, limit_nodes: int = 40) -> Optional[set]:
-    """Exact MIS via branch & bound; None if the graph exceeds the limit."""
+    """Exact MIS via branch & bound; None if the graph exceeds the limit.
+
+    The branch vertex's ties go to the first in ``rem``'s iteration order,
+    which :class:`ColorVertex` makes independent of ``PYTHONHASHSEED``."""
     nodes = list(adj)
     if len(nodes) > limit_nodes:
         return None

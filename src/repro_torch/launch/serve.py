@@ -1,5 +1,5 @@
-"""Serving launcher of the PyTorch port: the RACE serve runtime (port of
-``repro/launch/serve.py``'s ``serve_case``)::
+"""Serving launchers of the PyTorch port (``repro/launch/serve.py``): the RACE
+serve runtime (``serve_case``)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --case j3d27pt \
         --n 64 --requests 512 --concurrency 8 --json BENCH_serve.json
@@ -14,8 +14,12 @@ the warmup found (``warm``: every library on disk; ``cold``: nvcc ran).
 The row is appended through :mod:`repro_torch.obs.history` (when
 ``$RACE_BENCH_HISTORY`` is set).
 
-The reference's LM decode path (``--arch``) waits for the port of the LM
-stack.
+LM decode (``--arch``, port of the reference's ``decode_arch``): prefill by
+teacher-forced decode, then greedy or temperature sampling, on
+``--device``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_7b \
+        --reduced --batch 4 --prompt-len 32 --gen 16 --json -
 """
 from __future__ import annotations
 
@@ -129,35 +133,155 @@ def serve_case(args) -> dict:
     return row
 
 
+def decode_arch(args) -> dict:
+    """Prefill ``--prompt-len`` random tokens by teacher-forced decode, then
+    generate ``--gen`` more; returns the document it printed.  With
+    ``--json`` every step is timed to its end (a device synchronize), and
+    the row is appended through :mod:`repro_torch.obs.history`."""
+    import numpy as np
+    import torch
+
+    from ..configs import get_config
+    from ..core.executor import resolve_device
+    from ..models import (ExecConfig, init_caches, init_params,
+                          make_decode_step)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if not cfg.supports_decode():
+        raise SystemExit(f"{cfg.name} is encoder-only; no decode")
+    dev = resolve_device(args.device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    max_len = args.prompt_len + args.gen
+    exec_cfg = ExecConfig(attn_chunk_q=32, attn_chunk_k=32, ssm_chunk=16)
+    params = init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                         device=dev)
+    caches = init_caches(cfg, args.batch, max_len, device=dev)
+    step = make_decode_step(cfg, exec_cfg, max_len)
+
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+        device=dev)
+    gen = torch.Generator(dev).manual_seed(1)
+
+    # prefill by teacher-forced decode (exercises the cache path end to end)
+    t0 = time.time()
+    for t in range(args.prompt_len):
+        logits, caches = step(params, caches, prompts[:, t:t + 1], t)
+    sync()
+    prefill_s = time.time() - t0
+
+    generated = []
+    # --json wants true per-step latency, so each step must block; the
+    # default path keeps launches asynchronous (throughput numbers)
+    step_lat = [] if args.json else None
+    tok = logits.argmax(-1)[:, None]
+    t0 = time.time()
+    for t in range(args.prompt_len, max_len):
+        generated.append(tok[:, 0])
+        t1 = time.perf_counter()
+        logits, caches = step(params, caches, tok, t)
+        if args.temperature > 0:
+            probs = torch.softmax(logits / args.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)
+        else:
+            tok = logits.argmax(-1)[:, None]
+        if step_lat is not None:
+            sync()
+            step_lat.append(time.perf_counter() - t1)
+    sync()
+    decode_s = time.time() - t0
+    gen_tokens = torch.stack(generated, 1).cpu().numpy()
+    doc = {
+        "arch": cfg.name, "batch": args.batch,
+        "prefill_tok_s": round(args.batch * args.prompt_len / prefill_s, 1),
+        "decode_tok_s": round(args.batch * args.gen / decode_s, 1),
+        "sample_tokens": gen_tokens[0][:8].tolist(),
+    }
+    if args.json:
+        from ..obs import run_stamp
+
+        lat_us = sorted(s * 1e6 for s in step_lat)
+        pick = lambda q: lat_us[min(len(lat_us) - 1,  # noqa: E731
+                                    int(q * len(lat_us)))]
+        doc.update(
+            stamp=run_stamp(), reduced=bool(args.reduced),
+            prompt_len=args.prompt_len, gen=args.gen,
+            prefill_s=round(prefill_s, 4), decode_s=round(decode_s, 4),
+            step_latency_us=[round(s * 1e6, 1) for s in step_lat],
+            step_p50_us=round(pick(0.50), 1),
+            step_p90_us=round(pick(0.90), 1),
+        )
+        out = json.dumps(doc, indent=1, default=str)
+        if args.json == "-":
+            print(out)
+        else:
+            with open(args.json, "w") as f:
+                f.write(out + "\n")
+            print(f"wrote {args.json}")
+        # decode-latency trajectory: one history row per serve run, keyed
+        # like the benchmark sections (no-op without $RACE_BENCH_HISTORY)
+        from ..obs.history import append_rows
+
+        append_rows("serve", [doc], doc["stamp"])
+    else:
+        print(json.dumps(doc))
+    return doc
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
-        description="RACE serve runtime on the PyTorch port: closed-loop "
-                    "clients against one registry kernel")
-    ap.add_argument("--case", required=True,
-                    help="registry kernel name (repro_torch.apps."
-                         "paper_kernels)")
+        description="serving launchers of the PyTorch port: RACE serve "
+                    "runtime (--case) or LM decode (--arch)")
+    ap.add_argument("--arch", default=None,
+                    help="LM decode mode: model architecture name "
+                         "(repro_torch.configs)")
+    ap.add_argument("--case", default=None,
+                    help="RACE serve mode: registry kernel name "
+                         "(repro_torch.apps.paper_kernels)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="LM mode: decode batch size")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--n", type=int, default=None,
-                    help="grid size (default: case default)")
+                    help="serve mode: grid size (default: case default)")
     ap.add_argument("--requests", type=int, default=64,
-                    help="total client requests")
+                    help="serve mode: total client requests")
     ap.add_argument("--concurrency", type=int, default=8,
-                    help="closed-loop client threads")
+                    help="serve mode: closed-loop client threads")
     ap.add_argument("--backend", default=None,
-                    help="executor backend (default $RACE_BACKEND/auto)")
+                    help="serve mode: executor backend (default "
+                         "$RACE_BACKEND/auto)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; 'cpu' asks for the "
-                         "CPU)")
+                    help="torch device of both modes (default cuda; 'cpu' "
+                         "asks for the CPU)")
     ap.add_argument("--max-batch", type=int, default=None,
-                    help="RACE_SERVE_MAX_BATCH override")
+                    help="serve mode: RACE_SERVE_MAX_BATCH override")
     ap.add_argument("--window-us", type=float, default=None,
-                    help="RACE_SERVE_WINDOW_US override")
+                    help="serve mode: RACE_SERVE_WINDOW_US override")
     ap.add_argument("--compile-cache", default=None, metavar="DIR",
-                    help="kernel library directory (same as "
+                    help="serve mode: kernel library directory (same as "
                          "RACE_COMPILE_CACHE)")
     ap.add_argument("--json", nargs="?", const="-", default=None,
                     metavar="PATH",
                     help="structured output to stdout ('-') or PATH")
-    serve_case(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+
+    if (args.case is None) == (args.arch is None):
+        ap.error("exactly one of --case (RACE serve) or --arch (LM decode) "
+                 "is required")
+    if args.case is not None:
+        serve_case(args)
+    else:
+        decode_arch(args)
 
 
 if __name__ == "__main__":

@@ -606,3 +606,65 @@ def test_run_sharded_over_two_cards():
             for d, ex in sr.locals.items()} == {"cuda:0": 1, "cuda:1": 1}
     assert {t.device for t in got.values()} == {torch.device("cuda:0")}
     assert rel_err(got, want) <= default_tolerances(np.float32)["plan"]
+
+
+@pytest.mark.cuda
+def test_race_smooth_on_card_is_k1_within_plan_of_torch(cuda_device):
+    """The LM's RACE mixer on a CUDA stream: ``"auto"`` is K1 (one launch
+    a call) and agrees with the ``"torch"`` evaluator within ``plan``."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator(cuda_device).manual_seed(0)
+    x = torch.randn(2, 48, 96, generator=g, device=cuda_device)
+    taps = torch.randn(3, generator=g, device=cuda_device)
+    env = ssm.smooth_env(x, taps, 2)
+    res = ssm._smooth_result(48, 2 * 96, 2)
+    ex = repro_torch.compile_plan(res.plan, env)
+    assert ex.backend == "hopper"
+    before = ex.kernel_launches
+    got = ssm.race_smooth(x, taps, radius=2)
+    assert ex.kernel_launches == before + 1
+    want = ssm.race_smooth(x, taps, radius=2, backend="torch")
+    torch.cuda.synchronize()
+    assert rel_err({"y": got}, {"y": want}) <= default_tolerances(
+        np.float32)["plan"]
+
+
+@pytest.mark.cuda
+def test_reduced_lm_prefill_and_decode_on_card(cuda_device):
+    """qwen2's reduced config with the mixer, float32 on the card: the
+    prefill launches K1 once and matches the same model on the CPU; a
+    decode step is finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ExecConfig, decode_step, init_caches,
+                                    init_params, prefill_logits)
+
+    cfg = dataclasses.replace(get_config("qwen2_7b").reduced(),
+                              dtype="float32", race_smooth_radius=2)
+    model = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    with torch.no_grad():
+        model.smooth_taps.copy_(torch.tensor([0.3, -0.2, 0.1]))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    exec_cfg = ExecConfig(attn_chunk_q=8, attn_chunk_k=8)
+    want = prefill_logits(model, cfg, exec_cfg, {"tokens": tokens})
+    model = model.to(cuda_device)
+    from repro_torch.models import ssm
+
+    res = ssm._smooth_result(16, 2 * cfg.d_model, 2)
+    env = ssm.smooth_env(model.embed[torch.as_tensor(tokens,
+                                                     device=cuda_device)],
+                         model.smooth_taps, 2)
+    ex = repro_torch.compile_plan(res.plan, env)
+    before = ex.kernel_launches
+    got = prefill_logits(model, cfg, exec_cfg, {"tokens": tokens})
+    assert ex.kernel_launches == before + 1
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    caches = init_caches(cfg, 2, 16)
+    logits, _ = decode_step(model, caches, cfg, exec_cfg, tokens[:, :1], 0,
+                            max_len=16)
+    assert bool(torch.isfinite(logits).all())

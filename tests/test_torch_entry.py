@@ -25,6 +25,7 @@ from repro_torch.core.codegen import build_evaluator
 from repro_torch.core.integration import rope_hoisting_plan, rope_nest
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import race_stencil as shim
+from test_torch_seed import SEED_DEPENDENT_PLANS, reference_under_seed0
 from repro_torch.lowering.emit import LoweredStencil, specialize_stencil
 from repro_torch.lowering.facts import LoweringError
 from repro_torch.testing import (SWEEP_SIZES, build_env, default_tolerances,
@@ -121,7 +122,11 @@ def test_optimize_and_run_matches_the_reference():
     res, got = ops.optimize_and_run(pc.program, env, device="cpu")
     rres, want = ref_ops.optimize_and_run(rc.program, env)
     assert res.options["reassociate"] == 3
-    assert repro_torch.plan_hash(res.plan) == ref_plan_hash(rres.plan)
+    # j3d27pt's reference plan at reassociate=3 follows PYTHONHASHSEED
+    # (ROADMAP F7): the port's is the reference's under seed 0
+    assert ("j3d27pt", 3) in SEED_DEPENDENT_PLANS
+    (seed0,) = reference_under_seed0([("plan", "j3d27pt", 8, 3)]).values()
+    assert repro_torch.plan_hash(res.plan) == seed0["plan_hash"]
     assert rel_err(got, {k: np.asarray(v) for k, v in want.items()}) <= PLAN
 
 

@@ -1,7 +1,7 @@
 """The PyTorch port imports neither jax nor anything of the JAX package,
 not even the jax-free ``repro.obs`` and ``repro.frontend``: it carries its
-own copies.  Its tuner, serving runtime, launchers and sharded execution
-included."""
+own copies.  Its tuner, serving runtime, launchers, sharded execution and
+LM stack (every model module and every architecture's config) included."""
 import os
 import re
 import subprocess
@@ -36,8 +36,15 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.serve.runtime, repro_torch.serve.warm, "
             "repro_torch.launch.serve, repro_torch.launch.mesh, "
             "repro_torch.shard, repro_torch.shard.partition, "
-            "repro_torch.shard.halo, repro_torch.shard.executor"
+            "repro_torch.shard.halo, repro_torch.shard.executor, "
+            "repro_torch.models, repro_torch.models.config, "
+            "repro_torch.models.common, repro_torch.models.attention, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.model, repro_torch.models.steps, "
+            "repro_torch.models.weights, repro_torch.configs"
             "\n"
+            "from repro_torch.configs import ARCHS, get_config\n"
+            "assert [get_config(a).name for a in ARCHS]\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -54,7 +61,7 @@ def test_sources_import_no_jax_and_no_repro():
     scanned = {f.relative_to(ROOT / "src" / "repro_torch").parts[0]
                for f in files[:-1]}
     assert {"obs", "frontend", "tuning", "serve", "launch",
-            "shard"} <= scanned
+            "shard", "models", "configs"} <= scanned
     assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
