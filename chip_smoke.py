@@ -177,7 +177,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      beside the bound; ``prefill_logits`` of a batch of 4 x 512 random
      tokens must launch K1 exactly once (counted on the mixer's executor,
      zeroed just before) and agree with the same prefill on a ``"torch"``
-     mixer (argmax on every row, max |diff| <= 1e-2 x max |logit|); then
+     mixer (argmax on every row, max |diff| <= 3e-2 x max |logit|, the
+     repo's bfloat16 model tolerance: the two mixers differ by ~1e-7 in
+     float32, which the bfloat16 residual stream rounds and 28 layers
+     amplify); then
      the prompt is decoded teacher-forced into ``init_caches(cfg, 4, 544)``
      and 32 greedy ``decode_step``s are timed one by one.  Prefill ms and
      tok/s beside the bound of its operations, decode p50 / p90 µs and
@@ -191,7 +194,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``tests/test_arch_smoke.py`` check) for the decoding families but
      vlm, hubert prefill only; qwen2's reduced config with
      ``race_smooth_radius=2`` launches K1 once in its prefill.  The
-     mixers' K1 sources are built in phase 2.
+     mixers' K1 sources are built in phase 2;
+ 16. the LM training path on the card.  ``lm:train:qwen2-7b``: qwen2-7b
+     at full width in bfloat16, depth cut to 4 layers, the RACE mixer at
+     radius 2, built by ``repro_torch.launch.train``'s ``setup`` (4 x 512
+     synthetic tokens, AdamW at 3e-4, its chunk defaults) and trained 6
+     steps through ``Trainer``; K1's launch counts (zeroed just before) on
+     the mixer's forward and on each adjoint spec's executor must equal the
+     steps, every adjoint spec must be on K1, every loss finite; the
+     mixer's gradients with respect to ``sx`` and the taps at the step's
+     shape on K1 against ``"torch"`` within ``grad``; the step's ms
+     (median of steps 2-6, synchronized), tokens/s, peak memory, the bound
+     (operations: 6 flop per matrix weight and token plus the causal
+     attention's at 989 TFLOP/s; bytes: AdamW's reads and writes) and its
+     share, K1's forward ms and summed adjoint ms per step, the final
+     checkpoint's bytes and seconds (then deleted) and one step's device
+     idle share (``torch.profiler``).  ``lm:train:resume``: qwen2-7b's
+     reduced config in float32 with the mixer: 6 steps straight against 3,
+     a new trainer on fresh parameters resuming from the checkpoint, and 3
+     more: parameters and optimizer state bit-equal, the loss at step 6
+     below step 1.  The mixers' forward and adjoint sources are built in
+     phase 2.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -209,6 +232,10 @@ phase 4, each checked against ``"torch"`` first: the sweep the tile chooser
 
 runs phases 1, 2 (the mixers' sources only) and 15 alone.
 
+    python3 chip_smoke.py --train
+
+runs phases 1, 2 (the training mixers' sources only) and 16 alone.
+
     python3 chip_smoke.py --tf32-sweep
 
 times K4's 3xTF32 kernel instead at the qwen2-7b head, rebuilt with the
@@ -220,6 +247,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -301,7 +329,17 @@ LM_RADIUS = 2
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 32
 LM_PARITY_LAYERS, LM_PARITY_PROMPT, LM_PARITY_BATCH = 4, 32, 2
 LM_FAMILY_STEPS = 4
+#: the prefill logits on K1's mixer against the torch mixer's, relative to
+#: the largest: the bfloat16 tolerance of tests/test_torch_models.py (TOL)
+LM_LOGITS_TOL = 3e-2
 LM_FAMILY_SHAPE = (2, 16)  # (batch, prompt) of the reduced configs
+#: phase 16: ``launch.train``'s arguments of lm:train:qwen2-7b (the
+#: checkpoint directory is added under build/), and lm:train:resume's
+#: batch, sequence, steps (checkpointed every TRAIN_RESUME_EVERY) and lr
+TRAIN_ARGV = ["--arch", LM_ARCH, "--num-layers", "4", "--batch", "4",
+              "--seq", "512", "--steps", "6", "--race-smooth", str(LM_RADIUS),
+              "--lr", "3e-4", "--ckpt-every", "100"]
+TRAIN_RESUME = dict(batch=4, seq=512, steps=6, every=3, lr=1e-3)
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -2552,8 +2590,8 @@ def lm_main(torch) -> dict:
     print(f"lm prefill: logits {tuple(logits.shape)} finite "
           f"{bool(torch.isfinite(logits).all())}, K1 launches {launches}; "
           f"vs the torch mixer: argmax equal on every row {same}, max |diff| "
-          f"{diff:.3e} (<= 1e-2 x {scale:.3e})", flush=True)
-    if not (same and diff <= 1e-2 * scale
+          f"{diff:.3e} (<= {LM_LOGITS_TOL:.0e} x {scale:.3e})", flush=True)
+    if not (same and diff <= LM_LOGITS_TOL * scale
             and bool(torch.isfinite(logits).all())):
         raise SystemExit("lm prefill: K1's prefill disagrees with the "
                          "torch mixer's")
@@ -2739,6 +2777,335 @@ def lm_families(torch) -> None:
         raise SystemExit("lm:families failed:\n" + "\n".join(failures))
 
 
+def _train_arg(flag: str) -> int:
+    return int(TRAIN_ARGV[TRAIN_ARGV.index(flag) + 1])
+
+
+def train_mixer_cells() -> list:
+    """(label, S, channels) of the mixers phase 16 trains through."""
+    from repro_torch.configs import get_config
+
+    full = get_config(LM_ARCH)
+    return [("qwen2-7b", _train_arg("--seq"),
+             _train_arg("--batch") * full.d_model),
+            ("resume", TRAIN_RESUME["seq"],
+             TRAIN_RESUME["batch"] * full.reduced().d_model)]
+
+
+def train_sources() -> list:
+    """The K1 sources of phase 16's mixers, forward and every adjoint plan
+    the probe admits (float32 streams), built in phase 2."""
+    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.backend import select_backend
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.models.ssm import _smooth_result
+
+    out = []
+    for _, S, C in train_mixer_cells():
+        res = _smooth_result(S, C, LM_RADIUS)
+        shapes = required_shapes(res.program)
+        out.append(specialize_stencil(res.plan, shapes, {
+            k: "float32" for k in shapes}).source)
+        for spec in adjoint_build(res.program).specs:
+            plan = spec.result().plan
+            if select_backend(plan, "auto", ["float32"]).backend == "hopper":
+                adj = adjoint_env_shapes(spec, res.program, shapes)
+                out.append(specialize_stencil(plan, adj, {
+                    k: "float32" for k in adj}).source)
+    return out
+
+
+def train_mixer_executors(model, cfg, tokens, torch):
+    """The mixer's env and executors at this batch, as a train step resolves
+    them on ``"auto"``: (env, forward executor, [(spec, adjoint env,
+    executor), ...])."""
+    from repro_torch import compile_plan
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+
+    with torch.no_grad():
+        x = model.embed[tokens]
+        env = {k: v.clone() for k, v in smooth_env(
+            x, model.smooth_taps, cfg.race_smooth_radius).items()}
+    B, S, C = x.shape
+    res = _smooth_result(S, B * C, cfg.race_smooth_radius)
+    g = {"sy": torch.ones_like(env["sy"])}
+    return (env, compile_plan(res.plan, env),
+            adjoint_executors(res.program, env, g))
+
+
+def train_mixer_grads(x, execs, torch) -> tuple:
+    """The mixer's gradients with respect to ``sx`` (through ``x``, float32)
+    and its taps, on K1 (``"auto"``, forward and adjoints: each of
+    ``execs`` must launch once) against the whole mixer on ``"torch"``:
+    (rel err, max abs err)."""
+    from repro_torch.models.ssm import race_smooth
+    from repro_torch.testing import rel_err
+
+    g = torch.Generator(DEVICE).manual_seed(3)
+    taps = (0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
+            ).requires_grad_()
+    x = x.detach().float().requires_grad_()
+
+    def grads():
+        y = race_smooth(x, taps, radius=LM_RADIUS)
+        w = cos_weights({"y": y}, torch)["y"]
+        return dict(zip(("sx", "taps"), torch.autograd.grad(
+            (y * w).sum(), (x, taps))))
+
+    before = [e.kernel_launches for e in execs]
+    k1 = grads()
+    torch.cuda.synchronize()
+    if [e.kernel_launches - n for e, n in zip(execs, before)] != [1] * len(
+            execs):
+        raise SystemExit("lm:train: the mixer's forward and adjoints did not "
+                         "each launch K1 once")
+    os.environ["RACE_BACKEND"] = "torch"
+    try:
+        plain = grads()
+    finally:
+        del os.environ["RACE_BACKEND"]
+    torch.cuda.synchronize()
+    return rel_err(k1, plain), max(float((k1[k] - plain[k]).abs().max())
+                                   for k in k1)
+
+
+def train_bound(model, opt_state, cfg, tokens: int) -> tuple:
+    """(bound ms, by, flop, bytes, matrix weights) of one train step: 6 flop per matrix
+    weight (every 2-D block weight and the head; the embedding is a
+    gather) and token plus the causal attention's products forward and
+    backward (remat's recompute not counted), at the bf16 tensor-core
+    rate; the bytes AdamW must move: parameters and moments read and
+    written, gradients read."""
+    from repro_torch.tree import as_array, leaves
+
+    blocks = [p for part in (model.prelude, model.units, model.trailing)
+              for p in part.parameters() if p.dim() == 2]
+    matrix = sum(p.numel() for p in blocks) + model.head.numel()
+    B, S = _train_arg("--batch"), _train_arg("--seq")
+    attn = 3 * cfg.num_layers * 2 * B * cfg.n_heads * cfg.d_head * S * (S + 1)
+    flop = 6 * matrix * tokens + attn
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    sbytes = sum(as_array(t).numel() * as_array(t).element_size()
+                 for t in leaves(opt_state["mu"]))
+    nbytes = 3 * pbytes + 2 * sbytes
+    ms, by = bound_of(nbytes, flop, PEAK_BF16_TC_FLOPS)
+    return ms, by, flop, nbytes, matrix
+
+
+def train_main(root, torch) -> list:
+    """lm:train:qwen2-7b; returns the kernel-line entries of the mixer's
+    forward and adjoints."""
+    import shutil
+
+    from repro_torch import compile_plan
+    from repro_torch.launch import train
+    from repro_torch.testing import default_tolerances, rel_err
+
+    ckpt = root / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = train.parser().parse_args(TRAIN_ARGV + ["--ckpt-dir", str(ckpt)])
+    t0 = time.time()
+    cfg, trainer = train.setup(args)
+    model = trainer.params
+    trainer.cfg.log_fn = lambda *a: print(*a, flush=True)
+    trainer.cfg.log_every = 1
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in model.parameters())
+    free = shutil.disk_usage(root).free
+    print(f"lm:train:qwen2-7b: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, {n_all} parameters "
+          f"(n_params() {cfg.n_params()}), race_smooth_radius "
+          f"{cfg.race_smooth_radius}; batch {args.batch} x {args.seq}, "
+          f"{args.steps} steps, lr {args.lr}; setup {time.time() - t0:.1f} "
+          f"s; disk free {free / 1e9:.1f} GB", flush=True)
+    batch0 = trainer.pipe.batch_at(0)
+    tokens = torch.as_tensor(batch0["tokens"], device=DEVICE)
+    env, ex, adj = train_mixer_executors(model, cfg, tokens, torch)
+    off = [f"{spec.input}: {e.backend} "
+           f"{[r.code for r in e.selection.capability.reasons]}"
+           for spec, _, e in adj if e.backend != "hopper"]
+    if ex.backend != "hopper" or off or not adj:
+        raise SystemExit(f"lm:train: mixer off K1: forward {ex.backend}, "
+                         f"adjoints {off or len(adj)}")
+    execs = [ex] + [e for _, _, e in adj]
+
+    times, marks = [], {}
+    inner = trainer.train_step
+
+    def timed(p, o, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(p, o, b)
+        torch.cuda.synchronize()
+        marks["end"] = time.perf_counter()
+        times.append((marks["end"] - t) * 1e3)
+        return out
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    for e in execs:
+        e.spec.launches = 0
+    # the main path: launch.train's Trainer, K1's counts from 0
+    out = trainer.run()
+    t_end = time.perf_counter()
+    launches = [e.kernel_launches for e in execs]
+    peak = torch.cuda.max_memory_allocated()
+    steps = out["step"]
+    ckpt_dir = ckpt / f"step_{steps:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    ckpt_s = t_end - marks["end"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = out["losses"]
+    print(f"lm:train losses {[round(x, 4) for x in losses]}, restarts "
+          f"{out['restarts']}; K1 launches: forward {launches[0]}, adjoints "
+          f"{dict(zip((s.input for s, _, _ in adj), launches[1:]))} over "
+          f"{len(losses)} steps; final checkpoint {ckpt_bytes} B in "
+          f"{ckpt_s:.2f} s (snapshot, write, fsync; then deleted)",
+          flush=True)
+    if (len(losses) != args.steps or not all(math.isfinite(x)
+                                             for x in losses)
+            or any(n != len(losses) for n in launches)):
+        raise SystemExit("lm:train: a loss is not finite, or K1 did not "
+                         "launch once per step on the forward and on every "
+                         "adjoint spec")
+    step_ms = statistics.median(times[1:])
+    tok = args.batch * args.seq
+    bound_ms, by, flop, nbytes, matrix = train_bound(
+        model, trainer.opt_state, cfg, tok)
+    print(f"lm:train step on {_nvidia_smi()}: {step_ms:.4f} ms (median of "
+          f"steps 2-{len(times)}; each {[round(t, 1) for t in times]}), "
+          f"{tok / step_ms * 1e3:.1f} tok/s; peak memory {peak / 1e9:.2f} GB;"
+          f" bound {bound_ms:.4f} ms ({by}: {flop:.4e} flop for {matrix} "
+          f"matrix weights at {PEAK_BF16_TC_FLOPS:.3e}/s, {nbytes} B of "
+          f"AdamW at {HBM_BYTES_PER_S:.3e}/s), share of bound "
+          f"{bound_ms / step_ms:.3f}", flush=True)
+
+    # the mixer's gradients on K1 against "torch" at the step's shape
+    x = model.embed[tokens]
+    e_grad, grad_abs = train_mixer_grads(x, execs, torch)
+    tol = default_tolerances("float32")["grad"]
+    print(f"lm:train mixer grads (sx, taps) K1 vs torch {e_grad:.2e} (<= "
+          f"{tol:.0e}), max_abs_err {grad_abs:.3e}", flush=True)
+    if not e_grad <= tol:
+        raise SystemExit("lm:train: the mixer's gradients on K1 disagree "
+                         "with torch's")
+
+    # K1 per step: the forward and the adjoint specs at the step's envs
+    got = ex(env)
+    ex_t = compile_plan(ex.plan, env, "torch")
+    plain = ex_t(env)
+    torch.cuda.synchronize()
+    fwd_abs = float((got["sy"] - plain["sy"]).abs().max())
+    if rel_err(got, plain) > default_tolerances("float32")["plan"]:
+        raise SystemExit("lm:train: K1's mixer forward disagrees with torch")
+    fwd_ms = _time_ms(lambda: ex(env), torch)
+    fwd_plain = _time_ms(lambda: ex_t(env), torch)
+    fwd_lib = _time_ms(mixer_library_call(env, LM_RADIUS, torch), torch)
+    fb, fo = plan_work(ex.plan, env, 4)
+    fwd_bound, fwd_by = bound_of(fb, fo, PEAK_FLOPS["float32"])
+    adj_ms = adj_plain = 0.0
+    ab = ao = 0
+    per_spec = []
+    for spec, a, e in adj:
+        ms = _time_ms(lambda: e(a), torch)
+        adj_ms += ms
+        per_spec.append(f"{spec.input} {ms:.4f}")
+        e_t = compile_plan(spec.result().plan, a, "torch")
+        adj_plain += _time_ms(lambda: e_t(a), torch)
+        b_, o_ = plan_work(spec.result().plan, a, 4)
+        ab, ao = ab + b_, ao + o_
+    adj_bound, adj_by = bound_of(ab, ao, PEAK_FLOPS["float32"])
+    print(f"lm:train K1 per step: forward {fwd_ms:.4f} ms (1 launch; torch "
+          f"{fwd_plain:.4f}, conv1d {fwd_lib:.4f}, bound {fwd_bound:.4f} "
+          f"{fwd_by}), adjoints {adj_ms:.4f} ms ({len(adj)} launches: "
+          f"{', '.join(per_spec)}; torch {adj_plain:.4f}, bound "
+          f"{adj_bound:.4f} {adj_by}); K1 = {(fwd_ms + adj_ms) / step_ms:.4f}"
+          f" of the step", flush=True)
+
+    device_split("lm:train step", lambda: trainer.train_step(
+        model, trainer.opt_state, batch0), torch)
+    del trainer, model, env, ex, adj, execs, got, plain, x
+    torch.cuda.empty_cache()
+    common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
+                  replaces="src/repro/lowering/emit.py:273")
+    return [dict(name="race_stencil[race_smooth train]", launches=launches[0],
+                 max_abs_err=fwd_abs, ms=fwd_ms, plain_ms=fwd_plain,
+                 bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
+                 **common),
+            dict(name="race_stencil[race_smooth adjoint]",
+                 launches=sum(launches[1:]), max_abs_err=grad_abs,
+                 ms=adj_ms, plain_ms=adj_plain, bound_ms=adj_bound,
+                 bound_by=adj_by, library_ms=None, **common)]
+
+
+def train_resume(root, torch) -> None:
+    """lm:train:resume: straight against checkpointed-and-resumed, bit for
+    bit, on the card."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import executor_cache
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+    from repro_torch.models import ExecConfig, init_params, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import as_array, leaves
+
+    r = TRAIN_RESUME
+    cfg = dataclasses.replace(get_config(LM_ARCH).reduced(), dtype="float32",
+                              race_smooth_radius=LM_RADIUS)
+    exec_cfg = ExecConfig(attn_chunk_q=min(128, r["seq"]),
+                          attn_chunk_k=min(256, r["seq"]),
+                          ssm_chunk=min(64, r["seq"]),
+                          loss_chunk=min(128, r["seq"]))
+    opt_cfg = AdamWConfig(lr=r["lr"])
+    step = make_train_step(cfg, opt_cfg, exec_cfg, total_steps=r["steps"],
+                           warmup=1)
+    pipe = ShardedTokenPipeline(DataConfig(seq_len=r["seq"],
+                                           global_batch=r["batch"],
+                                           vocab=cfg.vocab))
+    base = root / "build" / "train_resume"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def run(total, name):
+        model = init_params(cfg, generator=torch.Generator(DEVICE)
+                            .manual_seed(0), device=DEVICE, trainable=True)
+        tr = Trainer(TrainerConfig(total_steps=total, ckpt_dir=str(base / name),
+                                   ckpt_every=r["every"],
+                                   log_fn=lambda *a: None),
+                     step, pipe, model, adamw_init(model, opt_cfg))
+        return tr, tr.run()
+
+    t0 = time.time()
+    executor_cache().clear()
+    a, out_a = run(r["steps"], "straight")
+    run(r["every"], "resumed")
+    b, out_b = run(r["steps"], "resumed")
+    torch.cuda.synchronize()
+    shutil.rmtree(base, ignore_errors=True)
+    same_p = all(torch.equal(as_array(x).detach(), as_array(y).detach())
+                 for x, y in zip(leaves(a.params.param_tree()),
+                                 leaves(b.params.param_tree())))
+    same_o = all(torch.equal(as_array(x), as_array(y))
+                 for x, y in zip(leaves(a.opt_state), leaves(b.opt_state)))
+    la = out_a["losses"]
+    on_k1 = {e.backend for e in executor_cache().executors()}
+    print(f"lm:train:resume ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"float32, batch {r['batch']} x {r['seq']}): straight losses "
+          f"{[round(x, 4) for x in la]}, resumed {[round(x, 4) for x in out_b['losses']]}"
+          f"; parameters bit-equal {same_p}, optimizer state bit-equal "
+          f"{same_o}; mixer executors {sorted(on_k1)}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not (same_p and same_o and la[-1] < la[0] and on_k1 == {"hopper"}
+            and out_b["losses"] == la[r["every"]:]):
+        raise SystemExit("lm:train:resume: the resumed run differs from the "
+                         "straight one, the loss did not fall, or the mixer "
+                         "ran off K1")
+
+
 def main() -> int:
     import torch
 
@@ -2800,6 +3167,17 @@ def main() -> int:
         print(json.dumps({"kernels": kernels}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--train"]:  # phases 1, 2 (the mixers) and 16 alone
+        t0 = time.time()
+        compile_sources(train_sources())
+        print(f"build: the training mixers' sources in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        kernels = train_main(root, torch)
+        train_resume(root, torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        return 0
 
     # ---- plans of phases 3 and 4 ------------------------------------------
     sweep = []  # (case, level, dtype, RaceResult)
@@ -2856,8 +3234,8 @@ def main() -> int:
     # phase 14: the sharded local plans, forward and adjoint
     mesh = shard_mesh(torch)
     sources += shard_sources(mesh)
-    # phase 15: the LM mixers' plans
-    sources += lm_sources()
+    # phases 15-16: the LM mixers' plans, and the training mixers' adjoints
+    sources += lm_sources() + train_sources()
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -3064,6 +3442,12 @@ def main() -> int:
     kernels.append(lm_main(torch))
     lm_parity(torch)
     lm_families(torch)
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: the LM training path on the card -------------------------
+    marks.append((16, time.time()))
+    kernels += train_main(root, torch)
+    train_resume(root, torch)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

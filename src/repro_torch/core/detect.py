@@ -45,12 +45,23 @@ class RooflineCost:
     ``vmem=True`` (the Pallas executor keeps aux tiles in VMEM scratch) the
     byte cost is ~0 and this degenerates to the paper model."""
 
-    # 240 flop/B is the TPU v5e's balance (peak flop/s over HBM bytes/s), a
-    # TPU figure kept from the reference; race() uses PaperCost, so this
-    # model is off the default path.  The H100's own balance is not measured.
-    def __init__(self, balance_flops_per_byte: float = 240.0, vmem: bool = False):
+    # The default balance is the H100's (data-sheet peak flop/s outside the
+    # tensor cores over HBM bytes/s, ``launch/mesh.py``): 20 flop/B for
+    # 4-byte elements, about 10 for 8-byte ones.  The reference's 240 is the
+    # TPU v5e's; pass ``balance_flops_per_byte=240.0`` for its verdicts.
+    # race() uses PaperCost, so this model is off the default path.
+    def __init__(self, balance_flops_per_byte: Optional[float] = None,
+                 vmem: bool = False):
         self.balance = balance_flops_per_byte
         self.vmem = vmem
+
+    def balance_for(self, dtype_bytes: int) -> float:
+        """flop/B at which an aux of ``dtype_bytes``-byte elements pays."""
+        if self.balance is not None:
+            return self.balance
+        from ..launch.mesh import HBM_BW, PEAK_FLOPS
+
+        return PEAK_FLOPS[8 if dtype_bytes >= 8 else 4] / HBM_BW
 
     def approve(self, op_flops: float, n: int, dtype_bytes: int = 4) -> bool:
         if n < 2:
@@ -58,7 +69,7 @@ class RooflineCost:
         if self.vmem:
             return True
         extra_bytes = max(0.0, (3 - n)) * dtype_bytes
-        return (n - 1) * op_flops >= extra_bytes * self.balance
+        return (n - 1) * op_flops >= extra_bytes * self.balance_for(dtype_bytes)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,9 @@ HBM_BW = 3.35e12
 #: (:mod:`repro_torch.shard.halo`) weighs exchange bytes over this rate
 #: against recompute's replicated reads over :data:`HBM_BW`.
 LINK_BW = 450e9
+#: H100 SXM peak rates outside the tensor cores (NVIDIA's data sheet),
+#: flop/s per element size in bytes: float32 and float64
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 
 def stencil_mesh_shape(n: int, k: int) -> tuple:

@@ -1,7 +1,8 @@
 """Attention of the port (``repro/models/attention.py``): GQA with optional
 qk-norm / qkv-bias / local window / cross attention; the reference's
 doubly-chunked online-softmax forward (scores never exist beyond one
-(cq, ck) tile), and the single-query decode path over a KV cache.
+(cq, ck) tile) with its FlashAttention-2-style backward, and the
+single-query decode path over a KV cache.
 
 Layouts: q (B, S, KV, G, dh), k/v (B, S, KV, dh) with G = H / KV.  No
 library attention call: this is the reference's algorithm, held against it
@@ -132,17 +133,83 @@ def _flash_fwd(q, k, v, causal, window, exec_cfg, q_offset):
     return out.to(q.dtype), lse
 
 
+def _flash_bwd(causal, window, exec_cfg, q_offset, res, dout):
+    """The reference's FlashAttention-2-style backward: every (cq, ck) tile
+    is recomputed from (q, k, v, lse), nothing tile-sized is kept across
+    iterations.  A k-outer pass accumulates ``dk`` and ``dv``, a q-outer
+    pass ``dq``, all in float32."""
+    q, k, v, out, lse = res
+    B, Sq, KV, G, dh = q.shape
+    Sk = k.shape[1]
+    nq, nk = _chunk_counts(Sq, Sk, exec_cfg)
+    cq, ck = Sq // nq, Sk // nk
+    scale = dh ** -0.5
+    dev = q.device
+    doutf = dout.float()
+    D = (doutf * out.float()).sum(-1)  # (B, Sq, KV, G)
+
+    def tile(iq, ik):
+        """q chunk, dout chunk, k chunk, probabilities, score grads."""
+        qs, ks = slice(iq * cq, (iq + 1) * cq), slice(ik * ck, (ik + 1) * ck)
+        qc, doc, kc, vc = q[:, qs], doutf[:, qs], k[:, ks], v[:, ks]
+        pos_q = q_offset + iq * cq + torch.arange(cq, device=dev)
+        pos_k = ik * ck + torch.arange(ck, device=dev)
+        s = mm_f32(qc, kc, "bqkgd,bckd->bkgqc") * scale
+        mask = _tile_mask(pos_q, pos_k, causal, window)
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+        p = torch.exp(s - lse[:, qs].permute(0, 2, 3, 1)[..., None])
+        dp = mm_f32(doc, vc, "bqkgd,bckd->bkgqc")
+        ds = p * (dp - D[:, qs].permute(0, 2, 3, 1)[..., None]) * scale
+        return qc, doc, kc, p, ds
+
+    dks, dvs = [], []
+    for ik in range(nk):
+        dk_acc = torch.zeros((B, ck, KV, dh), device=dev)
+        dv_acc = torch.zeros((B, ck, KV, dh), device=dev)
+        for iq in range(nq):
+            qc, doc, _, p, ds = tile(iq, ik)
+            dk_acc = dk_acc + mm_f32(ds, qc, "bkgqc,bqkgd->bckd")
+            dv_acc = dv_acc + mm_f32(p, doc, "bkgqc,bqkgd->bckd")
+        dks.append(dk_acc)
+        dvs.append(dv_acc)
+    dqs = []
+    for iq in range(nq):
+        dq_acc = torch.zeros((B, cq, KV, G, dh), device=dev)
+        for ik in range(nk):
+            _, _, kc, _, ds = tile(iq, ik)
+            dq_acc = dq_acc + mm_f32(ds, kc, "bkgqc,bckd->bqkgd")
+        dqs.append(dq_acc)
+    return (torch.cat(dqs, 1).to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves (q, k, v, out,
+    lse), the backward recomputes the tiles (:func:`_flash_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, exec_cfg, q_offset):
+        out, lse = _flash_fwd(q, k, v, causal, window, exec_cfg, q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, exec_cfg, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.args, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal, window, exec_cfg, q_offset=0):
-    """Online-softmax attention over (q-chunk, k-chunk) tiles (forward; the
-    reference's hand-written VJP comes with the training path).  Fully
-    masked tiles are still computed, as in the reference."""
-    out, _ = _flash_fwd(q, k, v, causal, window, exec_cfg, q_offset)
-    return out
+    """Online-softmax attention over (q-chunk, k-chunk) tiles with the
+    reference's FA2-style hand-written backward (recompute, never store
+    tiles).  Fully masked tiles are still computed, as in the reference."""
+    return _FlashAttention.apply(q, k, v, causal, window, exec_cfg, q_offset)
 
 
 def attention_block(x, p: Attention, cfg: ModelConfig, exec_cfg: ExecConfig,
                     rope_cache=None, kv_src=None, window: int = 0):
-    """Full-sequence attention (prefill)."""
+    """Full-sequence attention (train / prefill)."""
     B, S, D = x.shape
     cross = kv_src is not None
     q, k, v = _project_qkv(x, kv_src if cross else x, p, cfg)

@@ -1,9 +1,7 @@
 """Shared model components of the port (``repro/models/common.py``): the
-execution knobs, RMSNorm, RoPE, the initializer and the device and dtype
-helpers every block uses.
-
-The reference's vocab-chunked loss (``chunked_ce_loss``) belongs to the
-training path, which is not ported yet (ROADMAP Queue 1, item 9).
+execution knobs, RMSNorm, RoPE, the initializer, the device and dtype
+helpers every block uses, and the vocab-chunked training loss
+:func:`chunked_ce_loss`.
 """
 from __future__ import annotations
 
@@ -11,6 +9,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 
@@ -20,11 +19,13 @@ class ExecConfig:
     """Execution knobs, with the reference's fields and defaults.
 
     ``unroll_scans`` keeps the reference's chunk-count semantics: the
-    attention, SSM and MoE loops take ``probe_chunks`` chunks instead of
-    fixed chunk sizes.  ``remat`` and ``remat_policy`` are training knobs
-    and the forward pass ignores them.  ``mesh`` must stay ``None``: the
-    activation sharding of ``models/sharding.py`` is not ported yet
-    (ROADMAP Queue 1, item 9), so :meth:`constrain` is the identity."""
+    attention, SSM, MoE and loss loops take ``probe_chunks`` chunks instead
+    of fixed chunk sizes.  ``remat`` and ``remat_policy`` act where autograd
+    records (training): each layer unit's activations are recomputed in the
+    backward pass, ``"dots"`` keeping its matrix products' outputs.
+    ``mesh`` must stay ``None``: the activation sharding of
+    ``models/sharding.py`` is not ported yet (ROADMAP Queue 1, item 9.3),
+    so :meth:`constrain` is the identity."""
 
     unroll_scans: bool = False
     probe_chunks: int = 2      # chunk count in unrolled (probe) mode
@@ -47,7 +48,7 @@ class ExecConfig:
             raise ValueError(
                 "ExecConfig(mesh=...): activation sharding "
                 "(repro/models/sharding.py) is not ported yet (ROADMAP "
-                "Queue 1, item 9); the port's LM runs on one device")
+                "Queue 1, item 9.3); the port's LM runs on one device")
 
     def constrain(self, x, *spec):
         return x
@@ -63,6 +64,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
+
+
+def to_device(t, device, dtype=None) -> torch.Tensor:
+    """``t`` (a tensor, numpy array or nested list) on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(np.asarray(t))
+    return t.to(device=device, dtype=dtype)
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -156,4 +164,53 @@ def dense_init(generator: torch.Generator, shape, dtype, scale: float = 1.0,
 
 
 def param(t: torch.Tensor) -> torch.nn.Parameter:
+    """A frozen parameter (serving needs no grads);
+    ``init_params(..., trainable=True)`` makes a whole model trainable."""
     return torch.nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# loss (vocab-chunked cross-entropy; the logits never fully materialize)
+# ---------------------------------------------------------------------------
+
+
+def _ce_chunk(hc, w, lc, mc, logits_dtype):
+    """Summed masked cross-entropy of one sequence chunk: the (B, C, V)
+    logits as ``einsum(..., preferred_element_type=logits_dtype)`` gives
+    them (exact products summed in float32, then that dtype), reduced in
+    float32."""
+    logits = mm_f32(hc, w, "bcd,dv->bcv").to(logits_dtype).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_ce_loss(h, w_out, labels, exec_cfg: ExecConfig, mask=None):
+    """h: (B, S, D); w_out: (D, V); labels: (B, S) ints (numpy or tensor).
+    The mean cross-entropy over unmasked tokens, taken over sequence chunks
+    with the reference's chunk count, so the (B, S, V) logits never exist:
+    where autograd records, each chunk's logits are recomputed in the
+    backward pass (non-reentrant ``torch.utils.checkpoint``), never stored.
+    The loss sum and the count accumulate in float32."""
+    B, S, D = h.shape
+    if exec_cfg.unroll_scans:
+        n_chunks = min(exec_cfg.probe_chunks, S)
+    else:
+        n_chunks = max(1, S // max(1, min(exec_cfg.loss_chunk, S)))
+    while S % n_chunks:
+        n_chunks -= 1
+    C = S // n_chunks
+    labels = to_device(labels, h.device, torch.long)
+    mask = (torch.ones(labels.shape, device=h.device) if mask is None
+            else to_device(mask, h.device, torch.float32))
+    w = w_out.float()  # once, not per chunk: the cast is what the chunks share
+    dt = torch_dtype(exec_cfg.logits_dtype)
+    loss_sum = cnt = torch.zeros((), device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * C, (i + 1) * C)
+        args = (h[:, sl], w, labels[:, sl], mask[:, sl], dt)
+        part = (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else _ce_chunk(*args))
+        loss_sum = loss_sum + part
+        cnt = cnt + mask[:, sl].sum()
+    return loss_sum / torch.clamp(cnt, min=1.0)

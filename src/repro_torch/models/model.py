@@ -12,24 +12,29 @@ after unit (block ``i`` has kind ``unit_kinds(cfg)[i % len(unit_kinds)]``):
   vlm            unit = [attn x (k-1), cross]       x L//k
 
 The entry points keep the reference's names and take the module where the
-reference takes its param tree.  Everything runs on the module's device;
-:func:`init_params` and :func:`init_caches` default to ``cuda`` and raise
-without a GPU unless ``device="cpu"`` is passed.  Caches are updated in
-place; :func:`decode_step` still returns ``(logits, caches)``.
+reference takes its param tree; :meth:`LM.param_tree` gives that tree over
+the module's tensors, each unit leaf a :class:`~repro_torch.tree.Stack`.
+Everything runs on the module's device; :func:`init_params` and
+:func:`init_caches` default to ``cuda`` and raise without a GPU unless
+``device="cpu"`` is passed.  Caches are updated in place;
+:func:`decode_step` still returns ``(logits, caches)``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.executor import resolve_device
+from ..tree import Stack, map_leaves
 from .attention import (Attention, attention_block, decode_attention_block,
                         init_kv_cache)
 from .common import (ExecConfig, dense_init, init_rmsnorm, mm, mm_f32, param,
-                     rmsnorm, rope_angles, torch_dtype)
+                     rmsnorm, rope_angles, to_device, torch_dtype)
 from .config import ModelConfig
 from .moe import MLP, MoE, mlp_block, moe_block
 from .ssm import (RGLRU, Mamba, init_mamba_cache, init_rglru_cache,
@@ -197,7 +202,8 @@ class LM(nn.Module):
     """The language model: ``prelude``, ``units`` and ``trailing`` block
     lists, ``ln_f``, ``head``, ``embed`` (or ``in_proj`` for precomputed
     frame embeddings) and ``smooth_taps`` when ``race_smooth_radius > 0``.
-    Parameters are made with ``requires_grad=False`` (serving)."""
+    Parameters are made with ``requires_grad=False`` (serving);
+    ``init_params(..., trainable=True)`` makes them trainable."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device=None, n_units_override: Optional[int] = None):
@@ -236,13 +242,49 @@ class LM(nn.Module):
         return [(b, b.kind) for part in (self.prelude, self.units,
                                           self.trailing) for b in part]
 
+    def param_tree(self) -> dict:
+        """The reference's param tree (``repro.models.init_params``) over
+        this module's parameters: nested dicts keyed as the reference's,
+        ``units`` a tuple over :func:`unit_kinds` (``None`` without units)
+        whose leaves are :class:`~repro_torch.tree.Stack` s of the units'
+        tensors.  ``repro_torch.tree.leaves`` of it is the reference's
+        ``jax.tree.leaves(params)`` order."""
+        nk = len(unit_kinds(self.cfg))
+        per_unit = [_block_tree(b) for b in self.units]
+        tree = {
+            "units": tuple(map_leaves(lambda *ps: Stack(ps), *per_unit[j::nk])
+                           for j in range(nk)) if per_unit else None,
+            "prelude": tuple(_block_tree(b) for b in self.prelude),
+            "trailing": tuple(_block_tree(b) for b in self.trailing),
+            "ln_f": self.ln_f, "head": self.head}
+        for name in ("in_proj", "embed", "smooth_taps"):
+            if hasattr(self, name):
+                tree[name] = getattr(self, name)
+        return tree
+
+
+def _block_tree(block: nn.Module) -> dict:
+    """A block's parameters as the reference's nested param dict."""
+    out = {}
+    for name, p in block.named_parameters():
+        *path, last = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[last] = p
+    return out
+
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, device=None,
-                n_units_override: Optional[int] = None) -> LM:
+                n_units_override: Optional[int] = None,
+                trainable: bool = False) -> LM:
     """A randomly initialized :class:`LM` on ``device`` (default ``cuda``;
     raises without a GPU).  ``generator`` draws every weight, on its own
-    device, in the order the modules are built."""
-    return LM(cfg, generator, resolve_device(device), n_units_override)
+    device, in the order the modules are built.  ``trainable`` sets
+    ``requires_grad`` on every parameter (training); serving leaves them
+    frozen."""
+    model = LM(cfg, generator, resolve_device(device), n_units_override)
+    return model.requires_grad_(trainable)
 
 
 def _rope_cache(cfg: ModelConfig, max_pos: int, device):
@@ -252,10 +294,29 @@ def _rope_cache(cfg: ModelConfig, max_pos: int, device):
     return rope_angles(pos, cfg.d_head, cfg.rope_theta)
 
 
-def _on(t, device, dtype=None):
-    if not isinstance(t, torch.Tensor):
-        t = torch.as_tensor(np.asarray(t))
-    return t.to(device=device, dtype=dtype)
+#: ``remat_policy="dots"``: the matrix products without batch dimensions
+#: (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) are saved,
+#: everything else is recomputed
+_DOTS = frozenset([torch.ops.aten.mm.default, torch.ops.aten.addmm.default])
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, x, exec_cfg: ExecConfig):
+    """``fn(x)``, its activations recomputed in the backward pass where
+    autograd records and ``exec_cfg.remat`` asks for it: ``"nothing"``
+    keeps only ``x``, ``"dots"`` also the matrix products' outputs."""
+    if not (exec_cfg.remat and torch.is_grad_enabled()):
+        return fn(x)
+    if exec_cfg.remat_policy == "nothing":
+        return checkpoint(fn, x, use_reentrant=False)
+    if exec_cfg.remat_policy == "dots":
+        return checkpoint(fn, x, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat_policy {exec_cfg.remat_policy!r}")
 
 
 def forward_hidden(params: LM, cfg: ModelConfig, exec_cfg: ExecConfig,
@@ -264,13 +325,15 @@ def forward_hidden(params: LM, cfg: ModelConfig, exec_cfg: ExecConfig,
     ``tokens`` (B, S) or ``embeds`` (B, S, input_embed_dim), and ``vision``
     (B, vision_tokens, vision_dim) for vlm; numpy arrays or tensors, moved
     to the model's device.  With ``race_smooth_radius > 0`` the embedding
-    goes through :func:`race_smooth` (K1 on the card) first."""
+    goes through :func:`race_smooth` (K1 on the card) first, outside every
+    remat region.  Each layer unit runs under :func:`_remat`, as the
+    reference's ``unit_body`` under ``jax.checkpoint``."""
     dev = params.device
     if cfg.input_embed_dim:
-        x = mm(_on(batch["embeds"], dev, torch_dtype(cfg.dtype)),
+        x = mm(to_device(batch["embeds"], dev, torch_dtype(cfg.dtype)),
                params.in_proj)
     else:
-        x = params.embed[_on(batch["tokens"], dev, torch.long)]
+        x = params.embed[to_device(batch["tokens"], dev, torch.long)]
     if cfg.race_smooth_radius:
         x = x + race_smooth(x, params.smooth_taps,
                             radius=cfg.race_smooth_radius)
@@ -278,8 +341,18 @@ def forward_hidden(params: LM, cfg: ModelConfig, exec_cfg: ExecConfig,
     rope = _rope_cache(cfg, S, dev)
     vision = batch.get("vision")
     if vision is not None:
-        vision = _on(vision, dev)
-    for p, kind in params.blocks():
+        vision = to_device(vision, dev)
+    for p, kind in zip(params.prelude, prelude_kinds(cfg)):
+        x = apply_block(x, p, cfg, exec_cfg, kind, rope, vision)
+    uk = unit_kinds(cfg)
+    for u in range(0, len(params.units), len(uk)):
+        def unit_body(x, blocks=params.units[u:u + len(uk)]):
+            for p, kind in zip(blocks, uk):
+                x = apply_block(x, p, cfg, exec_cfg, kind, rope, vision)
+            return x
+
+        x = _remat(unit_body, x, exec_cfg)
+    for p, kind in zip(params.trailing, trailing_kinds(cfg)):
         x = apply_block(x, p, cfg, exec_cfg, kind, rope, vision)
     return rmsnorm(x, params.ln_f)
 
@@ -317,7 +390,7 @@ def decode_step(params: LM, caches: dict, cfg: ModelConfig,
     """One decode step.  token: (B, 1) ints; pos: the position (an int).
     Returns (logits (B, V) float32, caches), the caches updated in place."""
     dev = params.device
-    x = params.embed[_on(token, dev, torch.long)]
+    x = params.embed[to_device(token, dev, torch.long)]
     rope = rope_cache
     if rope is None and cfg.kind not in ("ssm",):
         rope = _rope_cache(cfg, max_len, dev)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.executor import default_backend
 from .common import (ExecConfig, dense_init, mm, param, sigmoid, silu,
                      torch_dtype)
 from .config import ModelConfig
@@ -131,7 +132,9 @@ def race_smooth(x, taps, *, radius: int, backend=None):
     runs the whole-array evaluator.  x: (B, S, C); taps: (radius+1,)."""
     B, S, C = x.shape
     res = _smooth_result(S, B * C, int(radius))
-    y = res.run(smooth_env(x, taps, radius), backend, device=x.device)["sy"]
+    # resolved per call: the memoized result keeps the backend of its build
+    y = res.run(smooth_env(x, taps, radius), backend or default_backend(),
+                device=x.device)["sy"]
     return y.reshape(S, B, C).transpose(0, 1).to(x.dtype)
 
 

@@ -14,23 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tree import leaves_with_paths
 from .config import ModelConfig
 from .model import LM, init_params, unit_kinds
-
-
-def _leaves(tree, prefix=()):
-    """((path, array), ...) of a nested dict / tuple / list tree; ``None``
-    subtrees (no units) have no leaves."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, prefix + (i,))
-    else:
-        yield prefix, tree
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -42,18 +28,19 @@ def to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def from_reference(cfg: ModelConfig, tree: dict, *, device=None) -> LM:
+def from_reference(cfg: ModelConfig, tree: dict, *, device=None,
+                   trainable: bool = False) -> LM:
     """An :class:`LM` on ``device`` (default ``cuda``; raises without a GPU)
-    holding the reference's parameters ``tree``.  Raises ``ValueError`` on a
-    leaf the module lacks, a parameter the tree lacks, or a shape or dtype
-    that differs."""
+    holding the reference's parameters ``tree``, trainable or frozen as
+    :func:`init_params`.  Raises ``ValueError`` on a leaf the module lacks,
+    a parameter the tree lacks, or a shape or dtype that differs."""
     gen = torch.Generator().manual_seed(0)
     model = init_params(cfg, generator=gen, device=device,
-                        n_units_override=_n_units(tree))
+                        n_units_override=_n_units(tree), trainable=trainable)
     state = dict(model.named_parameters())
     nk = len(unit_kinds(cfg))
     filled = set()
-    for path, leaf in _leaves(tree):
+    for path, leaf in leaves_with_paths(tree):
         t = to_tensor(leaf)
         if path[0] == "units":
             j, rest = path[1], path[2:]
@@ -83,6 +70,6 @@ def _n_units(tree: dict) -> int:
     """The unit count of a reference tree (its stacked leaves' leading
     axis)."""
     units = tree.get("units")
-    for _, leaf in _leaves(units):
+    for _, leaf in leaves_with_paths(units):
         return int(np.shape(leaf)[0])
     return 0

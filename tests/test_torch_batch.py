@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import get_case as ref_case
 from repro.core.race import race as ref_race

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch
 from repro_torch.apps import get_case
@@ -668,3 +668,55 @@ def test_reduced_lm_prefill_and_decode_on_card(cuda_device):
     logits, _ = decode_step(model, caches, cfg, exec_cfg, tokens[:, :1], 0,
                             max_len=16)
     assert bool(torch.isfinite(logits).all())
+
+
+def test_launch_train_asks_for_cuda_and_raises_without_a_card(monkeypatch,
+                                                              tmp_path):
+    """``launch.train`` without ``--device`` trains on ``cuda``; with no
+    card it raises before building anything: no quiet CPU run."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train.parser().parse_args(["--arch", "qwen2_7b", "--reduced",
+                                      "--ckpt-dir", str(tmp_path)])
+    assert args.device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.setup(args)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_runs_the_mixer_and_its_adjoints_on_k1(
+        cuda_device):
+    """One train step of qwen2's reduced config with the mixer, float32 on
+    the card: the forward and every adjoint spec (``sx`` and the three
+    taps) are K1 executors that launched, the loss matches the same step
+    on the CPU within 1e-5."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.executor import executor_cache
+    from repro_torch.models import ExecConfig, init_params, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_config("qwen2_7b").reduced(),
+                              dtype="float32", race_smooth_radius=2)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 17))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    exec_cfg = ExecConfig(attn_chunk_q=8, attn_chunk_k=8, loss_chunk=8)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        model = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu", trainable=True).to(dev)
+        with torch.no_grad():
+            model.smooth_taps.copy_(torch.tensor([0.3, -0.2, 0.1]))
+        opt_cfg = AdamWConfig(lr=1e-3)
+        executor_cache().clear()
+        _, _, m = make_train_step(cfg, opt_cfg, exec_cfg)(
+            model, adamw_init(model, opt_cfg), batch)
+        losses[str(dev)] = float(m["loss"])
+    exs = executor_cache().executors()
+    assert len(exs) == 5
+    assert {ex.backend for ex in exs} == {"hopper"}
+    assert all(ex.kernel_launches == 1 for ex in exs)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])

@@ -6,7 +6,7 @@ kernel, which never falls back, and ``optimize_and_run``), the deprecated
 hoisting analysis (``tests/test_system.py::test_rope_hoisting_via_race``)."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import get_case as ref_case
 from repro.core.codegen import build_evaluator as ref_build_evaluator

@@ -4,6 +4,7 @@ tolerance; and the baseline evaluators against each other."""
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import CASES
 from repro.apps.paper_kernels import get_case as ref_case

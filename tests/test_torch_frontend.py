@@ -10,7 +10,7 @@ with ``device="cpu"``.
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import test_frontend_diagnostics as ref_diag
 from test_torch_seed import (SEED_DEPENDENT_PLANS, ref_plan_record,

@@ -7,7 +7,7 @@ import types
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.launch import serve as ref_serve
 

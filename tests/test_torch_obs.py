@@ -18,7 +18,7 @@ import time
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import obs as ref_obs
 from repro.core import adjoint as ref_adjoint

@@ -12,6 +12,7 @@ file resets the port's around every test.
 import json
 
 import pytest
+pytest.importorskip("torch")
 
 from repro.obs import history as ref_history
 from repro_torch import obs

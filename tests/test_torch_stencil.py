@@ -4,6 +4,7 @@ kernel in interpret mode), its CUDA rendering, its tile chooser and its
 refusals."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import CASES
 from repro.apps.paper_kernels import get_case as ref_case

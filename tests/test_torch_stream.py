@@ -8,6 +8,7 @@ import functools
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 from hypothesis import given, settings, strategies as st
 
 from repro.apps.paper_kernels import CASES

@@ -6,6 +6,7 @@ reference's plan follows PYTHONHASHSEED (ROADMAP F7), the port is held to
 the reference's plan under seed 0, taken in a subprocess."""
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import CASES
 from repro.apps.paper_kernels import get_case as ref_case
@@ -89,3 +90,30 @@ def test_refusal_codes_match_reference(k):
     assert rcodes
     assert [r.code for r in port_res.capability().reasons] == rcodes
     assert port_res.select_backend("auto").backend == "torch"
+
+
+def test_roofline_cost_defaults_to_the_h100_balance():
+    """F10: ``RooflineCost()`` weighs an aux's bytes at the H100's balance
+    (the port's data-sheet constants: 20 flop/B for 4-byte elements, about
+    10 for 8-byte ones), not the v5e's 240; with 240 passed it gives the
+    reference's verdicts (``tests/test_race_features.py::test_cost_models``)."""
+    from repro.core.detect import RooflineCost as RefRooflineCost
+
+    from repro_torch.core.detect import RooflineCost
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS
+
+    h100 = RooflineCost()
+    assert h100.balance_for(4) == PEAK_FLOPS[4] / HBM_BW
+    assert h100.balance_for(8) == PEAK_FLOPS[8] / HBM_BW
+    assert round(h100.balance_for(4)) == 20 and round(h100.balance_for(8)) == 10
+    # a pair of 100-flop subexpressions: worth an HBM round trip on the
+    # H100 (100 >= 4 B x 20), not on the v5e (4 B x 240)
+    assert h100.approve(100.0, 2) and not RooflineCost(240.0).approve(100.0, 2)
+    port, ref = RooflineCost(240.0), RefRooflineCost(240.0)
+    assert not port.approve(1.0, 2) and port.approve(20.0, 60)
+    assert RooflineCost(vmem=True).approve(1.0, 2)
+    for op_flops in (0.5, 1.0, 20.0, 100.0, 1000.0):
+        for n in (1, 2, 3, 60):
+            for nbytes in (2, 4, 8):
+                assert (port.approve(op_flops, n, nbytes)
+                        == ref.approve(op_flops, n, nbytes))

@@ -32,7 +32,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import get_case as ref_get_case
 from repro.core.executor import executor_cache as ref_executor_cache
