@@ -100,13 +100,17 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir, like_tree, step: Optional[int] = None,
-                       verify: bool = True):
+                       shardings=None, verify: bool = True):
     """(a tree of ``like_tree``'s structure holding step ``step``'s arrays
     (default: the latest), that step).  Each leaf is a new tensor on the
     device of ``like_tree``'s leaf, a :class:`~repro_torch.tree.Stack` split
-    per unit; ``like_tree``'s tensors are not touched.  Raises ``IOError``
-    on a checksum mismatch and ``ValueError`` on a shape that differs from
-    ``like_tree``'s."""
+    per unit; ``like_tree``'s tensors are not touched.  With ``shardings``
+    (a tree of :class:`~repro_torch.models.sharding.Sharding` of the same
+    structure) each array is instead placed with its sharding
+    (:func:`~repro_torch.models.sharding.place`: its shards on their mesh
+    devices, a unit leaf stacked), the elastic re-shard; ``like_tree`` then
+    only gives shapes.  Raises ``IOError`` on a checksum mismatch and
+    ``ValueError`` on a shape that differs from ``like_tree``'s."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -114,6 +118,11 @@ def restore_checkpoint(ckpt_dir, like_tree, step: Optional[int] = None,
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    shard_of = None
+    if shardings is not None:
+        from ..models.sharding import place
+
+        shard_of = dict(leaves_with_paths(shardings))
 
     def load(path, leaf):
         key = path_key(path)
@@ -129,6 +138,8 @@ def restore_checkpoint(ckpt_dir, like_tree, step: Optional[int] = None,
             raise ValueError(f"{key}: checkpoint {tuple(arr.shape)}, "
                              f"expected {want}")
         t = _from_savable(arr, meta["dtype"])
+        if shard_of is not None:
+            return place(t, shard_of[path])
         return like(leaf, t.to(parts(leaf)[0].device))
 
     return map_with_paths(load, like_tree), step

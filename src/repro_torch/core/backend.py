@@ -84,15 +84,17 @@ def probe_hopper(plan: Plan, dtypes: Optional[Iterable[str]] = None
                  ) -> Capability:
     """Probe a plan (and, when given, its operand dtype names) for the kernel.
 
-    Without ``dtypes`` the shared-memory check assumes 8-byte operands, the
-    widest the kernel takes."""
+    The shared-memory check reckons each shared element at its dtype's
+    compute width (4 bytes for float16 and bfloat16, which shared memory
+    holds as float); without ``dtypes`` it assumes 8, the widest."""
     a = kernel_analysis(plan)
     reasons = list(a.reasons)
     if a.eligible:
         dtypes = tuple(dtypes or ())
         reasons += dtype_reasons(dtypes)
         if not reasons:
-            itemsize = max((KERNEL_DTYPES[d] for d in dtypes), default=8)
+            itemsize = max((KERNEL_DTYPES[d].shared for d in dtypes),
+                           default=8)
             try:  # the tile chooser owns the shared-memory refusal
                 choose_tile(plan, itemsize)
             except LoweringError as e:

@@ -191,7 +191,7 @@ class RaceResult:
         """Execute spatially partitioned over a mesh of torch devices.
 
         The plan's iteration box is split across ``mesh`` (a
-        :class:`~repro_torch.launch.mesh.StencilMesh`, falling back to the
+        :class:`~repro_torch.launch.mesh.Mesh`, falling back to the
         mesh given to :func:`race`), each shard runs the ordinary compiled
         executor on its chunk on its own device, and halos sized by the
         geometry envelopes travel between neighbours — see
@@ -355,7 +355,7 @@ def race(
     :func:`repro_torch.tuning.autotune`, e.g.
     ``tune=dict(levels=(0, 3), backends=("torch",))``.
 
-    ``mesh`` (a :class:`~repro_torch.launch.mesh.StencilMesh`, e.g. from
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, e.g. from
     :func:`repro_torch.launch.mesh.make_stencil_mesh`) makes sharded
     execution the default: :meth:`RaceResult.run` delegates to
     :meth:`RaceResult.run_sharded` when no explicit backend is passed.

@@ -9,7 +9,12 @@
 // it reads, far below the H100's balance, so the least time is the bytes
 // that must move (each input read once, each output written once) over the
 // card's memory rate.  float64 runs at a fraction of float32's rate on this
-// card, but the kernel stays bound by memory at both widths.
+// card, but the kernel stays bound by memory at every width.
+//
+// Types: store_t is an element in device memory, acc_t the type the kernel
+// computes in and keeps in shared memory and registers: float and float,
+// double and double here; race_half.cuh adds __half and __nv_bfloat16, both
+// computed in float.
 //
 // What the design does about it (a 2.5-D streaming kernel):
 //   * a block owns a tile of the plane of every level but one and marches
@@ -20,7 +25,8 @@
 //     and none is recomputed in a halo of another tile's plane;
 //   * each operand read at unit positive coefficients is staged one plane
 //     window per step with cp.async (zero-filled outside the array), the
-//     next steps' planes in flight while this step computes; other operands
+//     next steps' planes in flight while this step computes (a 2-byte
+//     operand with converting loads, see race_half.cuh); other operands
 //     (strided, mirrored, gathered) are read in place through affine
 //     indices with guarded loads;
 //   * outputs are written in their own dimension order: no transpose, flip,
@@ -31,16 +37,24 @@
 
 #include <cuda_runtime.h>
 
-// Kernel arguments, passed by value: operand and output base pointers and
-// the small device array of scalars.
-template <typename scalar_t, int NIN, int NOUT>
+// Kernel arguments, passed by value: operand and output base pointers (in
+// the storage type) and the small device array of scalars (in acc_t).
+template <typename store_t, typename acc_t, int NIN, int NOUT>
 struct RaceArgs {
-  const scalar_t* in[NIN];
-  scalar_t* out[NOUT];
-  const scalar_t* scalars;
+  const store_t* in[NIN];
+  store_t* out[NOUT];
+  const acc_t* scalars;
 };
 
-// The IR's function calls, at the operand precision.
+// A stored element as acc_t.
+__device__ __forceinline__ float race_acc(float x) { return x; }
+__device__ __forceinline__ double race_acc(double x) { return x; }
+
+// Store one output value, rounded once to the storage type.
+__device__ __forceinline__ void race_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void race_store(double* p, double v) { *p = v; }
+
+// The IR's function calls, at the compute precision.
 __device__ __forceinline__ float race_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double race_sin(double x) { return sin(x); }
 __device__ __forceinline__ float race_cos(float x) { return cosf(x); }
@@ -71,6 +85,16 @@ __device__ __forceinline__ void race_cp_async(double* dst, const double* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 8 : 0)
                : "memory");
+}
+// Stage one operand element into its ring slot in shared memory (zero when
+// ok is false, and then nothing is read).
+__device__ __forceinline__ void race_stage(float* dst, const float* src,
+                                           bool ok) {
+  race_cp_async(dst, src, ok);
+}
+__device__ __forceinline__ void race_stage(double* dst, const double* src,
+                                           bool ok) {
+  race_cp_async(dst, src, ok);
 }
 __device__ __forceinline__ void race_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -1,23 +1,26 @@
-"""Stencil meshes of torch devices (port of ``repro/launch/mesh.py``'s
-stencil-mesh functions).
+"""Meshes of torch devices (port of ``repro/launch/mesh.py``): the stencil
+mesh of the sharded executor and the LM's meshes.
 
-The sharded executor (:mod:`repro_torch.shard`) is single-controller, as
-the reference's is: one process holds the global env, runs every shard's
-local executor on that shard's device and returns global outputs.  So a
-mesh here is no process group but a small object, :class:`StencilMesh`:
-``axis_names``, a ``shape`` mapping and ``devices``, an ndarray of
-``torch.device`` in that shape — the duck type
-:func:`repro_torch.shard.plan_partition` reads.  A device may repeat:
+The port is single-controller, as the reference's sharded executor is: one
+process holds the global data, places each shard on its device and runs
+every shard there.  So a mesh here is no process group but a small object,
+:class:`Mesh`: ``axis_names``, a ``shape`` mapping and ``devices``, an
+ndarray of ``torch.device`` in that shape — the duck type
+:func:`repro_torch.shard.plan_partition` and
+:mod:`repro_torch.models.sharding` read.  A device may repeat:
 ``["cuda:0"] * 4`` is four shards on one card, the counterpart of the
 reference's ``--xla_force_host_platform_device_count=4``, and
-``["cpu"] * 4`` is what the CPU tests use.
+``["cpu"] * 4`` is what the CPU tests use.  A mesh no process here could
+hold (the production meshes' 256 or 512 devices) is *abstract*: axis names
+and sizes, no devices; it serves spec trees only.
 
-Importing this module touches no device.  The LM stack's
-``make_production_mesh`` / ``make_mesh`` are not ported here.
+Importing this module touches no device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from math import prod
+from typing import Optional
 
 import numpy as np
 
@@ -58,33 +61,91 @@ def stencil_mesh_shape(n: int, k: int) -> tuple:
 
 
 @dataclass(frozen=True, eq=False)
-class StencilMesh:
-    """A named grid of torch devices: ``devices[coords]`` runs the shard at
-    those mesh coordinates (one index per axis, in ``axis_names`` order)."""
+class Mesh:
+    """A named grid of torch devices: ``devices[coords]`` holds the shard at
+    those mesh coordinates (one index per axis, in ``axis_names`` order).
+    An abstract mesh has ``devices`` None and its axis sizes in ``sizes``."""
 
     axis_names: tuple
-    devices: np.ndarray  # object ndarray of torch.device
+    devices: Optional[np.ndarray]  # object ndarray of torch.device
+    sizes: tuple = ()
+
+    def __post_init__(self):
+        if self.devices is not None:
+            object.__setattr__(self, "sizes", tuple(self.devices.shape))
+        if len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"mesh axes {self.axis_names} do not match its "
+                             f"shape {self.sizes}")
+
+    @property
+    def abstract(self) -> bool:
+        return self.devices is None
 
     @property
     def shape(self) -> dict:
-        return dict(zip(self.axis_names, self.devices.shape))
+        return dict(zip(self.axis_names, self.sizes))
 
     @property
     def size(self) -> int:
-        return int(self.devices.size)
+        return prod(self.sizes)
 
     def key(self) -> tuple:
         """Cache-key component: ``(((axis, size), ...), (device, ...))``."""
-        return (tuple(self.shape.items()),
+        return (tuple(self.shape.items()), None if self.abstract else
                 tuple(str(d) for d in self.devices.flat))
 
     def __repr__(self) -> str:
-        return (f"StencilMesh({self.shape}, "
-                f"{[str(d) for d in self.devices.flat]})")
+        where = ("abstract" if self.abstract else
+                 [str(d) for d in self.devices.flat])
+        return f"Mesh({self.shape}, {where})"
+
+
+def _devices(devices) -> list:
+    """torch devices of ``devices`` (names or devices), a bare ``"cuda"``
+    keyed by the current card's index."""
+    import torch
+
+    out = [torch.device(d) for d in devices]
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in out]
+
+
+def make_mesh(shape, axes, devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` (e.g. (2, 2) over ``("data",
+    "model")``).  ``devices`` lists one device per mesh position, in row-
+    major order, and may repeat one (``["cuda:0"] * 4``); ``None`` takes the
+    first ``prod(shape)`` visible CUDA devices where there are that many,
+    else the mesh is abstract (the production meshes on any one host)."""
+    import torch
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    n = prod(shape)
+    if devices is None:
+        if torch.cuda.device_count() < n:
+            return Mesh(axes, None, shape)
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = _devices(devices)
+    if len(devices) != n:
+        raise ValueError(f"a {shape} mesh needs {n} devices, got "
+                         f"{len(devices)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(axes, grid.reshape(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes: 16x16 (``data``, ``model``) per
+    pod; two pods add a leading ``pod`` axis (2x16x16).  Abstract unless
+    this process sees that many CUDA devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def make_stencil_mesh(n_devices=None, axes=("sx", "sy"),
-                      devices=None) -> StencilMesh:
+                      devices=None) -> Mesh:
     """Near-square spatial mesh over ``n_devices`` torch devices.
 
     ``devices=None`` takes the first ``n_devices`` visible CUDA devices
@@ -99,11 +160,7 @@ def make_stencil_mesh(n_devices=None, axes=("sx", "sy"),
         visible = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     else:
-        visible = [torch.device(d) for d in devices]
-        # "cuda" names the current card: key the mesh by its index
-        visible = [torch.device("cuda", torch.cuda.current_device())
-                   if d.type == "cuda" and d.index is None else d
-                   for d in visible]
+        visible = _devices(devices)
     n = len(visible) if n_devices is None else int(n_devices)
     if not 1 <= n <= len(visible):
         what = "given" if devices is not None else "visible CUDA"
@@ -113,4 +170,4 @@ def make_stencil_mesh(n_devices=None, axes=("sx", "sy"),
     axes = tuple(axes)
     grid = np.empty(n, dtype=object)
     grid[:] = visible[:n]
-    return StencilMesh(axes, grid.reshape(stencil_mesh_shape(n, len(axes))))
+    return Mesh(axes, grid.reshape(stencil_mesh_shape(n, len(axes))))

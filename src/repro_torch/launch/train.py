@@ -37,7 +37,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--token-file", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="not ported: raises (ROADMAP item 9.3)")
+                    help="not yet: raises (training on a mesh is the port's "
+                         "next slice)")
     ap.add_argument("--d-model", type=int, default=None)
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--race-smooth", type=int, default=0, metavar="R",
@@ -47,24 +48,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def setup(args):
-    """(config, a :class:`~repro_torch.runtime.Trainer` ready to ``run``)
-    for parsed ``args``."""
-    import torch
-
+def model_config(args):
+    """The model configuration :func:`setup` trains, from parsed ``args``
+    (nothing allocated)."""
     from ..configs import get_config
-    from ..core.executor import resolve_device
-    from ..data import DataConfig, ShardedTokenPipeline
-    from ..models import ExecConfig, init_params, make_train_step
-    from ..optim import AdamWConfig, adamw_init
-    from ..runtime import Trainer, TrainerConfig
 
-    if args.mesh:
-        raise ValueError(
-            "--mesh: the production meshes and activation sharding "
-            "(repro/models/sharding.py) are not ported yet (ROADMAP Queue 1, "
-            "item 9.3); the port trains on one device")
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -73,7 +61,29 @@ def setup(args):
         overrides["d_model"] = args.d_model
     if args.num_layers:
         overrides["num_layers"] = args.num_layers
-    cfg = dataclasses.replace(cfg, **overrides)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def setup(args):
+    """(config, a :class:`~repro_torch.runtime.Trainer` ready to ``run``)
+    for parsed ``args``."""
+    import torch
+
+    from ..core.executor import resolve_device
+    from ..data import DataConfig, ShardedTokenPipeline
+    from ..models import ExecConfig, init_params, make_train_step
+    from ..optim import AdamWConfig, adamw_init
+    from ..runtime import Trainer, TrainerConfig
+
+    if args.mesh:
+        raise ValueError(
+            "--mesh: training on a mesh is the port's next slice (ROADMAP "
+            "Queue 1, item 9.3's second half: single-controller mesh "
+            "execution); the meshes and sharding rules are in "
+            "repro_torch.launch.mesh and repro_torch.models.sharding, and "
+            "the port trains on one device")
+    dev = resolve_device(args.device)
+    cfg = model_config(args)
 
     exec_cfg = ExecConfig(attn_chunk_q=min(128, args.seq),
                           attn_chunk_k=min(256, args.seq),

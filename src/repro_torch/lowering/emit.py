@@ -13,8 +13,9 @@ Pallas, a kernel is generated for each plan, in two layers:
     scalars and rank-0 aux, the outputs in their own dimension order, and
     the expression trees;
   * :func:`render_cuda` renders it as one ``__global__`` function, templated
-    on ``scalar_t`` and instantiated for ``float`` and ``double``, plus an
-    ``extern "C"`` launcher (built by :mod:`repro_torch.kernels.build`);
+    on the storage type ``store_t`` and the compute type ``acc_t`` and
+    instantiated for the program's dtype, plus an ``extern "C"`` launcher
+    (built by :mod:`repro_torch.kernels.build`);
     :func:`emulate` runs the same march with torch on the CPU — same rings,
     slots, warm-up, segment ends, staged planes and guarded loads — as the
     kernel's plain version.
@@ -24,7 +25,11 @@ operations per element it reads, far below the card's balance, so the least
 time is the bytes of the inputs read once and the outputs written once over
 3.35 TB/s.  float64 runs at a fraction of float32's arithmetic rate on this
 card, but the kernel stays bound by memory, so the design is the same for
-both.  What the design does about the bytes (a 2.5-D streaming kernel):
+every dtype.  float16 and bfloat16 halve the bytes: they are stored at 2
+bytes and computed in float (shared memory, registers and scalars), each
+output rounded once to nearest even as it is stored, so a half plan has the
+float32 plan's geometry.  What the design does about the bytes (a 2.5-D
+streaming kernel):
 
   * a block owns a tile of the plane of every level but the stream level
     and marches along a segment of it, one plane per step.  Each aux that
@@ -35,9 +40,11 @@ both.  What the design does about the bytes (a 2.5-D streaming kernel):
     the plane tile's own — RACE's reuse is realised as shared-memory hits;
   * operands read at unit positive coefficients are staged one plane
     window per step with ``cp.async`` (zero-filled outside the array),
-    one step ahead (double buffering); the rest (strided, mirrored,
-    gathered) are read in place through their affine indices with guarded
-    64-bit loads.
+    one step ahead (double buffering); PTX has no 2-byte ``cp.async``, so
+    a half operand's plane is staged on the same schedule by guarded
+    loads that convert to float on the way into shared memory.  The rest
+    (strided, mirrored, gathered) are read in place through their affine
+    indices with guarded 64-bit loads, converted as they are read.
     Outputs are written straight into their own dimension order.  The
     per-call transposes, flips, pads and ``3**k`` halo copies the Pallas
     path made to feed BlockSpec do not exist here;
@@ -50,7 +57,7 @@ both.  What the design does about the bytes (a 2.5-D streaming kernel):
     example, each pointer moves by its per-example count, and the rank-0
     aux, evaluated from that example's scalars, are per example.  The
     schedule is the per-example one at every batch size;
-  * constants are emitted at full double precision as ``scalar_t(<repr>)``
+  * constants are emitted at full double precision as ``acc_t(<repr>)``
     (the reference Pallas kernel rounds every constant to float32).
 
 nvcc contracts ``a*b + c`` into FMA by default, which rounds differently
@@ -62,7 +69,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from math import isfinite, prod
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import torch
 
@@ -72,9 +79,31 @@ from .blocks import BODY, LaunchGeometry, build_geometry
 from .facts import R_HOPPER_DTYPE, FallbackReason, LoweringError
 from .geometry import kernel_analysis
 
-#: operand dtypes the kernel is instantiated for, with their byte widths;
-#: the launcher's dtype code is the position in this table
-KERNEL_DTYPES = {"float32": 4, "float64": 8}
+
+class KernelDtype(NamedTuple):
+    """How the kernel holds one operand dtype."""
+
+    storage: str  # C++ type of an element in device memory
+    width: int  # its bytes: operand and output pointer arithmetic
+    compute: str  # dtype of the arithmetic, shared memory and the scalars
+    shared: int  # bytes of one shared-memory element (the compute type's)
+    acc: str  # C++ compute type
+    header: str  # the csrc/ header the kernel includes
+
+
+#: operand dtypes the kernel is instantiated for; the launcher's dtype code
+#: is the position in this table.  Only a half kernel includes the half
+#: headers (``race_half.cuh``), which would slow every other build.
+KERNEL_DTYPES = {
+    "float32": KernelDtype("float", 4, "float32", 4, "float",
+                           "race_stencil.cuh"),
+    "float64": KernelDtype("double", 8, "float64", 8, "double",
+                           "race_stencil.cuh"),
+    "float16": KernelDtype("__half", 2, "float32", 4, "float",
+                           "race_half.cuh"),
+    "bfloat16": KernelDtype("__nv_bfloat16", 2, "float32", 4, "float",
+                            "race_half.cuh"),
+}
 
 #: examples one launch takes: CUDA's limit on ``gridDim.y``
 MAX_GRID_Y = 65535
@@ -121,10 +150,11 @@ class Operand:
 class Output:
     """One body statement's interior output, in its own dimension order.
 
-    The kernel computes it at the operand dtype; ``dtype`` is the dtype the
-    wrapper returns: the env's output array's where the env carries one (as
-    the ``"torch"`` backend, which writes into a copy of that array), else
-    the operand dtype."""
+    The kernel computes it in the operand dtype's compute type and stores
+    it in the operand dtype; ``dtype`` is the dtype the wrapper returns: the
+    env's output array's where the env carries one (as the ``"torch"``
+    backend, which writes into a copy of that array), else the operand
+    dtype."""
 
     name: str
     levels: tuple  # loop level of each output dimension
@@ -140,7 +170,7 @@ class TileProgram:
     ``geometry.reads``."""
 
     geometry: LaunchGeometry
-    dtype: str  # "float32" | "float64"
+    dtype: str  # operand dtype, a key of KERNEL_DTYPES
     operands: tuple  # Operand, sorted by name
     scalars: tuple  # env scalar names, sorted
     scalar_aux: tuple  # (name, Expr) of the rank-0 aux, topological
@@ -158,7 +188,7 @@ class TileProgram:
 
     @property
     def smem_bytes(self) -> int:
-        return self.smem_elems * KERNEL_DTYPES[self.dtype]
+        return self.smem_elems * KERNEL_DTYPES[self.dtype].shared
 
     @property
     def example_elems(self) -> tuple:
@@ -212,8 +242,8 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
     if reasons:
         raise LoweringError(reasons)
     dtype = str(dtypes[names[0]])
-    geo = build_geometry(plan, KERNEL_DTYPES[dtype], block_rows, block_cols,
-                         block_inner)
+    geo = build_geometry(plan, KERNEL_DTYPES[dtype].shared, block_rows,
+                         block_cols, block_inner)
     staged = {r.name: k for k, r in enumerate(geo.rings) if r.operand}
     operands = []
     for nm in names:
@@ -312,7 +342,7 @@ class _Box:
         if isinstance(e, Const):
             if not isfinite(e.val):
                 raise ValueError(f"constant {e.val!r} has no C++ literal")
-            return f"scalar_t({float(e.val)!r})"
+            return f"acc_t({float(e.val)!r})"
         if isinstance(e, Ref):
             if not e.subs:
                 if e.name in self.rank0:
@@ -330,7 +360,7 @@ class _Box:
             if e.op == "neg":
                 return f"(-{self.expr(e.kids[0])})"
             if e.op == "inv":
-                return f"(scalar_t(1) / {self.expr(e.kids[0])})"
+                return f"(acc_t(1) / {self.expr(e.kids[0])})"
             return (f"({self.expr(e.kids[0])} {e.op} "
                     f"{self.expr(e.kids[1])})")
         raise TypeError(e)
@@ -345,7 +375,7 @@ class _Box:
 
     def _load(self, ref: Ref) -> str:
         """A guarded read from device memory (outside the array reads 0),
-        in 64-bit index arithmetic."""
+        in 64-bit index arithmetic, converted to ``acc_t``."""
         var = self.loads.get(ref)
         if var is not None:
             return var
@@ -360,20 +390,21 @@ class _Box:
             idx.append(f"        const long long {dv} = {rhs};")
             guard.append(f"{dv} >= 0 && {dv} < {op.shape[d]}LL")
             off.append(f"{dv} * {op.strides[d]}LL")
-        self.lines.append(f"      scalar_t {var} = scalar_t(0);")
+        self.lines.append(f"      acc_t {var} = acc_t(0);")
         self.lines.append("      {")
         self.lines.extend(idx)
         self.lines.append(f"        if ({' && '.join(guard) or 'true'}) "
-                          f"{var} = in{k}[{' + '.join(off) or '0'}];")
+                          f"{var} = race_acc(in{k}[{' + '.join(off) or '0'}]);")
         self.lines.append("      }")
         return var
 
 
 def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
-    """Copy one operand plane window into its ring slot with ``cp.async``
-    (reads 0 outside the array): the plane of step ``step``.  Threads run
-    the operand's own contiguous level fastest, so that a warp's loads
-    coalesce whatever the ring's element order."""
+    """Copy one operand plane window into its ring slot with ``race_stage``
+    (``cp.async`` at 4 and 8 bytes, a converting load at 2; reads 0
+    outside the array): the plane of step ``step``.  Threads run the
+    operand's own contiguous level fastest, so that a warp's loads coalesce
+    whatever the ring's element order."""
     g = tp.geometry
     r = g.rings[k]
     ix = next(i for i, o in enumerate(tp.operands) if o.ring == k)
@@ -385,9 +416,9 @@ def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
         "    {",
         f"      const int zz = z0 + ({step}) + {r.lead};",
         f"      const bool zok = zz >= 0 && zz < {op.shape[ds]};",
-        f"      const scalar_t* const src = zok ? in{ix} + (long long)zz * "
+        f"      const store_t* const src = zok ? in{ix} + (long long)zz * "
         f"{op.strides[ds]}LL : in{ix};",
-        f"      scalar_t* const dst = smem + {r.offset} + ({slot}) * "
+        f"      acc_t* const dst = smem + {r.offset} + ({slot}) * "
         f"{r.plane};",
         f"      for (int e = threadIdx.x; e < {r.plane}; "
         f"e += {g.threads}) {{",
@@ -409,7 +440,7 @@ def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
     lines += [
         "        (void)q;",
         f"        const bool ok = {' && '.join(guard)};",
-        f"        race_cp_async(dst + {pos}, ok ? src + {off} : in{ix}, ok);",
+        f"        race_stage(dst + {pos}, ok ? src + {off} : in{ix}, ok);",
         "      }",
         "    }",
     ]
@@ -421,13 +452,17 @@ def render_cuda(tp: TileProgram) -> str:
 
     The launcher is ``int race_stencil_launch(int dtype, const void* const*
     ins, void* const* outs, const void* scalars, int batch, void* stream)``:
-    dtype is 0 for float and 1 for double; it returns
-    ``cudaGetLastError()``.  The grid is ``(tiles, batch)``: ``blockIdx.y``
+    dtype is the operand dtype's position in :data:`KERNEL_DTYPES` (the
+    source instantiates the kernel for the program's dtype alone, so each
+    build compiles one kernel; another code is ``cudaErrorInvalidValue``);
+    operands and outputs are in that dtype's storage type, the scalars in
+    its compute type; it returns ``cudaGetLastError()``.  The grid is ``(tiles, batch)``: ``blockIdx.y``
     is the example, and every operand, output and scalar pointer moves by
     its per-example count (:attr:`TileProgram.example_elems`, constants of
     the signature) times ``blockIdx.y``, in 64 bits.  A single run passes
     ``batch`` 1, so one source serves every batch size."""
     g = tp.geometry
+    kd = KERNEL_DTYPES[tp.dtype]
     m, s = g.m, g.s_level
     n_in, n_out = len(tp.operands), len(tp.outputs)
     n_aux = len(tp.aux_exprs)
@@ -438,32 +473,32 @@ def render_cuda(tp: TileProgram) -> str:
         "stencil kernel",
         f"// of one plan, depth {m}, block {g.tile}, stream level {s}, "
         f"{n_aux} aux and {len(staged)} staged operands in shared memory.",
-        '#include "race_stencil.cuh"',
+        f'#include "{kd.header}"',
         "",
         "namespace {",
         "",
-        "template <typename scalar_t>",
+        "template <typename store_t, typename acc_t>",
         f"__global__ void __launch_bounds__({g.threads}) race_stencil_kernel(",
-        f"    const RaceArgs<scalar_t, {n_in}, {n_out}> args) {{",
+        f"    const RaceArgs<store_t, acc_t, {n_in}, {n_out}> args) {{",
     ]
     if g.rings:
         lines += [
             "  extern __shared__ __align__(16) unsigned char race_smem[];",
-            "  scalar_t* const smem = reinterpret_cast<scalar_t*>(race_smem);",
+            "  acc_t* const smem = reinterpret_cast<acc_t*>(race_smem);",
         ]
     in_elems, out_elems, n_sc = tp.example_elems
     lines.append("  const long long bz = blockIdx.y;  // the example")
     for k in range(n_in):
-        lines.append(f"  const scalar_t* const __restrict__ in{k} = "
+        lines.append(f"  const store_t* const __restrict__ in{k} = "
                      f"args.in[{k}] + bz * {in_elems[k]}LL;")
     for k in range(n_out):
-        lines.append(f"  scalar_t* const __restrict__ out{k} = args.out[{k}] "
+        lines.append(f"  store_t* const __restrict__ out{k} = args.out[{k}] "
                      f"+ bz * {out_elems[k]}LL;")
     for k in range(n_sc):
-        lines.append(f"  const scalar_t sc{k} = args.scalars[bz * {n_sc}LL + "
+        lines.append(f"  const acc_t sc{k} = args.scalars[bz * {n_sc}LL + "
                      f"{k}];")
     for k, (nm, e) in enumerate(tp.scalar_aux):
-        lines.append(f"  const scalar_t ra{k} = {_Box(tp, None).expr(e)};  "
+        lines.append(f"  const acc_t ra{k} = {_Box(tp, None).expr(e)};  "
                      f"// {nm}")
     lines.append("  int bid = blockIdx.x;")
     for l in g.order:
@@ -557,35 +592,35 @@ def render_cuda(tp: TileProgram) -> str:
             ds = out.levels.index(s)
             off = (f"(long long)(z - {g.lo[s - 1]}) * {strides[ds]}LL + "
                    f"{off}")
-        lines.append(f"      out{k}[{off}] = {val};")
+        lines.append(f"      race_store(out{k} + ({off}), {val});")
     lines += ["    }", "    }"]
     for k in streamed:
         lines.append(f"    r{k} = r{k} + 1 == {g.rings[k].depth} ? 0 : "
                      f"r{k} + 1;")
     lines += ["  }", "}", ""]
 
-    smem = f"{tp.smem_elems} * sizeof(scalar_t)"
+    smem = f"{tp.smem_elems} * sizeof(acc_t)"
     lines += [
-        "template <typename scalar_t>",
+        "template <typename store_t, typename acc_t>",
         "int launch(const void* const* ins, void* const* outs, "
         "const void* scalars,",
         "           int batch, cudaStream_t stream) {",
-        f"  RaceArgs<scalar_t, {n_in}, {n_out}> a;",
+        f"  RaceArgs<store_t, acc_t, {n_in}, {n_out}> a;",
         f"  for (int k = 0; k < {n_in}; ++k) "
-        "a.in[k] = static_cast<const scalar_t*>(ins[k]);",
+        "a.in[k] = static_cast<const store_t*>(ins[k]);",
         f"  for (int k = 0; k < {n_out}; ++k) "
-        "a.out[k] = static_cast<scalar_t*>(outs[k]);",
-        "  a.scalars = static_cast<const scalar_t*>(scalars);",
+        "a.out[k] = static_cast<store_t*>(outs[k]);",
+        "  a.scalars = static_cast<const acc_t*>(scalars);",
         f"  const size_t smem = {smem};",
         "  if (smem > 48 * 1024) {",
         "    const cudaError_t err = cudaFuncSetAttribute(",
-        "        race_stencil_kernel<scalar_t>,",
+        "        race_stencil_kernel<store_t, acc_t>,",
         "        cudaFuncAttributeMaxDynamicSharedMemorySize, "
         "static_cast<int>(smem));",
         "    if (err != cudaSuccess) return static_cast<int>(err);",
         "  }",
         f"  const dim3 grid({g.n_tiles}u, static_cast<unsigned>(batch));",
-        f"  race_stencil_kernel<scalar_t><<<grid, {g.threads}, smem, "
+        f"  race_stencil_kernel<store_t, acc_t><<<grid, {g.threads}, smem, "
         "stream>>>(a);",
         "  return static_cast<int>(cudaGetLastError());",
         "}",
@@ -600,10 +635,8 @@ def render_cuda(tp: TileProgram) -> str:
         "  const cudaStream_t s = static_cast<cudaStream_t>(stream);",
         "  if (batch < 1 || batch > 65535) "
         "return static_cast<int>(cudaErrorInvalidValue);",
-        "  if (dtype == 0) return launch<float>(ins, outs, scalars, batch, "
-        "s);",
-        "  if (dtype == 1) return launch<double>(ins, outs, scalars, batch, "
-        "s);",
+        f"  if (dtype == {list(KERNEL_DTYPES).index(tp.dtype)}) return "
+        f"launch<{kd.storage}, {kd.acc}>(ins, outs, scalars, batch, s);",
         "  return static_cast<int>(cudaErrorInvalidValue);",
         "}",
         "",
@@ -623,11 +656,14 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
     Values carry the block axis and one axis per loop level (size 1 where
     they do not vary).  Rank-0 aux, boxes, rings, their slots, the warm-up,
     segment ends, staged planes, guarded loads and guarded stores all follow
-    :func:`render_cuda` and read the schedule from ``tp.geometry``."""
+    :func:`render_cuda` and read the schedule from ``tp.geometry``.  As in
+    the kernel, the march runs in the operand dtype's compute type (float32
+    for both half types) and each output is rounded once to the operand
+    dtype."""
     g = tp.geometry
     m, s, B = g.m, g.s_level, g.n_tiles
-    dt = _torch_dtype(tp.dtype)
-    data = {o.name: env[o.name] for o in tp.operands}
+    dt = _torch_dtype(KERNEL_DTYPES[tp.dtype].compute)
+    data = {o.name: env[o.name].to(dt) for o in tp.operands}
     dev = data[tp.operands[0].name].device
     zero = torch.zeros((), dtype=dt, device=dev)
     scal = {nm: torch.as_tensor(env[nm]).to(device=dev, dtype=dt)
@@ -751,7 +787,7 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
                        for l, st in zip(o.levels, strides))
             flat = flat.expand([B] + list(body_widths))
             out.view(-1)[flat[keep]] = val[keep]
-    return {o.name: out.to(_torch_dtype(o.dtype))
+    return {o.name: out.to(_torch_dtype(tp.dtype)).to(_torch_dtype(o.dtype))
             for o, out in zip(tp.outputs, outs)}
 
 
@@ -827,7 +863,8 @@ class LoweredStencil:
         tp = self.tp
         lead = () if batch is None else (batch,)
         dev = ins[0].device
-        dt = _torch_dtype(tp.dtype)
+        kd = KERNEL_DTYPES[tp.dtype]
+        dt, acc = _torch_dtype(tp.dtype), _torch_dtype(kd.compute)
         for o, t in zip(tp.operands, ins):
             if t.device != dev or dev.type != "cuda":
                 raise ValueError(
@@ -851,12 +888,11 @@ class LoweredStencil:
 
             self._lib = load(self.source, _SYMBOLS)
         in_elems, out_elems, n_sc = tp.example_elems
-        itemsize = KERNEL_DTYPES[tp.dtype]
         # the launcher's runtime calls act on the thread's current device
         with torch.cuda.device(dev):
             scal = None
             if n_sc:  # (B, n_scalars), or (n_scalars,) for one example
-                scal = torch.stack([env[nm].to(device=dev, dtype=dt)
+                scal = torch.stack([env[nm].to(device=dev, dtype=acc)
                                     for nm in tp.scalars], dim=-1)
             outs = [torch.empty(lead + o.shape, dtype=dt, device=dev)
                     for o in tp.outputs]
@@ -865,11 +901,11 @@ class LoweredStencil:
             stream = torch.cuda.current_stream(dev).cuda_stream
             for first, count in batch_chunks(batch or 1):
                 in_ptrs = (ctypes.c_void_p * len(ins))(
-                    *chunk_pointers(in_base, in_elems, itemsize, first))
+                    *chunk_pointers(in_base, in_elems, kd.width, first))
                 out_ptrs = (ctypes.c_void_p * len(outs))(
-                    *chunk_pointers(out_base, out_elems, itemsize, first))
+                    *chunk_pointers(out_base, out_elems, kd.width, first))
                 sc_ptr = None if scal is None else chunk_pointers(
-                    [scal.data_ptr()], [n_sc], itemsize, first)[0]
+                    [scal.data_ptr()], [n_sc], scal.element_size(), first)[0]
                 rc = self._lib.race_stencil_launch(
                     list(KERNEL_DTYPES).index(tp.dtype), in_ptrs, out_ptrs,
                     sc_ptr, count, stream)

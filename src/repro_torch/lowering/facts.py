@@ -60,7 +60,8 @@ RETIRED_CODES = (R_DEPTH, R_NEGATIVE_COEF, R_REPEATED_LEVEL, R_CONSTANT_DIM)
 # or environments carrying one of these stay on the "torch" evaluator.
 #: the aux tiles overflow the card's shared memory even at a 1-point tile
 R_HOPPER_SMEM = "hopper-smem"
-#: an operand dtype the kernel is not instantiated for (float32/float64 only)
+#: operands that mix dtypes, or a dtype the kernel is not instantiated for
+#: (it takes float16, bfloat16, float32 and float64; integers are refused)
 R_HOPPER_DTYPE = "hopper-dtype"
 
 

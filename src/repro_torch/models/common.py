@@ -23,9 +23,10 @@ class ExecConfig:
     of fixed chunk sizes.  ``remat`` and ``remat_policy`` act where autograd
     records (training): each layer unit's activations are recomputed in the
     backward pass, ``"dots"`` keeping its matrix products' outputs.
-    ``mesh`` must stay ``None``: the activation sharding of
-    ``models/sharding.py`` is not ported yet (ROADMAP Queue 1, item 9.3),
-    so :meth:`constrain` is the identity."""
+    ``mesh`` must stay ``None``: the port's sharding rules and placement
+    (:mod:`.sharding`) exist, but running the model on a mesh is the next
+    slice (ROADMAP Queue 1, item 9.3's second half), so :meth:`constrain`
+    is the identity."""
 
     unroll_scans: bool = False
     probe_chunks: int = 2      # chunk count in unrolled (probe) mode
@@ -46,9 +47,11 @@ class ExecConfig:
     def __post_init__(self):
         if self.mesh is not None:
             raise ValueError(
-                "ExecConfig(mesh=...): activation sharding "
-                "(repro/models/sharding.py) is not ported yet (ROADMAP "
-                "Queue 1, item 9.3); the port's LM runs on one device")
+                "ExecConfig(mesh=...): running the LM on a mesh is the "
+                "port's next slice (ROADMAP Queue 1, item 9.3's second "
+                "half: single-controller mesh execution); models/sharding.py"
+                "'s specs and placement are ported, and the LM runs on one "
+                "device")
 
     def constrain(self, x, *spec):
         return x
@@ -155,7 +158,11 @@ def apply_rope(x, cos, sin):
 def dense_init(generator: torch.Generator, shape, dtype, scale: float = 1.0,
                device=None):
     """Normal(0, scale^2 / fan_in) drawn in float32 on the generator's
-    device, then cast and moved to ``device``."""
+    device, then cast and moved to ``device``.  On the meta device nothing
+    is drawn (the generator may be None): a tensor of the shape and dtype
+    only, as ``jax.eval_shape`` of the initializer gives."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) > 1 else shape[0]
     std = scale / np.sqrt(fan_in)
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,

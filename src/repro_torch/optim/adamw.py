@@ -81,6 +81,26 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
                                 device=parts(ps[0])[0].device)}
 
 
+def opt_state_shardings(param_shardings, replicated, cfg: AdamWConfig):
+    """Partition specs matching :func:`adamw_init`'s structure, from
+    ``(spec, shape)`` per parameter leaf in leaf order: ``m`` and ``v``
+    follow their parameter; factored ``vr`` / ``vc`` drop the reduced
+    axis's entry.  ``replicated`` is the step's."""
+    from ..models.sharding import P
+
+    def leaf(spec_and_shape):
+        spec, shape = spec_and_shape
+        if cfg.factored and _factorable(shape):
+            sp = list(spec) + [None] * (len(shape) - len(spec))
+            return {"m": spec,
+                    "vr": P(*sp[:-1]),
+                    "vc": P(*(sp[:-2] + sp[-1:]))}
+        return {"m": spec, "v": spec}
+
+    return {"mu": tuple(leaf(x) for x in param_shardings),
+            "step": replicated}
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(``grads`` scaled to a global norm of at most ``max_norm``, the
     norm before), each leaf kept in its dtype."""

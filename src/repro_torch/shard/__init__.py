@@ -1,7 +1,7 @@
 """Sharded giant-grid execution over a mesh of torch devices.
 
 Port of ``repro/shard``.  Spatially partitions a plan's iteration box over
-a :class:`~repro_torch.launch.mesh.StencilMesh` and runs the existing
+a :class:`~repro_torch.launch.mesh.Mesh` and runs the existing
 plan-keyed compiled executor on every shard, with neighbour halos sized
 exactly by the per-array offset envelopes.  Single-controller, as the
 reference's ``shard_map`` is: one process, one global env in, global

@@ -2,7 +2,7 @@
 
 Port of ``repro/shard/executor.py``.  :func:`compile_sharded` takes a
 :class:`~repro_torch.core.race.RaceResult` plus a mesh of torch devices
-(:class:`~repro_torch.launch.mesh.StencilMesh`), re-ranges the plan's
+(:class:`~repro_torch.launch.mesh.Mesh`), re-ranges the plan's
 sharded levels to one chunk, runs RACE on the *local* program with the
 global result's own knobs (so the per-shard plan is the same optimization
 the single-device path would execute on a chunk-sized grid), and compiles

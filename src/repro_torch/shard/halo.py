@@ -15,7 +15,7 @@ two, per array, never a worst-case union.
 
 The reference runs one ``shard_map`` over a jax mesh; the port is
 single-controller over a mesh of torch devices
-(:class:`~repro_torch.launch.mesh.StencilMesh`): one process holds the
+(:class:`~repro_torch.launch.mesh.Mesh`): one process holds the
 global env and builds one local env per shard, on that shard's device
 (:meth:`HaloProgram.local_envs`).  Two transport strategies produce
 bit-identical local slabs:

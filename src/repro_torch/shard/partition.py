@@ -2,7 +2,7 @@
 
 Port of ``repro/shard/partition.py``, the reference's pure analysis
 copied: it reads the mesh duck-typed (``axis_names`` + ``shape[name]``,
-as :class:`repro_torch.launch.mesh.StencilMesh` gives them), and produces
+as :class:`repro_torch.launch.mesh.Mesh` gives them), and produces
 either a :class:`PartitionPlan` whose assignments the sharded executor
 turns into per-shard index boxes, or structured
 :class:`ShardRefusal` reasons — never a silent fallback, exactly like the
@@ -204,7 +204,7 @@ def plan_partition(program, mesh) -> PartitionPlan:
     (shardability is a property of the computation's semantics, identical
     for every plan derived from it); ``mesh`` is any object with
     ``axis_names`` and a ``shape`` mapping (a
-    :class:`~repro_torch.launch.mesh.StencilMesh` in practice).
+    :class:`~repro_torch.launch.mesh.Mesh` in practice).
     """
     mesh_axes = tuple((str(n), int(mesh.shape[n])) for n in mesh.axis_names)
     analysis = analyze_program(program)

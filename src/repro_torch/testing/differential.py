@@ -9,6 +9,18 @@ same plan); :func:`run_grad_case` holds ``torch.autograd.grad`` through
 ``res.run`` against autograd of the baseline.  A backend the probe refuses
 is recorded as a fallback with its reasons, never silently.
 
+Tolerances (:func:`default_tolerances`) are the reference's rows for
+float64, float32 and float16.  The reference has no bfloat16 row; the port's
+was measured: on the registry (19 cases x reassociate {0, default}, sweep
+sizes, the float32 ``build_env`` rounded to bfloat16), the reference's
+``"xla"`` lies at most 1.08e-2 from the float64 baseline (j3d27pt, level 0)
+and at float16 at most 1.28e-3 (poisson, level 0): 8.4 times apart, the
+ratio of the two unit roundoffs (2**-8 / 2**-11 = 8).  The bfloat16 row is
+4 times the float16 row (baseline 8e-2, plan 4e-2, grad 1.6e-1): 7.4 times
+above the worst measured error, within the 8 times the unit roundoffs allow.
+numpy has no bfloat16, so a bfloat16 env is the float32 one rounded to
+nearest even (:func:`torch_env`), as ``jnp.bfloat16`` rounds it.
+
     from repro_torch.testing import sweep_registry, coverage_matrix
     print(coverage_matrix(sweep_registry(device="cpu")))
 """
@@ -30,7 +42,7 @@ from ..lowering.geometry import analyze_plan
 __all__ = ["SWEEP_SIZES", "CaseReport", "ComboResult", "build_env",
            "coverage_matrix", "default_tolerances", "env_to_torch",
            "grad_sweep_registry", "rel_err", "run_case", "run_grad_case",
-           "sweep_registry"]
+           "sweep_registry", "torch_env"]
 
 #: grid sizes of the registry sweeps (the reference's)
 SWEEP_SIZES = {
@@ -42,16 +54,28 @@ SWEEP_SIZES = {
 }
 
 
+def dtype_name(dtype) -> str:
+    """The name of a numpy or torch dtype, or of ``"bfloat16"``."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype
+    return np.dtype(dtype).name
+
+
 def default_tolerances(dtype) -> dict:
     """Relative tolerances per dtype: ``baseline`` (a plan vs the untransformed
     program, whose association order differs), ``plan`` (two realizations
     of the same plan) and ``grad`` (gradients vs autograd of the baseline:
-    one more reduction, the adjoint contraction).  The reference's numbers."""
+    one more reduction, the adjoint contraction).  The reference's numbers,
+    and the port's bfloat16 row (the module docstring derives it).  ``dtype``
+    is a numpy or torch dtype, or ``"bfloat16"``."""
     return {
-        np.dtype(np.float64): dict(baseline=1e-9, plan=1e-12, grad=1e-8),
-        np.dtype(np.float32): dict(baseline=1e-4, plan=1e-5, grad=2e-4),
-        np.dtype(np.float16): dict(baseline=2e-2, plan=1e-2, grad=4e-2),
-    }[np.dtype(dtype)]
+        "float64": dict(baseline=1e-9, plan=1e-12, grad=1e-8),
+        "float32": dict(baseline=1e-4, plan=1e-5, grad=2e-4),
+        "float16": dict(baseline=2e-2, plan=1e-2, grad=4e-2),
+        "bfloat16": dict(baseline=8e-2, plan=4e-2, grad=1.6e-1),
+    }[dtype_name(dtype)]
 
 
 def build_env(case, dtype=np.float32, seed: int = 0) -> dict:
@@ -66,6 +90,19 @@ def build_env(case, dtype=np.float32, seed: int = 0) -> dict:
         else:
             env[nm] = rng.uniform(-1, 1, shp).astype(dtype)
     return env
+
+
+def torch_env(case, dtype=np.float32, seed: int = 0, device=None) -> dict:
+    """:func:`build_env` as tensors on ``device`` (``None``: cuda).  For
+    bfloat16, which numpy lacks, the env is built in float32 and its
+    floating entries rounded to bfloat16 (to nearest even, as
+    ``jnp.bfloat16`` rounds), so both packages see the same bits."""
+    dev = resolve_device(device)
+    if dtype_name(dtype) != "bfloat16":
+        return env_to_torch(build_env(case, np.dtype(dtype).type, seed), dev)
+    env = env_to_torch(build_env(case, np.float32, seed), dev)
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+            for k, v in env.items()}
 
 
 def rel_err(got: dict, want: dict) -> float:
@@ -92,7 +129,10 @@ def rel_err(got: dict, want: dict) -> float:
 
 
 def _host(v):
-    return v.detach().cpu().numpy() if hasattr(v, "detach") else v
+    if not hasattr(v, "detach"):
+        return v
+    t = v.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +189,7 @@ def run_case(case, reassociate_levels: Iterable[int] = (0, 3, 4),
     (``None``: cuda).  The baseline runs in float64."""
     tol = tolerances or default_tolerances(dtype)
     dev = resolve_device(device)
-    env = env_to_torch(build_env(case, dtype, seed), dev)
+    env = torch_env(case, dtype, seed, dev)
     env64 = {k: v.double() if v.is_floating_point() else v
              for k, v in env.items()}
     base_res = race(case.program)
@@ -210,7 +250,7 @@ def run_grad_case(case, reassociate_levels: Iterable[int] = (0, 3, 4),
 
     tol = tolerances or default_tolerances(dtype)
     dev = resolve_device(device)
-    env = env_to_torch(build_env(case, dtype, seed), dev)
+    env = torch_env(case, dtype, seed, dev)
     keys = sorted(k for k, v in env.items() if v.is_floating_point())
     base_res = race(case.program)
     base_eval = base_res.baseline_evaluator()

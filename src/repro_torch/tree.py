@@ -26,16 +26,22 @@ class Stack(tuple):
         return torch.stack(tuple(self))
 
 
+def _is_sequence(tree) -> bool:
+    """A tuple or list holding leaves, as ``jax.tree`` sees one: not a
+    :class:`Stack` or another tuple subclass (a partition spec is a leaf)."""
+    return type(tree) in (tuple, list)
+
+
 def leaves_with_paths(tree, prefix=()):
     """``(path, leaf)`` in ``jax.tree.leaves`` order: dict keys sorted,
-    tuples and lists in order, ``None`` empty.  Tensors, numpy arrays and
-    :class:`Stack` s are leaves."""
+    tuples and lists in order, ``None`` empty.  Everything else is a leaf:
+    tensors, numpy arrays, :class:`Stack` s, tuple subclasses."""
     if tree is None:
         return
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves_with_paths(tree[k], prefix + (k,))
-    elif isinstance(tree, (tuple, list)) and not isinstance(tree, Stack):
+    elif _is_sequence(tree):
         for i, v in enumerate(tree):
             yield from leaves_with_paths(v, prefix + (i,))
     else:
@@ -57,7 +63,7 @@ def _map(fn, tree, rest, path):
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k], [r[k] for r in rest], path + (k,))
                 for k in tree}
-    if isinstance(tree, (tuple, list)) and not isinstance(tree, Stack):
+    if _is_sequence(tree):
         return type(tree)(_map(fn, v, [r[i] for r in rest], path + (i,))
                           for i, v in enumerate(tree))
     return fn(path, tree, *rest)

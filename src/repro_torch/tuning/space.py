@@ -179,7 +179,7 @@ def candidate_configs(plans: Mapping[int, Plan],
     ``"torch"`` is always eligible; ``"hopper"`` only where
     :func:`~repro_torch.core.backend.probe_hopper` passes *for that level's
     plan and the dtypes its operands have in the env signature* ``sig``
-    (float16 is refused today, ``hopper-dtype``).  ``backends`` restricts
+    (mixed and integer dtypes are refused, ``hopper-dtype``).  ``backends`` restricts
     the set; ``grid`` overrides the per-plan block grid."""
     from ..core.executor import operand_dtypes
     from ..lowering.emit import KERNEL_DTYPES
@@ -193,7 +193,8 @@ def candidate_configs(plans: Mapping[int, Plan],
         if "torch" in allowed:
             out.append(Config(lvl, "torch"))
         base = operand_dtypes(plan, sig)
-        itemsize = max((KERNEL_DTYPES.get(d, 8) for d in base), default=8)
+        itemsize = max((KERNEL_DTYPES[d].shared if d in KERNEL_DTYPES
+                        else 8 for d in base), default=8)
         if "hopper" in allowed and probe_hopper(plan, base).eligible:
             for br, bc, bi in (grid if grid is not None
                                else block_grid(plan, quick, itemsize)):

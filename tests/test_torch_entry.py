@@ -88,10 +88,15 @@ def test_build_evaluator_hopper_raises_on_what_the_kernel_refuses():
     _, pc, _, res = _pair("hdifft_gm")
     env16 = build_env(pc, np.float16)
     run, sel = build_evaluator(res.plan, "hopper", device="cpu")
+    assert {v.dtype for v in run(env16).values()} == {torch.float16}
+    # operands that mix dtypes stay refused
+    first = sorted(k for k, v in env16.items() if np.ndim(v))[0]
+    mixed = {**env16, first: env16[first].astype(np.float32)}
     with pytest.raises(BackendUnavailable, match="hopper-dtype"):
-        run(env16)
+        run(mixed)
     run_auto, _ = build_evaluator(res.plan, "auto", device="cpu")
     assert {v.dtype for v in run_auto(env16).values()} == {torch.float16}
+    assert all(torch.isfinite(v).all() for v in run_auto(mixed).values())
 
 
 @pytest.mark.parametrize("name,n", [("hdifft_gm", 14), ("smooth1d", 24)])
@@ -112,8 +117,12 @@ def test_race_stencil_matches_the_reference_kernel(name, n):
 def test_race_stencil_never_falls_back():
     _, pc, _, res = _pair("hdifft_gm")
     with pytest.raises(BackendUnavailable, match="hopper-dtype"):
-        ops.race_stencil(res, build_env(pc, np.float16), device="cpu")
+        ops.race_stencil(res, build_env(pc, np.int32), device="cpu")
     assert len(executor.executor_cache()) == 0
+    got = ops.race_stencil(res, build_env(pc, np.float16), device="cpu")
+    assert {v.dtype for v in got.values()} == {torch.float16}
+    (key,) = executor.executor_cache().keys()
+    assert key.backend == "hopper"
 
 
 def test_optimize_and_run_matches_the_reference():

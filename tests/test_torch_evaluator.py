@@ -60,7 +60,8 @@ def test_baseline_evaluator_matches_reference(name):
 def test_sweep_registry_holds_both_backends_against_the_baseline():
     """``run_case`` over both backends: each against the float64 baseline
     within ``baseline``, the (emulated) kernel against ``"torch"`` on the
-    same plan within ``plan``; a refused dtype is a named fallback."""
+    same plan within ``plan``, float16 on the kernel too; a refused dtype
+    (int32) is a named fallback."""
     reports = sweep_registry(["hdifft_gm", "rprj3", "blocked4d"],
                              reassociate_levels=(0, 3), device="cpu")
     assert not [f for r in reports for f in r.failures()]
@@ -71,6 +72,12 @@ def test_sweep_registry_holds_both_backends_against_the_baseline():
     assert "ok" in coverage_matrix(reports)
     half = run_case(get_case("smooth1d", 24), reassociate_levels=(3,),
                     dtype=np.float16, device="cpu")
-    (fb,) = [c for c in half.combos if c.backend == "hopper"]
+    (k1,) = [c for c in half.combos if c.backend == "hopper"]
+    assert k1.ok and (k1.max_rel_err_plan
+                      <= default_tolerances(np.float16)["plan"])
+    ints = run_case(get_case("smooth1d", 24), reassociate_levels=(3,),
+                    dtype=np.int32, device="cpu",
+                    tolerances=default_tolerances(np.float32))
+    (fb,) = [c for c in ints.combos if c.backend == "hopper"]
     assert fb.status == "fallback" and fb.reason.startswith("hopper-dtype")
-    assert "torch[hopper-dtype]" in coverage_matrix([half])
+    assert "torch[hopper-dtype]" in coverage_matrix([ints])

@@ -50,7 +50,9 @@ def test_import_loads_no_jax_and_no_repro():
             "repro_torch.optim.compression, repro_torch.data, "
             "repro_torch.data.pipeline, repro_torch.checkpoint, "
             "repro_torch.checkpoint.store, repro_torch.runtime, "
-            "repro_torch.runtime.trainer, repro_torch.launch.train"
+            "repro_torch.runtime.trainer, repro_torch.launch.train, "
+            "repro_torch.models.sharding, repro_torch.launch.specs, "
+            "repro_torch.runtime.elastic, repro_torch.runtime.grad_sync"
             "\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "assert [get_config(a).name for a in ARCHS]\n"
@@ -74,6 +76,9 @@ def test_sources_import_no_jax_and_no_repro():
             "runtime"} <= scanned
     assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in files
     assert ROOT / "src" / "repro_torch" / "launch" / "train.py" in files
+    for new in ("models/sharding.py", "launch/specs.py", "runtime/elastic.py",
+                "runtime/grad_sync.py"):
+        assert ROOT / "src" / "repro_torch" / new in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert bad == []

@@ -90,12 +90,15 @@ def _specs(name, which, n=None):
 @pytest.mark.parametrize("name", list(CASES))
 def test_render_cuda_one_global_per_plan(name, which):
     res, shapes = _specs(name, which)
+    # each source instantiates the kernel for its own dtype alone
+    insts = {"float32": "launch<float, float>",
+             "float64": "launch<double, double>"}
     for dtype in ("float32", "float64"):
         src = specialize_stencil(res.plan, shapes,
                                  {k: dtype for k in shapes}).source
         assert src.count("__global__") == 1
         assert src.count('extern "C" int race_stencil_launch(') == 1
-        assert "launch<float>" in src and "launch<double>" in src
+        assert [i for i in insts.values() if i in src] == [insts[dtype]]
         assert "float32" not in src  # constants are never rounded to f32
 
 
@@ -108,7 +111,7 @@ def test_render_cuda_keeps_constants_at_double_precision():
     shapes = required_shapes(prog)
     src = render_cuda(tile_program(res.plan, shapes,
                                    {k: "float64" for k in shapes}))
-    assert "scalar_t(0.1)" in src
+    assert "acc_t(0.1)" in src
     env = {k: np.random.default_rng(0).uniform(-1, 1, s)
            for k, s in shapes.items()}
     got = res.run(env, "hopper", device="cpu")["o"].numpy()
@@ -184,9 +187,14 @@ def test_smem_refusal_code():
 
 
 def test_dtype_refusal_code():
+    """float16 takes the kernel; operands that mix dtypes, and integer
+    operands, keep ``hopper-dtype``."""
     case = get_case("hdifft_gm", 14)
     res = repro_torch.race(case.program, reassociate=3)
     env = env_to_torch(build_env(case, np.float16), "cpu")
+    assert repro_torch.compile_plan(res.plan, env, "auto").backend == "hopper"
+    first = sorted(k for k, v in env.items() if v.dim())[0]
+    env = {**env, first: env[first].float()}
     ex = repro_torch.compile_plan(res.plan, env, "auto")
     assert ex.backend == "torch"
     assert [r.code for r in ex.selection.capability.reasons] == [
@@ -195,7 +203,7 @@ def test_dtype_refusal_code():
         repro_torch.compile_plan(res.plan, env, "hopper")
     shapes = required_shapes(case.program)
     with pytest.raises(LoweringError) as err:
-        tile_program(res.plan, shapes, {k: "float16" for k in shapes})
+        tile_program(res.plan, shapes, {k: "int32" for k in shapes})
     assert err.value.codes == (R_HOPPER_DTYPE,)
 
 

@@ -227,7 +227,8 @@ def test_full_size_aux_evaluations_per_point(name, dt, most):
 
 def test_render_cuda_marches_with_staged_planes():
     """One march loop from the warm-up step; the staged operand goes
-    through ``cp.async``; a ring's slot base is rotated once per step; a
+    through ``race_stage`` (``cp.async`` for float32); a ring's slot base
+    is rotated once per step; a
     mirrored operand keeps its guarded global load."""
     case = get_case("j3d27pt", 64)
     res = repro_torch.race(case.program, reassociate=case.reassociate)
@@ -235,7 +236,7 @@ def test_render_cuda_marches_with_staged_planes():
     spec = specialize_stencil(res.plan, shapes, {k: "float32" for k in shapes})
     g, src = spec.tp.geometry, spec.source
     assert src.count(f"for (int k = {g.k0}; k < {g.seg}; ++k)") == 1
-    assert "race_cp_async(" in src and "race_cp_async_wait<" in src
+    assert "race_stage(" in src and "race_cp_async_wait<" in src
     march = src.split(f"for (int k = {g.k0};")[1]
     bases = [ln for ln in march.splitlines()
              if ln.strip().startswith(("const int b", "r"))]
@@ -245,7 +246,7 @@ def test_render_cuda_marches_with_staged_planes():
     shapes = required_shapes(md.program)
     spec = specialize_stencil(res.plan, shapes, {k: "float64" for k in shapes})
     assert not any(r.operand for r in spec.tp.geometry.rings)
-    assert "race_cp_async(" not in spec.source
+    assert "race_stage(" not in spec.source
 
 
 @pytest.mark.parametrize("name", ["j3d27pt", "gaussian", "mirror_deriv"])
@@ -268,6 +269,6 @@ def test_rank0_aux_are_registers(name):
     src = specialize_stencil(plan, shapes,
                              {k: "float64" for k in shapes}).source
     for k, nm in enumerate(rank0):
-        assert f"const scalar_t ra{k} = " in src and f"// {nm}" in src
+        assert f"const acc_t ra{k} = " in src and f"// {nm}" in src
     _replay(tp)
     assert np.isfinite(tp.aux_evals_per_point)

@@ -800,7 +800,8 @@ def test_block_grid_holds_the_chooser_and_the_swept_tiles():
 
 def test_candidates_the_chooser_refuses_are_errors_not_crashes():
     """Grid points past an extent are measured as ``error`` candidates with
-    their reason; float16 envs take no kernel candidate (``hopper-dtype``)."""
+    their reason; float16 envs take kernel candidates that pass the gate,
+    int32 envs none (``hopper-dtype``)."""
     case = _case("j3d27pt", 12)
     dec = autotune(case.program, build_env(case), levels=(3,),
                    default_reassociate=3, repeats=1, warmup=1, device=CPU)
@@ -810,7 +811,11 @@ def test_candidates_the_chooser_refuses_are_errors_not_crashes():
     assert dec.choice in [m.config for m in dec.measurements if m.ok]
     dec16 = autotune(case.program, build_env(case, np.float16), levels=(3,),
                      default_reassociate=3, repeats=1, warmup=1, device=CPU)
-    assert {m.config.backend for m in dec16.measurements} == {"torch"}
+    assert "hopper" in {m.config.backend for m in dec16.measurements if m.ok}
+    dec_int = autotune(case.program, build_env(case, np.int32), levels=(3,),
+                       default_reassociate=3, repeats=1, warmup=1,
+                       device=CPU)
+    assert {m.config.backend for m in dec_int.measurements} == {"torch"}
 
 
 # ---------------------------------------------------------------------------
