@@ -243,6 +243,26 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and the int8 bytes on the wire against the float32 bytes a plain
      mean would move are printed.
 
+ 18. the LM on a 2x2 (``data``, ``model``) mesh of cuda:0 four times
+     (``repro_torch.models.spmd``: FSDP gathers, tensor parallel over
+     ``model``, the batch over ``data``).  ``mesh:train:qwen2-7b``: phase
+     16's cell through ``launch.train --mesh 2x2 --devices cuda:0,...``, 6
+     steps (no checkpoint written): the step-1 loss within
+     :data:`MESH_LOSS_TOL` of one device's from the same initialization and
+     batch, the loss falling, K1 once a step on every position (an
+     ``spmd_mixer`` span per position in ``repro_torch.obs``) and its
+     launch counts (zeroed just before) on the forward and every adjoint
+     spec 4 per step; the position's mixer on K1 against ``"torch"``
+     (``plan``; gradients ``grad``); step ms beside phase 16's, peak memory
+     and the transfer log's bytes by kind.  ``mesh:prefill:qwen2-7b``: phase
+     15's prefill at full depth on the mesh against one device's (argmax,
+     3e-2 of the largest), K1 once per position.  ``mesh:parity``: phase
+     15's parity model on the mesh, its decode against its prefill within
+     1e-3.  The ``launch.train --mesh ... --devices`` CLI on the reduced
+     config with the mixer; one ``launch.dryrun`` record (qwen2_7b x
+     train_4k on the 16x16 pod, meta devices).  Its mixers' K1 sources are
+     built in phase 2.
+
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports no jax and nothing of the JAX
@@ -267,6 +287,10 @@ runs phases 1, 2 (the training mixers' sources only) and 16 alone.
 
 runs phases 1, 2 (the training mixers' sources only), 16 and 17 (which
 re-shards 16's checkpoint).
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1, 2 (the mesh's mixer sources only) and 18 alone.
 
     python3 chip_smoke.py --tf32-sweep
 
@@ -394,6 +418,16 @@ TRAIN_RESUME = dict(batch=4, seq=512, steps=6, every=3, lr=1e-3)
 ELASTIC_MESH = (2, 2)
 GRAD_SYNC_MEMBERS = 4
 GRAD_SYNC_BATCH = (4, 512)
+#: phase 18: the LM on a 2x2 (data, model) mesh of cuda:0 four times;
+#: mesh:train:qwen2-7b's step-1 loss against one device's, relative: the
+#: mesh rounds each member's partial products to bfloat16 before summing
+#: them (one more rounding, 2^-8 relative, per block and sum), a mean over
+#: 2,048 tokens of log-sum-exp minus gold moves far less; and the CLI's run
+MESH = (2, 2)
+MESH_LOSS_TOL = 1e-2
+MESH_CLI_ARGV = ["--arch", LM_ARCH, "--reduced", "--mesh", "2x2", "--steps",
+                 "3", "--batch", "4", "--seq", "64", "--race-smooth",
+                 str(LM_RADIUS)]
 #: the constants of ``Tf32x3Op`` that ``--tf32-sweep`` replaces
 TF32_CONSTANTS = ("  static constexpr int STAGES = {stages};\n"
                   "  static constexpr int FLUSH = {flush};")
@@ -2597,9 +2631,9 @@ def device_split(label, fn, torch, top: int = 6) -> None:
           flush=True)
 
 
-def lm_main(torch) -> dict:
+def lm_main(torch) -> tuple:
     """lm:qwen2-7b: the mixer on K1, then prefill and decode at full
-    width; returns the mixer's kernel-line entry."""
+    width; returns (the mixer's kernel-line entry, prefill ms)."""
     import dataclasses
 
     import numpy as np
@@ -2720,7 +2754,7 @@ def lm_main(torch) -> dict:
           f"{dec_bound * 1e3 / p50:.3f}", flush=True)
     del model, caches, logits, plain
     torch.cuda.empty_cache()
-    return entry
+    return entry, prefill_ms
 
 
 def _decode_parity(model, cfg, exec_cfg, tokens, torch) -> tuple:
@@ -2862,28 +2896,33 @@ def train_mixer_cells() -> list:
              TRAIN_RESUME["batch"] * full.reduced().d_model)]
 
 
-def train_sources() -> list:
-    """The K1 sources of phase 16's mixers, forward and every adjoint plan
-    the probe admits (float32 streams), built in phase 2."""
+def mixer_sources(S: int, C: int, adjoints: bool) -> list:
+    """The K1 sources of one mixer shape (float32 streams): its forward
+    and, with ``adjoints``, every adjoint plan the probe admits."""
     from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
     from repro_torch.lowering.emit import specialize_stencil
     from repro_torch.models.ssm import _smooth_result
 
-    out = []
-    for _, S, C in train_mixer_cells():
-        res = _smooth_result(S, C, LM_RADIUS)
-        shapes = required_shapes(res.program)
-        out.append(specialize_stencil(res.plan, shapes, {
-            k: "float32" for k in shapes}).source)
-        for spec in adjoint_build(res.program).specs:
-            plan = spec.result().plan
-            if select_backend(plan, "auto", ["float32"]).backend == "hopper":
-                adj = adjoint_env_shapes(spec, res.program, shapes)
-                out.append(specialize_stencil(plan, adj, {
-                    k: "float32" for k in adj}).source)
+    res = _smooth_result(S, C, LM_RADIUS)
+    shapes = required_shapes(res.program)
+    out = [specialize_stencil(res.plan, shapes, {
+        k: "float32" for k in shapes}).source]
+    for spec in adjoint_build(res.program).specs if adjoints else ():
+        plan = spec.result().plan
+        if select_backend(plan, "auto", ["float32"]).backend == "hopper":
+            adj = adjoint_env_shapes(spec, res.program, shapes)
+            out.append(specialize_stencil(plan, adj, {
+                k: "float32" for k in adj}).source)
     return out
+
+
+def train_sources() -> list:
+    """The K1 sources of phase 16's mixers, forward and adjoints, built in
+    phase 2."""
+    return [src for _, S, C in train_mixer_cells()
+            for src in mixer_sources(S, C, True)]
 
 
 def train_mixer_executors(model, cfg, tokens, torch):
@@ -2968,9 +3007,8 @@ def train_main(root, torch) -> list:
     forward and adjoints."""
     import shutil
 
-    from repro_torch import compile_plan
     from repro_torch.launch import train
-    from repro_torch.testing import default_tolerances, rel_err
+    from repro_torch.testing import default_tolerances
 
     ckpt = root / "build" / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -3061,14 +3099,37 @@ def train_main(root, torch) -> list:
         raise SystemExit("lm:train: the mixer's gradients on K1 disagree "
                          "with torch's")
 
-    # K1 per step: the forward and the adjoint specs at the step's envs
+    entries, fwd_ms, adj_ms = k1_mixer_lines(
+        "lm:train", "train", ex, env, adj, launches[0], sum(launches[1:]),
+        grad_abs, torch)
+    print(f"lm:train K1 = {(fwd_ms + adj_ms) / step_ms:.4f} of the step",
+          flush=True)
+
+    device_split("lm:train step", lambda: trainer.train_step(
+        model, trainer.opt_state, batch0), torch)
+    del trainer, model, env, ex, adj, execs, x
+    torch.cuda.empty_cache()
+    return entries, step_ms
+
+
+def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
+                   grad_abs, torch) -> tuple:
+    """The mixer's forward executor ``ex`` at ``env`` on K1 against
+    ``"torch"`` (within ``plan``), then it and every adjoint spec's
+    executor timed beside their plain versions, bounds and (forward) the
+    library call; returns (the two kernel-line entries, forward ms, summed
+    adjoint ms)."""
+    from repro_torch import compile_plan
+    from repro_torch.testing import default_tolerances, rel_err
+
     got = ex(env)
     ex_t = compile_plan(ex.plan, env, "torch")
     plain = ex_t(env)
     torch.cuda.synchronize()
     fwd_abs = float((got["sy"] - plain["sy"]).abs().max())
     if rel_err(got, plain) > default_tolerances("float32")["plan"]:
-        raise SystemExit("lm:train: K1's mixer forward disagrees with torch")
+        raise SystemExit(f"{label}: K1's mixer forward disagrees with torch")
+    del got, plain
     fwd_ms = _time_ms(lambda: ex(env), torch)
     fwd_plain = _time_ms(lambda: ex_t(env), torch)
     fwd_lib = _time_ms(mixer_library_call(env, LM_RADIUS, torch), torch)
@@ -3086,27 +3147,22 @@ def train_main(root, torch) -> list:
         b_, o_ = plan_work(spec.result().plan, a, 4)
         ab, ao = ab + b_, ao + o_
     adj_bound, adj_by = bound_of(ab, ao, PEAK_FLOPS["float32"])
-    print(f"lm:train K1 per step: forward {fwd_ms:.4f} ms (1 launch; torch "
-          f"{fwd_plain:.4f}, conv1d {fwd_lib:.4f}, bound {fwd_bound:.4f} "
-          f"{fwd_by}), adjoints {adj_ms:.4f} ms ({len(adj)} launches: "
-          f"{', '.join(per_spec)}; torch {adj_plain:.4f}, bound "
-          f"{adj_bound:.4f} {adj_by}); K1 = {(fwd_ms + adj_ms) / step_ms:.4f}"
-          f" of the step", flush=True)
-
-    device_split("lm:train step", lambda: trainer.train_step(
-        model, trainer.opt_state, batch0), torch)
-    del trainer, model, env, ex, adj, execs, got, plain, x
-    torch.cuda.empty_cache()
+    print(f"{label} K1 per call, sx {tuple(env['sx'].shape)}: forward "
+          f"{fwd_ms:.4f} ms (torch {fwd_plain:.4f}, conv1d {fwd_lib:.4f}, "
+          f"bound {fwd_bound:.4f} {fwd_by}), adjoints {adj_ms:.4f} ms "
+          f"({len(adj)} launches: {', '.join(per_spec)}; torch "
+          f"{adj_plain:.4f}, bound {adj_bound:.4f} {adj_by})", flush=True)
     common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
                   replaces="src/repro/lowering/emit.py:273")
-    return [dict(name="race_stencil[race_smooth train]", launches=launches[0],
-                 max_abs_err=fwd_abs, ms=fwd_ms, plain_ms=fwd_plain,
-                 bound_ms=fwd_bound, bound_by=fwd_by, library_ms=fwd_lib,
-                 **common),
-            dict(name="race_stencil[race_smooth adjoint]",
-                 launches=sum(launches[1:]), max_abs_err=grad_abs,
-                 ms=adj_ms, plain_ms=adj_plain, bound_ms=adj_bound,
-                 bound_by=adj_by, library_ms=None, **common)]
+    return ([dict(name=f"race_stencil[race_smooth {tag}]",
+                  launches=fwd_launches, max_abs_err=fwd_abs, ms=fwd_ms,
+                  plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                  library_ms=fwd_lib, **common),
+             dict(name=f"race_stencil[race_smooth {tag} adjoint]",
+                  launches=adj_launches, max_abs_err=grad_abs, ms=adj_ms,
+                  plain_ms=adj_plain, bound_ms=adj_bound, bound_by=adj_by,
+                  library_ms=None, **common)],
+            fwd_ms, adj_ms)
 
 
 def elastic_check(root, torch) -> None:
@@ -3318,6 +3374,332 @@ def train_resume(root, torch) -> None:
                          "ran off K1")
 
 
+def mesh_devices() -> list:
+    return [DEVICE] * (MESH[0] * MESH[1])
+
+
+def mesh_mixer_cells() -> list:
+    """(label, S, channels, adjoints) of every mixer one mesh position runs
+    in phase 18: its rows' examples and its ``d_model / 2`` channels."""
+    from repro_torch.configs import get_config
+
+    D = get_config(LM_ARCH).d_model
+    d_red = get_config(LM_ARCH).reduced().d_model
+    rows, m = MESH
+    return [("train, prefill", _train_arg("--seq"),
+             _train_arg("--batch") // rows * D // m, True),
+            ("parity", LM_PARITY_PROMPT, LM_PARITY_BATCH // rows * D // m,
+             False),
+            ("cli", 64, 4 // rows * d_red // m, True)]
+
+
+def mesh_sources() -> list:
+    """The K1 sources of phase 18's mixers, built in phase 2."""
+    return [src for _, S, C, adj in mesh_mixer_cells()
+            for src in mixer_sources(S, C, adj)]
+
+
+def _mesh_obs_positions(obs) -> dict:
+    """position -> ``spmd_mixer`` spans (one per mixer call)."""
+    out = {}
+    for r in obs.span_records():
+        if r["name"] == "spmd_mixer":
+            pos = r["labels"]["position"]
+            out[pos] = out.get(pos, 0) + 1
+    return out
+
+
+def mesh_train(root, single_ms, torch) -> list:
+    """mesh:train:qwen2-7b: phase 16's cell on the 2x2 mesh through
+    ``launch.train --mesh 2x2 --devices cuda:0,...``; returns the mixer's
+    kernel-line entries."""
+    from repro_torch import compile_plan, obs
+    from repro_torch.launch import train
+    from repro_torch.launch.hlo_analysis import collective_traffic
+    from repro_torch.models import init_params, make_loss_fn
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances
+
+    import shutil
+
+    ckpt = root / "build" / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)  # nothing to resume from
+    argv = TRAIN_ARGV + ["--mesh", "x".join(map(str, MESH)), "--devices",
+                         ",".join(mesh_devices()), "--ckpt-dir", str(ckpt)]
+    args = train.parser().parse_args(argv)
+    cfg = train.model_config(args)
+    # one device's step-1 loss from the same initialization and batch
+    t0 = time.time()
+    model = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(0),
+                        device=DEVICE)
+    from repro_torch.data import DataConfig, ShardedTokenPipeline
+
+    batch0 = ShardedTokenPipeline(DataConfig(
+        seq_len=args.seq, global_batch=args.batch,
+        vocab=cfg.vocab)).batch_at(0)
+    with torch.no_grad():
+        single = float(make_loss_fn(cfg, train.exec_config(args))(
+            model, batch0))
+        tokens = torch.as_tensor(batch0["tokens"], device=DEVICE)
+        rows, m = MESH
+        x = model.embed[tokens[:args.batch // rows]][
+            ..., :cfg.d_model // m].clone()  # position (0, 0)'s slice
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, trainer = train.setup(args)
+    mp = trainer.params
+    trainer.cfg.log_fn = lambda *a: print(*a, flush=True)
+    trainer.cfg.log_every = 1
+    # no checkpoint: phase 16 times one; tests/test_torch_mesh.py holds the
+    # mesh's gathered checkpoint and its restore bit-equal
+    trainer._save = lambda: None
+    env = {k: v.clone() for k, v in smooth_env(
+        x, mp.placed["smooth_taps"].shards[0, 0].detach(),
+        LM_RADIUS).items()}
+    B_r, S, C = x.shape
+    res = _smooth_result(S, B_r * C, LM_RADIUS)
+    ex = compile_plan(res.plan, env)
+    adj = adjoint_executors(res.program, env,
+                            {"sy": torch.ones_like(env["sy"])})
+    off = [f"{spec.input}: {e.backend}" for spec, _, e in adj
+           if e.backend != "hopper"]
+    if ex.backend != "hopper" or off or not adj:
+        raise SystemExit(f"mesh:train: mixer off K1: forward {ex.backend}, "
+                         f"adjoints {off or len(adj)}")
+    execs = [ex] + [e for _, _, e in adj]
+    print(f"mesh:train:qwen2-7b: {mp.mesh}, {cfg.num_layers} layers, "
+          f"{cfg.dtype}, batch {args.batch} x {args.seq} ({B_r} a row), "
+          f"position (0, 0)'s mixer sx {tuple(env['sx'].shape)}; one "
+          f"device's step-1 loss {single:.6f}; setup {time.time() - t0:.1f} "
+          f"s", flush=True)
+    times = []
+    inner = trainer.train_step
+
+    def timed(p, o, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(p, o, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.train_step = timed
+    for e in execs:
+        e.spec.launches = 0
+    obs.reset()
+    obs.configure(enabled=True)
+    try:
+        out = trainer.run()  # the main path: K1's counts from 0
+        spans = _mesh_obs_positions(obs)
+    finally:
+        obs.reset()
+    launches = [e.kernel_launches for e in execs]
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    n = len(losses)
+    npos = len(mp.layout.positions)
+    log = mp.last_log
+    by_kind = log.bytes_by_kind()
+    traffic = collective_traffic(log, npos)
+    step_ms = statistics.median(times[1:])
+    print(f"mesh:train losses {[round(v, 4) for v in losses]}; step 1 "
+          f"{losses[0]:.6f} vs one device {single:.6f} (rel "
+          f"{abs(losses[0] - single) / abs(single):.2e} <= "
+          f"{MESH_LOSS_TOL:.0e}); K1 launches: forward {launches[0]}, "
+          f"adjoints {dict(zip((s.input for s, _, _ in adj), launches[1:]))}"
+          f" over {n} steps on {npos} positions; mixer calls per position "
+          f"{spans}", flush=True)
+    ok = (n == args.steps and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0]
+          and abs(losses[0] - single) <= MESH_LOSS_TOL * abs(single)
+          and all(k == n * npos for k in launches)
+          and len(spans) == npos and set(spans.values()) == {n})
+    if not ok:
+        raise SystemExit("mesh:train: a loss is not finite, did not fall or "
+                         "is off one device's, or K1 did not run once a "
+                         "step on every position, forward and adjoints")
+    print(f"mesh:train step on {_nvidia_smi()}: {step_ms:.4f} ms (median of "
+          f"steps 2-{len(times)}; each {[round(t, 1) for t in times]}) "
+          f"against one device's {single_ms} ms (phase 16, this run); "
+          f"{args.batch * args.seq / step_ms * 1e3:.1f} tok/s; peak memory "
+          f"{peak / 1e9:.2f} GB; transfer bytes per step by kind (every "
+          f"position's results, forward and backward) {by_kind}; wire bytes "
+          f"a position (hlo_analysis' models) {traffic['bytes']:.4e}",
+          flush=True)
+    e_grad, grad_abs = train_mixer_grads(x, execs, torch)
+    tol = default_tolerances("float32")["grad"]
+    print(f"mesh:train mixer grads (sx, taps) K1 vs torch {e_grad:.2e} (<= "
+          f"{tol:.0e}), max_abs_err {grad_abs:.3e}", flush=True)
+    if not e_grad <= tol:
+        raise SystemExit("mesh:train: the mixer's gradients on K1 disagree "
+                         "with torch's")
+    entries, _, _ = k1_mixer_lines("mesh:train", "mesh", ex, env, adj,
+                                   launches[0], sum(launches[1:]), grad_abs,
+                                   torch)
+    del trainer, mp, env, ex, adj, execs, x
+    torch.cuda.empty_cache()
+    return entries
+
+
+def mesh_prefill(prefill_ms, torch) -> None:
+    """mesh:prefill:qwen2-7b: phase 15's prefill at full depth on the
+    mesh against one device's."""
+    import numpy as np
+
+    from repro_torch import compile_plan
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import (ExecConfig, init_params,
+                                    make_prefill_step, prefill_logits, spmd)
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+
+    cfg = get_config(LM_ARCH).scaled(race_smooth_radius=LM_RADIUS)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    model = init_params(cfg, generator=gen, device=DEVICE)
+    with torch.no_grad():
+        model.smooth_taps.copy_(0.5 * torch.randn(
+            LM_RADIUS + 1, generator=gen, device=DEVICE))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=DEVICE)
+    batch = {"tokens": tokens}
+    want = prefill_logits(model, cfg, ExecConfig(), batch)
+    mesh = make_mesh(MESH, ("data", "model"), devices=mesh_devices())
+    rows, m = MESH
+    x = model.embed[tokens[:LM_BATCH // rows]][..., :cfg.d_model // m]
+    res = _smooth_result(LM_PROMPT, x.shape[0] * x.shape[2], LM_RADIUS)
+    ex = compile_plan(res.plan, smooth_env(x, model.smooth_taps, LM_RADIUS))
+    mp = spmd.place_model(model, mesh)
+    del model, x
+    torch.cuda.empty_cache()
+    step = make_prefill_step(cfg, ExecConfig(mesh=mesh))
+    ex.spec.launches = 0  # the main path: one prefill on the mesh
+    got = step(mp, batch)
+    torch.cuda.synchronize()
+    launches = ex.kernel_launches
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    ms = _time_ms(lambda: step(mp, batch), torch)
+    by_kind = mp.last_log.bytes_by_kind()
+    print(f"mesh:prefill:qwen2-7b ({cfg.num_layers} layers, {mesh}): K1 "
+          f"launches {launches} ({ex.backend}); logits "
+          f"{tuple(got.shape)} finite {bool(torch.isfinite(got).all())}; vs "
+          f"one device argmax equal on every row {same}, max |diff| "
+          f"{diff:.3e} (<= {LM_LOGITS_TOL:.0e} x {scale:.3e}); "
+          f"{ms:.4f} ms on {_nvidia_smi()} against one device's {prefill_ms}"
+          f" ms (phase 15, this run); transfer bytes by kind {by_kind}",
+          flush=True)
+    if not (same and diff <= LM_LOGITS_TOL * scale
+            and bool(torch.isfinite(got).all())
+            and launches == len(mp.layout.positions)):
+        raise SystemExit("mesh:prefill: the mesh's logits disagree with "
+                         "one device's, or K1 did not run once on every "
+                         "position")
+    del mp, want, got
+    torch.cuda.empty_cache()
+
+
+def mesh_parity(torch) -> None:
+    """mesh:parity: lm:parity's model (float32, 4 layers, zero taps) on the
+    mesh: teacher-forced mesh decode against the mesh prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import (ExecConfig, init_params,
+                                    make_decode_step, make_prefill_step,
+                                    spmd)
+
+    cfg = get_config(LM_ARCH).scaled(num_layers=LM_PARITY_LAYERS,
+                                     dtype="float32",
+                                     race_smooth_radius=LM_RADIUS)
+    mesh = make_mesh(MESH, ("data", "model"), devices=mesh_devices())
+    model = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(1),
+                        device=DEVICE)
+    mp = spmd.place_model(model, mesh)
+    del model
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT)), device=DEVICE)
+    ec = ExecConfig(mesh=mesh)
+    want = make_prefill_step(cfg, ec)(mp, {"tokens": tokens})
+    caches = spmd.init_caches(mp, LM_PARITY_BATCH, LM_PARITY_PROMPT)
+    step = make_decode_step(cfg, ec, LM_PARITY_PROMPT)
+    for t in range(LM_PARITY_PROMPT):
+        got, caches = step(mp, caches, tokens[:, t:t + 1], t)
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    print(f"mesh:parity ({cfg.num_layers} layers, float32, {mesh}, "
+          f"{LM_PARITY_PROMPT} tokens): mesh decode vs mesh prefill max "
+          f"|diff| {diff:.3e} (<= 1e-3 x {scale:.3e})", flush=True)
+    if not diff <= 1e-3 * scale:
+        raise SystemExit("mesh:parity: the mesh's decode does not reproduce "
+                         "its prefill")
+    del mp, caches
+    torch.cuda.empty_cache()
+
+
+def mesh_cli(root, torch) -> None:
+    """``python -m repro_torch.launch.train --mesh 2x2 --devices ...`` on
+    qwen2's reduced config with the mixer, in this process."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    argv = MESH_CLI_ARGV + ["--devices", ",".join(mesh_devices()),
+                            "--ckpt-dir", str(root / "build" / "mesh_cli")]
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"mesh cli: launch.train {' '.join(argv)} -> {out} in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    import shutil
+
+    shutil.rmtree(root / "build" / "mesh_cli", ignore_errors=True)
+    if out["steps"] != 3 or not math.isfinite(out["final_loss"]):
+        raise SystemExit("mesh cli: launch.train --mesh did not train")
+
+
+def mesh_dryrun(root) -> None:
+    """One port dry-run record: qwen2_7b x train_4k on the 16x16 pod (a
+    mesh of meta devices, on the host)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import roofline
+
+    t0 = time.time()
+    rec = dryrun.run_cell("qwen2_7b", "train_4k", False,
+                          root / "build" / "dryrun_torch", force=True)
+    if not rec.get("ok"):
+        raise SystemExit(f"dryrun: {rec.get('error')}")
+    tot, mem = rec["totals"], rec["full"]["memory"]
+    terms = roofline(tot["flops_per_device"],
+                     tot["analytic_hbm_bytes_per_device"],
+                     tot["coll_bytes_per_device"])
+    print(f"dryrun qwen2_7b.train_4k.pod ({time.time() - t0:.1f} s, "
+          f"{rec['full']['positions_run']}): flops/device "
+          f"{tot['flops_per_device']:.4e}, argument bytes "
+          f"{mem['argument_size_in_bytes']}, activations (analytic) "
+          f"{mem['temp_size_in_bytes']:.4e}, fits 80 GB "
+          f"{mem['fits_h100_80gb']}, collective bytes/device "
+          f"{tot['coll_bytes_per_device']:.4e}; roofline on H100 data-sheet "
+          f"figures: compute {terms.compute_s:.4f} s, memory "
+          f"{terms.memory_s:.4f} s, collective {terms.collective_s:.4f} s "
+          f"({terms.dominant})", flush=True)
+
+
+def mesh_main(root, single_ms, prefill_ms, torch) -> list:
+    """Phase 18: the LM on a mesh; returns the kernel-line entries."""
+    entries = mesh_train(root, single_ms, torch)
+    mesh_prefill(prefill_ms, torch)
+    mesh_parity(torch)
+    mesh_cli(root, torch)
+    mesh_dryrun(root)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -3372,9 +3754,19 @@ def main() -> int:
         compile_sources(lm_sources())
         print(f"build: the mixers' sources in {time.time() - t0:.1f} s",
               flush=True)
-        kernels = [lm_main(torch)]
+        kernels = [lm_main(torch)[0]]
         lm_parity(torch)
         lm_families(torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--mesh"]:  # phases 1, 2 (its mixers) and 18 alone
+        t0 = time.time()
+        compile_sources(mesh_sources())
+        print(f"build: the mesh's mixer sources in {time.time() - t0:.1f} s",
+              flush=True)
+        kernels = mesh_main(root, "(not run)", "(not run)", torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
         print(json.dumps({"kernels": kernels}))
         print(smi)
@@ -3386,7 +3778,7 @@ def main() -> int:
         compile_sources(train_sources())
         print(f"build: the training mixers' sources in "
               f"{time.time() - t0:.1f} s", flush=True)
-        kernels = train_main(root, torch)
+        kernels, _ = train_main(root, torch)
         train_resume(root, torch)
         if sys.argv[1] == "--shard":
             elastic_check(root, torch)
@@ -3459,7 +3851,7 @@ def main() -> int:
     mesh = shard_mesh(torch)
     sources += shard_sources(mesh)
     # phases 15-16: the LM mixers' plans, and the training mixers' adjoints
-    sources += lm_sources() + train_sources()
+    sources += lm_sources() + train_sources() + mesh_sources()
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -3673,14 +4065,16 @@ def main() -> int:
 
     # ---- phase 15: the LM stack on the card --------------------------------
     marks.append((15, time.time()))
-    kernels.append(lm_main(torch))
+    entry, prefill_ms = lm_main(torch)
+    kernels.append(entry)
     lm_parity(torch)
     lm_families(torch)
     torch.cuda.empty_cache()
 
     # ---- phase 16: the LM training path on the card -------------------------
     marks.append((16, time.time()))
-    kernels += train_main(root, torch)
+    entries, train_ms = train_main(root, torch)
+    kernels += entries
     train_resume(root, torch)
     torch.cuda.empty_cache()
 
@@ -3688,6 +4082,11 @@ def main() -> int:
     marks.append((17, time.time()))
     elastic_check(root, torch)
     grad_sync_check(torch)
+    torch.cuda.empty_cache()
+
+    # ---- phase 18: the LM on a 2x2 mesh ------------------------------------
+    marks.append((18, time.time()))
+    kernels += mesh_main(root, f"{train_ms:.4f}", f"{prefill_ms:.4f}", torch)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

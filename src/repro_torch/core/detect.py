@@ -47,8 +47,8 @@ class RooflineCost:
 
     # The default balance is the H100's (data-sheet peak flop/s outside the
     # tensor cores over HBM bytes/s, ``launch/mesh.py``): 20 flop/B for
-    # 4-byte elements, about 10 for 8-byte ones.  The reference's 240 is the
-    # TPU v5e's; pass ``balance_flops_per_byte=240.0`` for its verdicts.
+    # 4-byte elements, about 10 for 8-byte ones.  The reference's default is
+    # its TPU's; pass ``balance_flops_per_byte`` for another machine's.
     # race() uses PaperCost, so this model is off the default path.
     def __init__(self, balance_flops_per_byte: Optional[float] = None,
                  vmem: bool = False):

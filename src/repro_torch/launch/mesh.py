@@ -60,6 +60,18 @@ def stencil_mesh_shape(n: int, k: int) -> tuple:
     return tuple(sorted(dims, reverse=True))
 
 
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet, without
+#: sparsity, at the 700 W limit), flop/s.  A data-sheet figure, not a
+#: measurement.
+PEAK_BF16_FLOPS = 989e12
+#: H100 SXM device memory (NVIDIA's data sheet), bytes
+HBM_BYTES = 80e9
+
+
+class AbstractMeshError(ValueError):
+    """An abstract mesh (axis sizes, no devices) was given to run on."""
+
+
 @dataclass(frozen=True, eq=False)
 class Mesh:
     """A named grid of torch devices: ``devices[coords]`` holds the shard at

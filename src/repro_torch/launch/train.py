@@ -11,6 +11,15 @@ deterministic synthetic pipeline (or ``--token-file``), a checkpoint every
 ``--ckpt-every`` steps and at the end.  ``--race-smooth R`` turns on the
 RACE mixer (``examples/train_lm.py``'s flag), whose forward and backward run
 on K1 on a card.  ``--reduced`` takes the family-faithful small config.
+
+``--mesh 2x2`` trains on a (``data``, ``model``) mesh of that shape, as the
+reference's ``--mesh`` does, through :mod:`repro_torch.models.spmd`: by
+default the first ``prod(shape)`` CUDA cards (fewer raise
+:class:`~repro_torch.launch.mesh.AbstractMeshError`; nothing falls back to
+one device).  ``--devices cuda:0,cuda:0,cuda:0,cuda:0`` (or ``cpu,...``)
+names the mesh's devices instead, one per position and repeats allowed: the
+counterpart of the reference's ``--xla_force_host_platform_device_count``.
+
 Prints the reference's JSON line: arch, steps, first and final loss,
 tokens/s, restarts.
 """
@@ -37,8 +46,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--token-file", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="not yet: raises (training on a mesh is the port's "
-                         "next slice)")
+                    help="e.g. '2x2': train on a (data, model) mesh")
+    ap.add_argument("--devices", default=None,
+                    help="the mesh's devices, comma-separated, one per "
+                         "position (repeats allowed; default: the first "
+                         "CUDA cards)")
     ap.add_argument("--d-model", type=int, default=None)
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--race-smooth", type=int, default=0, metavar="R",
@@ -64,6 +76,38 @@ def model_config(args):
     return dataclasses.replace(cfg, **overrides)
 
 
+def train_mesh(args):
+    """The mesh ``--mesh`` and ``--devices`` ask for, or None."""
+    from .mesh import AbstractMeshError, make_mesh
+
+    if not args.mesh:
+        if args.devices:
+            raise ValueError("--devices names a mesh's devices: give --mesh")
+        return None
+    shape = tuple(int(x) for x in args.mesh.split("x"))
+    devices = args.devices.split(",") if args.devices else None
+    mesh = make_mesh(shape, ("data", "model")[:len(shape)], devices)
+    if mesh.abstract:
+        import torch
+
+        raise AbstractMeshError(
+            f"--mesh {args.mesh} needs {mesh.size} CUDA cards, this machine "
+            f"has {torch.cuda.device_count()}: name the devices with "
+            f"--devices (repeats allowed)")
+    return mesh
+
+
+def exec_config(args, mesh=None):
+    """The :class:`~repro_torch.models.ExecConfig` :func:`setup` trains
+    with: chunks sized to ``--seq``."""
+    from ..models import ExecConfig
+
+    return ExecConfig(attn_chunk_q=min(128, args.seq),
+                      attn_chunk_k=min(256, args.seq),
+                      ssm_chunk=min(64, args.seq),
+                      loss_chunk=min(128, args.seq), mesh=mesh)
+
+
 def setup(args):
     """(config, a :class:`~repro_torch.runtime.Trainer` ready to ``run``)
     for parsed ``args``."""
@@ -71,28 +115,25 @@ def setup(args):
 
     from ..core.executor import resolve_device
     from ..data import DataConfig, ShardedTokenPipeline
-    from ..models import ExecConfig, init_params, make_train_step
+    from ..models import init_params, make_train_step, spmd
     from ..optim import AdamWConfig, adamw_init
     from ..runtime import Trainer, TrainerConfig
 
-    if args.mesh:
-        raise ValueError(
-            "--mesh: training on a mesh is the port's next slice (ROADMAP "
-            "Queue 1, item 9.3's second half: single-controller mesh "
-            "execution); the meshes and sharding rules are in "
-            "repro_torch.launch.mesh and repro_torch.models.sharding, and "
-            "the port trains on one device")
-    dev = resolve_device(args.device)
+    mesh = train_mesh(args)
+    dev = (mesh.devices.flat[0] if mesh is not None
+           else resolve_device(args.device))
     cfg = model_config(args)
 
-    exec_cfg = ExecConfig(attn_chunk_q=min(128, args.seq),
-                          attn_chunk_k=min(256, args.seq),
-                          ssm_chunk=min(64, args.seq),
-                          loss_chunk=min(128, args.seq))
+    exec_cfg = exec_config(args, mesh)
     params = init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
                          device=dev, trainable=True)
     opt_cfg = AdamWConfig(lr=args.lr)
-    opt = adamw_init(params, opt_cfg)
+    if mesh is not None:
+        model, params = params, spmd.place_model(params, mesh)
+        del model  # the shards are copies: free the single-device model
+        opt = spmd.adamw_init(params, opt_cfg)
+    else:
+        opt = adamw_init(params, opt_cfg)
     step = make_train_step(cfg, opt_cfg, exec_cfg, total_steps=args.steps,
                            warmup=max(1, args.steps // 20))
     pipe = ShardedTokenPipeline(DataConfig(

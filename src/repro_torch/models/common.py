@@ -23,10 +23,12 @@ class ExecConfig:
     of fixed chunk sizes.  ``remat`` and ``remat_policy`` act where autograd
     records (training): each layer unit's activations are recomputed in the
     backward pass, ``"dots"`` keeping its matrix products' outputs.
-    ``mesh`` must stay ``None``: the port's sharding rules and placement
-    (:mod:`.sharding`) exist, but running the model on a mesh is the next
-    slice (ROADMAP Queue 1, item 9.3's second half), so :meth:`constrain`
-    is the identity."""
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` of torch devices)
+    runs the step builders on the mesh through :mod:`.spmd`, which places
+    every tensor explicitly; an abstract mesh (no devices) is refused with
+    :class:`~repro_torch.launch.mesh.AbstractMeshError`.  So
+    :meth:`constrain` is the identity: it is the reference's layout hint
+    to GSPMD, which the port has no counterpart of."""
 
     unroll_scans: bool = False
     probe_chunks: int = 2      # chunk count in unrolled (probe) mode
@@ -45,19 +47,22 @@ class ExecConfig:
     ssm_bf16: bool = False          # bf16 post-scan gating chain
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise ValueError(
-                "ExecConfig(mesh=...): running the LM on a mesh is the "
-                "port's next slice (ROADMAP Queue 1, item 9.3's second "
-                "half: single-controller mesh execution); models/sharding.py"
-                "'s specs and placement are ported, and the LM runs on one "
-                "device")
+        if self.mesh is not None and self.mesh.abstract:
+            from ..launch.mesh import AbstractMeshError
+
+            raise AbstractMeshError(
+                f"ExecConfig(mesh={self.mesh}): an abstract mesh holds no "
+                f"devices, so nothing can run on it (make_mesh(..., "
+                f"devices=[...]) gives one that can; spec trees take the "
+                f"abstract one)")
 
     def constrain(self, x, *spec):
         return x
 
     def batch_axes(self) -> tuple:
-        return ()
+        if self.mesh is None:
+            return ()
+        return tuple(a for a in ("pod", "data") if a in self.mesh.axis_names)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,0 +1,1322 @@
+"""The LM on a mesh: the port's stand-in for GSPMD, in one process.
+
+The reference runs the LM on a mesh by ``jax.jit`` with sharded arguments:
+GSPMD compiles one program per device from the partition specs and
+inserts the collectives.  The port is single-controller (as
+:mod:`repro_torch.shard` and :mod:`.sharding` are): one process holds a
+:class:`~repro_torch.launch.mesh.Mesh` of torch devices, which may repeat
+(``["cuda:0"] * 4`` on one card, ``["cpu"] * 4`` in the tests), and runs
+every mesh position's share of the step on that position's device.
+Autograd crosses devices inside the process, so the backward's
+collectives come from the forward's differentiable copies and sums: the
+gradient of an all-gather is the reduce-scatter into each shard leaf, the
+gradient of an all-reduce is the all-reduce of the gradients.  No
+``torch.distributed``: NCCL refuses two ranks on one card.
+
+The layout of a step (every choice changes where work and data live, never
+the function computed):
+
+* **Placement.**  :class:`MeshLM` holds every parameter as a
+  :class:`~.sharding.Placed` by the reference's ``param_spec`` (a unit's
+  tensor by its stacked leaf's spec, the leading unit axis dropped), each
+  shard a leaf tensor on its position's device; AdamW's state is placed by
+  ``opt_state_shardings``.  A replicated block has a copy per position:
+  the copies' gradients are summed over the positions that hold them (an
+  all-reduce) and every copy takes the same update, so they stay
+  bit-equal.
+* **Batch.**  A *row* is one coordinate on the batch axes (``pod``,
+  ``data``); row ``r`` takes the ``r``-th slice of the batch, as
+  ``batch_shardings`` splits it.  The residual stream of row ``r`` is held
+  by each of its *members* (its positions along ``model``), replicated.
+* **FSDP.**  A position gathers the blocks of a unit's weights it needs
+  (:meth:`Collectives.fetch`: an all-gather over the axes that split them)
+  inside the unit's remat region, so the backward gathers them again;
+  nothing outlives the unit.
+* **Tensor parallel over ``model``** for attention (a member computes a
+  contiguous run of query heads: whole KV groups when ``model`` divides
+  the KV heads' count, else part of one group, its KV head replicated), the
+  MLPs (a run of ``d_ff`` columns of ``w_gate`` / ``w_up``, the same rows of
+  ``w_down``), the head (a run of vocab columns; the loss's log-sum-exp and
+  gold logit combined across members) and the embedding (a run of vocab
+  rows; the members' lookups summed).  Each block is ``x + f(norm(x))``,
+  so the members run the single-device block code on their slices and sum
+  their partial outputs (an all-reduce) before the residual add.  The
+  ``race_smooth`` mixer splits by channels, which is exact (each channel is
+  its own stream): each position runs it on its row's ``B_r`` examples and
+  ``D / M`` channels, ``S + R + 2`` by ``B_r D / M`` on K1.
+* **Replicated within a row:** Mamba, RG-LRU and MoE blocks gather their
+  full weights and compute on every member.  MoE's ``"capacity"`` dispatch
+  is global (its capacity counts all tokens), so a MoE block first gathers
+  every row's tokens and keeps its own row's outputs.
+* **Decode** splits attention by the KV cache's sequence, as
+  ``cache_shardings`` places it (flash-decoding's split-K): every member
+  projects the token's q, k, v for all heads, the member holding slot
+  ``pos`` writes k and v, each member scores its slots and the members'
+  partial softmax sums are merged by their maxima.  Recurrent states and
+  cross-attention caches are gathered for the row, updated and written
+  back shard by shard.
+
+Every cross-position copy, gather and partial sum is logged in a
+:class:`TransferLog` in mesh positions (not devices), so the log is the
+same on a mesh of one repeated device as on distinct cards.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+from dataclasses import dataclass, field
+from math import prod
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from .. import obs
+from ..tree import Stack, leaves, leaves_with_paths, map_with_paths
+from .attention import NEG_INF, _project_qkv, _quantize_kv, attention_block
+from .common import (ExecConfig, apply_rope, mm, mm_f32, rmsnorm,
+                     to_device, torch_dtype)
+from .config import ModelConfig
+from .model import (LM, _rope_cache, _save_dots, decode_block,
+                    init_block_cache, prelude_kinds, trailing_kinds,
+                    unit_kinds)
+from .moe import mlp_block, moe_block
+from .sharding import (P, Placed, Sharding, _blocks, batch_axes,
+                       cache_shardings, leaf_shape, param_spec)
+from .ssm import _smooth_result, race_smooth
+
+class MeshError(ValueError):
+    """A mesh, batch or model this execution cannot run."""
+
+
+# ---------------------------------------------------------------------------
+# the transfer log
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Transfer:
+    """One mesh position's part in one collective: ``nbytes`` is the
+    result's size there (the whole gathered or summed tensor), ``group``
+    the positions taking part, ``unit`` the layer unit it ran in (None: top
+    level), ``phase`` ``"forward"`` or ``"backward"``.  A collective over a
+    group of ``g`` positions is ``g`` entries."""
+
+    kind: str
+    nbytes: int
+    group: int
+    unit: Optional[int]
+    phase: str
+
+
+@dataclass
+class TransferLog:
+    entries: list = field(default_factory=list)
+
+    def add(self, kind, nbytes, group, unit, phase="forward"):
+        self.entries.append(Transfer(kind, int(nbytes), int(group), unit,
+                                     phase))
+
+    def bytes_by_kind(self) -> dict:
+        out = {}
+        for e in self.entries:
+            out[e.kind] = out.get(e.kind, 0) + e.nbytes
+        return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# ---------------------------------------------------------------------------
+# the mesh's positions
+# ---------------------------------------------------------------------------
+
+
+class Layout:
+    """Positions (coordinate tuples in row-major order), rows (the batch
+    axes' coordinates) and members (the ``model`` coordinate) of a mesh."""
+
+    def __init__(self, mesh):
+        if mesh.abstract:
+            raise MeshError(f"{mesh} is abstract (it holds no devices): a "
+                            f"step runs only on a mesh of torch devices")
+        unknown = set(mesh.axis_names) - {"pod", "data", "model"}
+        if unknown:
+            raise MeshError(f"mesh axes {sorted(unknown)}: the LM runs on "
+                            f"'pod', 'data' and 'model' only")
+        self.mesh = mesh
+        self.names = tuple(mesh.axis_names)
+        self.batch_axes = batch_axes(mesh)
+        self.positions = list(itertools.product(*(range(n)
+                                                  for n in mesh.sizes)))
+        self.M = mesh.shape.get("model", 1)
+        self.n_rows = prod(mesh.shape[a] for a in self.batch_axes)
+
+    def device(self, p) -> torch.device:
+        return self.mesh.devices[p]
+
+    def member(self, p) -> int:
+        return p[self.names.index("model")] if "model" in self.names else 0
+
+    def row(self, p) -> int:
+        r = 0
+        for a in self.batch_axes:
+            r = r * self.mesh.shape[a] + p[self.names.index(a)]
+        return r
+
+    def group(self, p, axes) -> list:
+        """The positions equal to ``p`` but on ``axes``, in row-major order
+        (which is the order of those axes' coordinates, major first)."""
+        free = [self.names.index(a) for a in axes]
+        return [q for q in self.positions
+                if all(q[i] == p[i] for i in range(len(p)) if i not in free)]
+
+    def live(self, axes) -> tuple:
+        return tuple(a for a in axes if self.mesh.shape.get(a, 1) > 1)
+
+
+def _split(n: int, parts: int, i: int) -> tuple:
+    """``[lo, hi)`` of the ``i``-th of ``parts`` near-equal runs of ``n``."""
+    base, extra = divmod(n, parts)
+    lo = i * base + min(i, extra)
+    return lo, lo + base + (1 if i < extra else 0)
+
+
+# ---------------------------------------------------------------------------
+# collectives: differentiable, logged
+# ---------------------------------------------------------------------------
+
+
+class Collectives:
+    """The collectives of one step on one :class:`Layout`, logged into
+    ``log`` with the layer unit being run (``unit``)."""
+
+    def __init__(self, layout: Layout, log: TransferLog, active=None):
+        self.L = layout
+        self.log = log
+        #: the positions whose programs run (all of them, or one on the
+        #: meta device: every position runs the same program)
+        self.active = list(active or layout.positions)
+        self.unit: Optional[int] = None
+
+    def value(self, vals: dict, q, like: torch.Tensor) -> torch.Tensor:
+        """``vals[q]``; a position that does not run stands in with its
+        shape, on the meta device only."""
+        if q in vals:
+            return vals[q]
+        if like.device.type != "meta":
+            raise MeshError(f"position {q} did not run")
+        return torch.empty_like(like)
+
+    def _logged(self, out: torch.Tensor, kind: str, back: str, group: int):
+        """Log ``kind`` now and ``back`` when the gradient reaches ``out``."""
+        unit, log, nb = self.unit, self.log, _nbytes(out)
+        log.add(kind, nb, group, unit)
+        if out.requires_grad:
+            out.register_hook(lambda g: log.add(back, nb, group, unit,
+                                                "backward"))
+        return out
+
+    def fetch(self, placed: Placed, blocks: list, region, at) -> torch.Tensor:
+        """``region`` (``(lo, hi)`` per dimension) of the tensor ``placed``
+        holds, assembled on ``at``'s device from the blocks that cover it;
+        a block ``at`` holds is read there, any other from its first
+        holder.  ``blocks`` is :func:`unique_blocks` of ``placed``."""
+        dev = self.L.device(at)
+        cuts = []
+        for d, (lo, hi) in enumerate(region):
+            pts = {lo, hi}
+            for sl, _ in blocks:
+                for b in (sl[d].start, sl[d].stop):
+                    if lo < b < hi:
+                        pts.add(b)
+            s = sorted(pts)
+            cuts.append(list(zip(s[:-1], s[1:])))
+        sources = {at}
+
+        def piece(cell):
+            for sl, holders in blocks:
+                if all(s.start <= lo < s.stop for s, (lo, _) in
+                       zip(sl, cell)):
+                    q = at if at in holders else holders[0]
+                    local = tuple(slice(lo - s.start, hi - s.start)
+                                  for s, (lo, hi) in zip(sl, cell))
+                    t = placed.shards[q][local]
+                    if q != at:
+                        sources.add(q)
+                        t = t.to(dev)
+                    return t
+            raise MeshError(f"no block holds {cell}")
+
+        def assemble(d, prefix):
+            if d == len(cuts):
+                return piece(prefix)
+            parts = [assemble(d + 1, prefix + [c]) for c in cuts[d]]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, d)
+
+        out = assemble(0, [])
+        if len(sources) > 1:
+            out = self._logged(out, "all-gather", "reduce-scatter",
+                               len(sources))
+        return out
+
+    def all_reduce(self, vals: dict, axes) -> dict:
+        """Every position's sum of ``vals`` over the positions differing
+        from it on ``axes``, added in one order on every member (so the
+        members' sums are bit-equal)."""
+        axes = self.L.live(axes)
+        if not axes:
+            return vals
+        out = {}
+        for p in vals:
+            grp = self.L.group(p, axes)
+            dev = self.L.device(p)
+            s = None
+            for q in grp:
+                t = self.value(vals, q, vals[p]).to(dev)
+                s = t if s is None else s + t
+            out[p] = self._logged(s, "all-reduce", "all-reduce", len(grp))
+        return out
+
+    def all_gather(self, vals: dict, axes, dim: int) -> dict:
+        """Every position's concatenation along ``dim`` of ``vals`` over the
+        positions differing from it on ``axes``, in their coordinates'
+        order."""
+        axes = self.L.live(axes)
+        if not axes:
+            return vals
+        out = {}
+        for p in vals:
+            grp = self.L.group(p, axes)
+            dev = self.L.device(p)
+            t = torch.cat([self.value(vals, q, vals[p]).to(dev)
+                           for q in grp], dim)
+            out[p] = self._logged(t, "all-gather", "reduce-scatter", len(grp))
+        return out
+
+
+def unique_blocks(placed: Placed) -> list:
+    """``[(slices, holders), ...]``: each distinct block of ``placed`` and
+    the positions holding it, in row-major order."""
+    out = {}
+    for coords, sl in _blocks(placed.shape, placed.sharding):
+        out.setdefault(tuple((s.start, s.stop) for s in sl), []).append(
+            coords)
+    return [(tuple(slice(a, b) for a, b in k), v) for k, v in out.items()]
+
+
+def _placed_empty(shape, dtype, sharding: Sharding) -> Placed:
+    """A :class:`Placed` of zeros made on each position's device."""
+    mesh = sharding.mesh
+    shards = np.empty(mesh.sizes, dtype=object)
+    for coords, sl in _blocks(tuple(shape), sharding):
+        block = tuple(s.stop - s.start for s in sl)
+        shards[coords] = torch.zeros(block, dtype=dtype,
+                                     device=mesh.devices[coords])
+    return Placed(tuple(shape), dtype, sharding, shards)
+
+
+# ---------------------------------------------------------------------------
+# the model on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _unit_spec(spec, ndim: int) -> P:
+    """A stacked unit leaf's spec without its leading unit axis."""
+    sp = tuple(spec) + (None,) * (ndim - len(spec))
+    return P(*sp[1:])
+
+
+class MeshLM:
+    """An :class:`~.model.LM`'s parameters placed on a mesh.
+
+    ``placed[name]`` is the :class:`~.sharding.Placed` of the parameter
+    ``name`` (``LM.named_parameters()``' names: ``units.3.attn.wq``); each
+    shard is a leaf tensor on its position's device.  Build one with
+    :func:`place_model`."""
+
+    def __init__(self, cfg: ModelConfig, mesh, placed: dict):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.layout = Layout(mesh)
+        self.placed = placed
+        self.blocks = {n: unique_blocks(p) for n, p in placed.items()}
+        self.structure = LM(cfg, None, torch.device("meta"),
+                            self._n_units())
+        #: the transfer log of the last step run on these parameters, and
+        #: the RACE mixer's operations it ran on the meta device
+        self.last_log: Optional[TransferLog] = None
+        self.last_meta_ops = 0.0
+
+    def _n_units(self) -> int:
+        nk = len(unit_kinds(self.cfg))
+        units = {int(n.split(".")[1]) for n in self.placed
+                 if n.startswith("units.")}
+        return len(units) // nk
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.device(self.layout.positions[0])
+
+    # -- the reference's tree ---------------------------------------------
+
+    def names_of(self, path: tuple, leaf) -> list:
+        """The parameter names of a reference leaf (a unit leaf's per
+        unit)."""
+        if path[0] == "units":
+            nk = len(unit_kinds(self.cfg))
+            rest = ".".join(map(str, path[2:]))
+            return [f"units.{u * nk + path[1]}.{rest}"
+                    for u in range(len(leaf))]
+        return [".".join(map(str, path))]
+
+    def ref_leaves(self) -> list:
+        """``(path, names, stacked)`` per reference leaf, in leaf order."""
+        tree = self.structure.param_tree()
+        return [(path, self.names_of(path, leaf), isinstance(leaf, Stack))
+                for path, leaf in leaves_with_paths(tree)]
+
+    def specs(self) -> dict:
+        """Reference path -> the stacked leaf's partition spec."""
+        tree = self.structure.param_tree()
+        return {path: param_spec(path, leaf_shape(leaf), self.mesh, self.cfg)
+                for path, leaf in leaves_with_paths(tree)}
+
+    def shard_leaves(self) -> list:
+        return [s for n in sorted(self.placed)
+                for s in self.placed[n].shards.flat]
+
+    def gathered(self, device=None) -> dict:
+        """The reference tree of whole tensors (units stacked), gathered
+        from the shards bit for bit on ``device`` (default the first
+        position's)."""
+        from .sharding import gather
+
+        dev = device or self.device
+        tree = self.structure.param_tree()
+
+        def leaf(path, lf):
+            ts = [gather(self.placed[n], dev).detach()
+                  for n in self.names_of(path, lf)]
+            return torch.stack(ts) if isinstance(lf, Stack) else ts[0]
+
+        return map_with_paths(leaf, tree)
+
+    def load_stacked(self, state) -> None:
+        """Copy a tree of :class:`~.sharding.Placed` stacked leaves (what
+        ``restore_checkpoint(shardings=)`` gives for :meth:`shardings`)
+        into the shards."""
+        with torch.no_grad():
+            for (path, names, stacked), pl in zip(
+                    self.ref_leaves(), leaves(state), strict=True):
+                for u, n in enumerate(names):
+                    for coords in self.layout.positions:
+                        src = pl.shards[coords]
+                        self.placed[n].shards[coords].copy_(
+                            src[u] if stacked else src)
+
+    def shardings(self):
+        """The reference tree of :class:`~.sharding.Sharding` s (stacked
+        unit leaves), as ``params_shardings`` gives it."""
+        from .sharding import params_shardings
+
+        return params_shardings(self.structure.param_tree(), self.mesh,
+                                self.cfg)
+
+    # -- one block's weights at one position -------------------------------
+
+    def full(self, name: str, coll: Collectives, at) -> torch.Tensor:
+        pl = self.placed[name]
+        return coll.fetch(pl, self.blocks[name],
+                          tuple((0, n) for n in pl.shape), at)
+
+    def cols(self, name: str, coll, at, lo: int, hi: int) -> torch.Tensor:
+        pl = self.placed[name]
+        region = tuple((0, n) for n in pl.shape[:-1]) + ((lo, hi),)
+        return coll.fetch(pl, self.blocks[name], region, at)
+
+    def rows(self, name: str, coll, at, lo: int, hi: int) -> torch.Tensor:
+        pl = self.placed[name]
+        region = ((lo, hi),) + tuple((0, n) for n in pl.shape[1:])
+        return coll.fetch(pl, self.blocks[name], region, at)
+
+    def module(self, prefix: str, coll, at) -> SimpleNamespace:
+        """Every parameter under ``prefix`` gathered whole onto ``at``, as
+        nested namespaces the single-device block code reads."""
+        root = SimpleNamespace()
+        for n in self.placed:
+            if not n.startswith(prefix + "."):
+                continue
+            *path, last = n[len(prefix) + 1:].split(".")
+            ns = root
+            for k in path:
+                if not hasattr(ns, k):
+                    setattr(ns, k, SimpleNamespace())
+                ns = getattr(ns, k)
+            setattr(ns, last, self.full(n, coll, at))
+        return root
+
+def place_model(model: LM, mesh, trainable: Optional[bool] = None) -> MeshLM:
+    """``model``'s parameters placed on ``mesh`` by the reference's
+    ``param_spec`` (shards are copies on each position's device; ``model``
+    is not touched).  ``trainable`` defaults to ``model``'s."""
+    from .sharding import place
+
+    cfg = model.cfg
+    Layout(mesh)  # refuses an abstract mesh or foreign axes
+    if trainable is None:
+        trainable = next(model.parameters()).requires_grad
+    tree = model.param_tree()
+    placed = {}
+    nk = len(unit_kinds(cfg))
+    for path, leaf in leaves_with_paths(tree):
+        spec = param_spec(path, leaf_shape(leaf), mesh, cfg)
+        if isinstance(leaf, Stack):
+            sh = Sharding(mesh, _unit_spec(spec, len(leaf_shape(leaf))))
+            rest = ".".join(map(str, path[2:]))
+            items = [(f"units.{u * nk + path[1]}.{rest}", t)
+                     for u, t in enumerate(leaf)]
+        else:
+            sh = Sharding(mesh, spec)
+            items = [(".".join(map(str, path)), leaf)]
+        for name, t in items:
+            pl = place(t.detach(), sh)
+            for s in pl.shards.flat:
+                s.requires_grad_(trainable)
+            placed[name] = pl
+    return MeshLM(cfg, mesh, placed)
+
+
+# ---------------------------------------------------------------------------
+# one forward on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _head_split(cfg: ModelConfig, M: int, m: int):
+    """Member ``m``'s query heads as ``(kv0, kv1, g0, g1)`` (KV groups
+    ``[kv0, kv1)``, query heads ``[g0, g1)`` within each), or None when
+    the heads do not split over ``M`` members."""
+    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    if M <= KV:
+        k0, k1 = _split(KV, M, m)
+        return k0, k1, 0, G
+    per = M // KV
+    if M % KV or G < per:
+        return None
+    g0, g1 = _split(G, per, m % per)
+    kv = m // per
+    return kv, kv + 1, g0, g1
+
+
+class Step:
+    """One forward (and backward) of a :class:`MeshLM`: its collectives,
+    the rows' inputs and the per-position state."""
+
+    def __init__(self, mp: MeshLM, exec_cfg: ExecConfig, active=None):
+        self.mp = mp
+        self.cfg = mp.cfg
+        self.ec = exec_cfg
+        self.L = mp.layout
+        self.log = TransferLog()
+        self.c = Collectives(self.L, self.log, active)
+        self.active = self.c.active
+        #: whether the batch splits over the rows (else, as
+        #: ``batch_shardings`` leaves it, every row holds all of it)
+        self.split = True
+        #: operations the mixer's RACE plans do on the meta device (the
+        #: flop counter does not see K1)
+        self.meta_mixer_ops = 0.0
+
+    # -- inputs -------------------------------------------------------------
+
+    def rows(self, value, dtype=None) -> dict:
+        """Each position's row slice of a batch entry (leading axis: the
+        batch), on its device; the whole batch on every row where it does
+        not split over the rows (``batch_shardings``' ``_fit``)."""
+        B = np.shape(value)[0] if not isinstance(value, torch.Tensor) \
+            else value.shape[0]
+        n = self.L.n_rows
+        self.split = B % n == 0
+        b = B // n if self.split else B
+        out = {}
+        for p in self.active:
+            r = self.L.row(p) if self.split else 0
+            out[p] = to_device(value[r * b:(r + 1) * b], self.L.device(p),
+                               dtype)
+        return out
+
+    def each(self, fn) -> dict:
+        return {p: fn(p) for p in self.active}
+
+    # -- blocks -------------------------------------------------------------
+
+    def embed(self, batch) -> dict:
+        cfg, mp = self.cfg, self.mp
+        if cfg.input_embed_dim:
+            e = self.rows(batch["embeds"], torch_dtype(cfg.dtype))
+            return self.each(lambda p: mm(e[p], mp.full("in_proj", self.c,
+                                                         p)))
+        tok = self.rows(batch["tokens"], torch.long)
+        V = cfg.vocab
+
+        def part(p):
+            lo, hi = _split(V, self.L.M, self.L.member(p))
+            table = mp.rows("embed", self.c, p, lo, hi)
+            local = tok[p] - lo
+            ok = (local >= 0) & (local < hi - lo)
+            return table[local.clamp(0, hi - lo - 1)] * ok[..., None].to(
+                table.dtype)
+
+        return self.c.all_reduce(self.each(part), ("model",))
+
+    def mixer(self, xs: dict) -> dict:
+        cfg = self.cfg
+        R = cfg.race_smooth_radius
+        D = cfg.d_model
+
+        def part(p):
+            c0, c1 = _split(D, self.L.M, self.L.member(p))
+            x = xs[p][..., c0:c1]
+            taps = self.mp.full("smooth_taps", self.c, p)
+            if x.device.type == "meta":
+                return self._meta_mixer(x, R)
+            with obs.span("spmd_mixer", position=",".join(map(str, p))):
+                return race_smooth(x, taps, radius=R)
+
+        ys = self.c.all_gather(self.each(part), ("model",), -1)
+        return {p: xs[p] + ys[p] for p in xs}
+
+    def _meta_mixer(self, x, R: int):
+        """On the meta device the mixer runs no kernel: its output's shape,
+        and the RACE plans' operations (forward, and each adjoint plan the
+        backward runs) tallied in :attr:`meta_mixer_ops`."""
+        from ..core.adjoint import adjoint_build
+
+        B, S, C = x.shape
+        res = _smooth_result(S, B * C, R)
+        plans = [res]
+        if torch.is_grad_enabled():
+            plans += [s.result() for s in adjoint_build(res.program).specs]
+        for r in plans:
+            pts = prod(lp.hi - lp.lo + 1 for lp in r.program.loops)
+            self.meta_mixer_ops += r.op_table()["weighted_total"] * pts
+        return torch.empty_like(x)
+
+    def attention(self, prefix, h: dict, rope, kv_src=None,
+                  window: int = 0) -> dict:
+        """The attention block's output on every position, summed over the
+        members' heads (or computed whole on each member where the heads
+        do not split)."""
+        cfg, mp = self.cfg, self.mp
+        dh = cfg.d_head
+        G = cfg.n_heads // cfg.n_kv_heads
+        split = [_head_split(cfg, self.L.M, m) for m in range(self.L.M)]
+        tp = self.L.M > 1 and all(s is not None for s in split)
+
+        def part(p):
+            kv0, kv1, g0, g1 = (split[self.L.member(p)] if tp
+                                else (0, cfg.n_kv_heads, 0, G))
+            q_lo = (kv0 * G + g0) * dh
+            q_hi = ((kv1 - 1) * G + g1) * dh
+            ns = SimpleNamespace(
+                wq=mp.cols(f"{prefix}.wq", self.c, p, q_lo, q_hi),
+                wk=mp.cols(f"{prefix}.wk", self.c, p, kv0 * dh, kv1 * dh),
+                wv=mp.cols(f"{prefix}.wv", self.c, p, kv0 * dh, kv1 * dh),
+                wo=mp.rows(f"{prefix}.wo", self.c, p, q_lo, q_hi))
+            if cfg.qkv_bias:
+                ns.bq = mp.cols(f"{prefix}.bq", self.c, p, q_lo, q_hi)
+                ns.bk = mp.cols(f"{prefix}.bk", self.c, p, kv0 * dh, kv1 * dh)
+                ns.bv = mp.cols(f"{prefix}.bv", self.c, p, kv0 * dh, kv1 * dh)
+            if cfg.qk_norm:
+                ns.q_norm = mp.full(f"{prefix}.q_norm", self.c, p)
+                ns.k_norm = mp.full(f"{prefix}.k_norm", self.c, p)
+            local = _local_heads(cfg, kv1 - kv0, g1 - g0)
+            return attention_block(
+                h[p], ns, local, self.ec, rope_cache=rope[p],
+                kv_src=None if kv_src is None else kv_src[p], window=window)
+
+        out = self.each(part)
+        return self.c.all_reduce(out, ("model",)) if tp else out
+
+    def mlp(self, prefix, h: dict, d_ff: int) -> dict:
+        mp = self.mp
+
+        def part(p):
+            lo, hi = _split(d_ff, self.L.M, self.L.member(p))
+            ns = SimpleNamespace(
+                w_gate=mp.cols(f"{prefix}.w_gate", self.c, p, lo, hi),
+                w_up=mp.cols(f"{prefix}.w_up", self.c, p, lo, hi),
+                w_down=mp.rows(f"{prefix}.w_down", self.c, p, lo, hi))
+            return mlp_block(h[p], ns)
+
+        return self.c.all_reduce(self.each(part), ("model",))
+
+    def moe(self, prefix, h: dict) -> dict:
+        """The MoE block over every row's tokens (global capacity
+        dispatch); each position keeps its row's outputs."""
+        full = (self.c.all_gather(h, self.L.batch_axes, 0) if self.split
+                else h)
+
+        def part(p):
+            B_r = h[p].shape[0]
+            r = self.L.row(p) if self.split else 0
+            ns = self.mp.module(prefix, self.c, p)
+            y = (_meta_moe(full[p], ns, self.cfg, self.ec)
+                 if h[p].device.type == "meta" else
+                 moe_block(full[p], ns, self.cfg, exec_cfg=self.ec))
+            return y[r * B_r:(r + 1) * B_r]
+
+        return self.each(part)
+
+    def block(self, xs: dict, prefix: str, kind: str, rope, vision) -> dict:
+        cfg, mp = self.cfg, self.mp
+        ln = lambda name: {p: rmsnorm(xs[p], mp.full(  # noqa: E731
+            f"{prefix}.{name}", self.c, p)) for p in xs}
+        if kind in ("attn", "dense_attn", "cross", "moe"):
+            window = cfg.window if (cfg.kind == "hybrid"
+                                    and kind != "cross") else 0
+            a = self.attention(f"{prefix}.attn", ln("ln1"),
+                               rope if kind != "cross" else self._none(),
+                               kv_src=vision if kind == "cross" else None,
+                               window=window)
+            xs = {p: xs[p] + a[p] for p in xs}
+            h = ln("ln2")
+            if kind == "moe":
+                f = self.moe(f"{prefix}.moe", h)
+            else:
+                d_ff = cfg.dense_first_layer_ff if kind == "dense_attn" \
+                    else cfg.d_ff
+                f = self.mlp(f"{prefix}.mlp", h, d_ff)
+            return {p: xs[p] + f[p] for p in xs}
+        if kind == "mamba":
+            from .ssm import mamba_block
+
+            h = ln("ln1")
+            return {p: xs[p] + mamba_block(
+                h[p], mp.module(f"{prefix}.mamba", self.c, p), cfg, self.ec)
+                for p in xs}
+        if kind == "rglru":
+            from .ssm import rglru_block
+
+            h = ln("ln1")
+            xs = {p: xs[p] + rglru_block(
+                h[p], mp.module(f"{prefix}.rglru", self.c, p), cfg, self.ec)
+                for p in xs}
+            f = self.mlp(f"{prefix}.mlp", ln("ln2"), cfg.d_ff)
+            return {p: xs[p] + f[p] for p in xs}
+        raise ValueError(kind)
+
+    def _none(self) -> dict:
+        return {p: None for p in self.active}
+
+    def _remat(self, fn, xs: dict) -> dict:
+        """``fn`` over every position's residual, recomputed in the
+        backward (the reference's per-unit ``jax.checkpoint``): its
+        gathers run again there."""
+        ec = self.ec
+        if not (ec.remat and torch.is_grad_enabled()):
+            return fn(xs)
+        order = list(xs)
+
+        def body(*ts):
+            out = fn(dict(zip(order, ts)))
+            return tuple(out[p] for p in order)
+
+        if ec.remat_policy == "nothing":
+            kw = {}
+        elif ec.remat_policy == "dots":
+            kw = {"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)}
+        else:
+            raise ValueError(f"remat_policy {ec.remat_policy!r}")
+        out = checkpoint(body, *(xs[p] for p in order), use_reentrant=False,
+                         preserve_rng_state=False, **kw)
+        return dict(zip(order, out))
+
+    def hidden(self, batch) -> dict:
+        """Every position's final hidden states (B_r, S, D) after ``ln_f``:
+        ``forward_hidden`` on the mesh."""
+        cfg, mp = self.cfg, self.mp
+        xs = self.embed(batch)
+        if cfg.race_smooth_radius:
+            xs = self.mixer(xs)
+        S = next(iter(xs.values())).shape[1]
+        rope = self.each(lambda p: _rope_cache(cfg, S, self.L.device(p)))
+        vision = (self.rows(batch["vision"]) if batch.get("vision")
+                  is not None else self._none())
+        for i, kind in enumerate(prelude_kinds(cfg)):
+            xs = self.block(xs, f"prelude.{i}", kind, rope, vision)
+        uk = unit_kinds(cfg)
+        for u in range(len(mp.structure.units) // len(uk)):
+            def unit_body(xs, u=u):
+                self.c.unit = u
+                for j, kind in enumerate(uk):
+                    xs = self.block(xs, f"units.{u * len(uk) + j}", kind,
+                                    rope, vision)
+                self.c.unit = None
+                return xs
+
+            xs = self._remat(unit_body, xs)
+        for i, kind in enumerate(trailing_kinds(cfg)):
+            xs = self.block(xs, f"trailing.{i}", kind, rope, vision)
+        return {p: rmsnorm(xs[p], mp.full("ln_f", self.c, p)) for p in xs}
+
+    # -- the loss and the logits -------------------------------------------
+
+    def loss(self, batch) -> torch.Tensor:
+        """``chunked_ce_loss`` on the mesh: each member's logits over its
+        vocab columns, chunk by chunk (recomputed in the backward), its
+        log-sum-exp and gold logit combined over the members, the masked
+        sum and count over every row, on the first position's device."""
+        cfg, ec = self.cfg, self.ec
+        h = self.hidden(batch)
+        labels = self.rows(batch["labels"], torch.long)
+        mask = (self.rows(batch["mask"], torch.float32) if batch.get("mask")
+                is not None else None)
+        S = next(iter(h.values())).shape[1]
+        if ec.unroll_scans:
+            n_chunks = min(ec.probe_chunks, S)
+        else:
+            n_chunks = max(1, S // max(1, min(ec.loss_chunk, S)))
+        while S % n_chunks:
+            n_chunks -= 1
+        C = S // n_chunks
+        dt = torch_dtype(ec.logits_dtype)
+        V = cfg.vocab
+        w = {}
+        for p in self.active:
+            lo, hi = _split(V, self.L.M, self.L.member(p))
+            w[p] = (self.mp.cols("head", self.c, p, lo, hi).float(), lo)
+        dev0 = self.L.device(self.active[0])
+        total = cnt = torch.zeros((), device=dev0)
+        for i in range(n_chunks):
+            sl = slice(i * C, (i + 1) * C)
+
+            def part(p):
+                args = (h[p][:, sl], w[p][0], labels[p][:, sl], w[p][1], dt)
+                return (checkpoint(_ce_part, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+                        if torch.is_grad_enabled() else _ce_part(*args))
+
+            parts = self.each(part)
+            lse = self.c.all_gather({p: parts[p][0][None] for p in parts},
+                                    ("model",), 0)
+            gold = self.c.all_reduce({p: parts[p][1] for p in parts},
+                                     ("model",))
+            for p in self.active:
+                if self.L.member(p) or (not self.split and self.L.row(p)):
+                    # a row's sum is taken once, on its member 0; a batch
+                    # every row holds is summed on the first row only
+                    continue
+                m = (torch.ones(labels[p][:, sl].shape, device=dev0)
+                     if mask is None else mask[p][:, sl].to(dev0))
+                row = ((torch.logsumexp(lse[p], 0) - gold[p]).to(dev0)
+                       * m).sum()
+                total = total + row
+                cnt = cnt + m.sum()
+        if self.L.n_rows > 1 and self.split:  # the rows' sums and counts
+            for _ in range(self.L.n_rows):
+                self.log.add("all-reduce", 8, self.L.n_rows, None)
+        return total / torch.clamp(cnt, min=1.0)
+
+    def last_logits(self, h: dict) -> torch.Tensor:
+        """(B, V) float32 logits of the last position, on the first
+        position's device."""
+        V = self.cfg.vocab
+
+        def part(p):
+            lo, hi = _split(V, self.L.M, self.L.member(p))
+            return mm(h[p][:, -1], self.mp.cols("head", self.c, p, lo,
+                                                hi)).float()
+
+        full = self.c.all_gather(self.each(part), ("model",), -1)
+        if self.split:
+            full = self.c.all_gather(full, self.L.batch_axes, 0)
+        return full[self.active[0]]
+
+
+def _meta_moe(x, p, cfg: ModelConfig, exec_cfg: ExecConfig):
+    """``moe_block``'s ``"capacity"`` path on the meta device, where its
+    data-dependent indexing cannot run: the router, top-k and gates, each
+    dispatch chunk's (E, C, D) buffer through the three expert products,
+    the gated combine and the shared experts, with index tensors standing
+    in for the routing (their values are never read)."""
+    from .common import silu
+
+    B, S, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_top_k
+    T = B * S
+    if exec_cfg.unroll_scans:
+        n = min(exec_cfg.probe_chunks, T)
+    elif exec_cfg.moe_chunk and T > exec_cfg.moe_chunk:
+        n = T // exec_cfg.moe_chunk
+    else:
+        n = 1
+    while T % n:
+        n -= 1
+    Tc = T // n
+    C = max(8, int(Tc * K * cfg.moe_capacity) // E)
+    xf = x.reshape(T, D)
+    gates = torch.softmax(torch.topk(xf.float() @ p.router, K).values, -1)
+    outs = []
+    for i in range(n):
+        xc = xf[i * Tc:(i + 1) * Tc]
+        take = torch.empty(E * C, dtype=torch.long, device=x.device)
+        buf = xc[take].reshape(E, C, D)
+        y = mm(silu(mm(buf, p.w_gate)) * mm(buf, p.w_up), p.w_down)
+        back = torch.empty(Tc * K, dtype=torch.long, device=x.device)
+        g = gates[i * Tc:(i + 1) * Tc].reshape(Tc * K, 1)
+        outs.append((y.reshape(E * C, D)[back] * g.to(y.dtype)).reshape(
+            Tc, K, D).sum(1))
+    out = torch.cat(outs)
+    if cfg.moe_shared:
+        out = out + mlp_block(xf, p.shared)
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+def _local_heads(cfg: ModelConfig, n_kv: int, g: int) -> ModelConfig:
+    """``cfg`` seen by a member computing ``n_kv`` KV heads of ``g`` query
+    heads each (``d_head`` kept)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, n_heads=n_kv * g, n_kv_heads=n_kv,
+                               d_head=cfg.d_head)
+
+
+def _ce_part(hc, w, lc, lo: int, logits_dtype):
+    """One member's chunk: (log-sum-exp over its vocab columns, the gold
+    logit where the label is one of them, else 0), each (B, C)."""
+    logits = mm_f32(hc, w, "bcd,dv->bcv").to(logits_dtype).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    local = lc - lo
+    ok = (local >= 0) & (local < w.shape[1])
+    gold = torch.gather(logits, -1, local.clamp(0, w.shape[1] - 1)[..., None]
+                        )[..., 0]
+    return lse, gold * ok
+
+
+# ---------------------------------------------------------------------------
+# the optimizer on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _axes_of(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _replica_axes(spec, mesh) -> tuple:
+    used = {a for e in spec for a in _axes_of(e)}
+    return tuple(a for a in mesh.axis_names if a not in used)
+
+
+def adamw_init(mp: MeshLM, cfg) -> dict:
+    """AdamW's state for ``mp``, placed by ``opt_state_shardings``: the
+    reference's structure, every leaf a :class:`~.sharding.Placed` of
+    zeros (``step`` replicated)."""
+    from ..launch.specs import opt_shardings
+
+    tree = mp.structure.param_tree()
+    specs = opt_shardings(tree, mp.shardings(), cfg, mp.mesh)
+    mdt = getattr(torch, cfg.m_dtype)
+    from ..optim.adamw import _factorable
+
+    mu = []
+    for leaf, sh in zip(leaves(tree), specs["mu"], strict=True):
+        shape = leaf_shape(leaf)
+        d = {"m": _placed_empty(shape, mdt, sh["m"])}
+        if cfg.factored and _factorable(shape):
+            d["vr"] = _placed_empty(shape[:-1], torch.float32, sh["vr"])
+            d["vc"] = _placed_empty(shape[:-2] + shape[-1:], torch.float32,
+                                    sh["vc"])
+        else:
+            d["v"] = _placed_empty(shape, torch.float32, sh["v"])
+        mu.append(d)
+    step = _placed_empty((), torch.int32, specs["step"])
+    return {"mu": tuple(mu), "step": step}
+
+
+def _grads(mp: MeshLM, coll: Collectives, loss) -> dict:
+    """name -> {position: gradient of the shard}, each replicated block's
+    copies summed over the positions holding it."""
+    names = sorted(mp.placed)
+    flat = [(n, c) for n in names for c in mp.layout.positions]
+    shards = [mp.placed[n].shards[c] for n, c in flat]
+    if not shards[0].requires_grad:
+        raise ValueError("the mesh model's shards are frozen: place a "
+                         "trainable model (init_params(..., "
+                         "trainable=True))")
+    gs = torch.autograd.grad(loss, shards, allow_unused=True)
+    out = {n: {} for n in names}
+    active = set(coll.active)
+    for (n, c), s, g in zip(flat, shards, gs):
+        if c in active:
+            out[n][c] = torch.zeros_like(s) if g is None else g
+    specs = {n: mp.placed[n].sharding.spec for n in names}
+    with torch.no_grad():
+        for n in names:
+            out[n] = coll.all_reduce(out[n], _replica_axes(specs[n],
+                                                           mp.mesh))
+    return out
+
+
+def _global_norm(mp: MeshLM, coll: Collectives, grads: dict):
+    """The global norm of the gradient, each distinct block counted once,
+    on the first position's device."""
+    dev0 = mp.device
+    total = torch.zeros((), device=dev0)
+    for n in sorted(grads):
+        like = next(iter(grads[n].values()))
+        for _, holders in mp.blocks[n]:
+            g = coll.value(grads[n], holders[0], like)
+            total = total + torch.sum(torch.square(g.float())).to(dev0)
+    n = len(mp.layout.positions)
+    for _ in range(n):
+        coll.log.add("all-reduce", 4, n, None)
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(mp: MeshLM, coll: Collectives, grads: dict, state: dict,
+                 cfg, lr) -> dict:
+    """The reference's AdamW on every position's shards (in place): plain
+    and ``m_bf16`` leaf by leaf as :func:`repro_torch.optim.adamw_update`
+    computes them; a factored leaf's row and column means (and the mean of
+    its row statistic) summed over the positions holding the other slices
+    of the reduced dimension."""
+    active = coll.active
+    new_mu = []
+    step_pl = state["step"]
+    steps = {p: step_pl.shards[p] + 1 for p in active}
+    for (path, names, stacked), s, spec in zip(
+            mp.ref_leaves(), state["mu"], mp.specs().values(), strict=True):
+        sp = tuple(spec) + (None,) * 8
+        shape = (len(names),) + tuple(mp.placed[names[0]].shape) if stacked \
+            else tuple(mp.placed[names[0]].shape)
+        nd = len(shape)
+        sp = sp[:nd]
+
+        def param(p):
+            ts = [mp.placed[n].shards[p] for n in names]
+            return torch.stack(ts) if stacked else ts[0]
+
+        def grad(p):
+            gs = [grads[n][p] for n in names]
+            return (torch.stack(gs) if stacked else gs[0]).float()
+
+        gf = {p: grad(p) for p in active}
+        vhat = {}
+        new_s = {k: {} for k in s}
+        if "v" in s:
+            for p in active:
+                v = cfg.b2 * s["v"].shards[p] + (1 - cfg.b2) * gf[p] * gf[p]
+                new_s["v"][p] = v
+                vhat[p] = v / (1.0 - cfg.b2 ** steps[p].float())
+        else:
+            sq = {p: gf[p] * gf[p] for p in active}
+            mr = coll.all_reduce({p: sq[p].sum(-1) for p in sq},
+                                 _axes_of(sp[-1]))
+            mc = coll.all_reduce({p: sq[p].sum(-2) for p in sq},
+                                 _axes_of(sp[-2]))
+            for p in active:
+                new_s["vr"][p] = (cfg.b2 * s["vr"].shards[p]
+                                  + (1 - cfg.b2) * mr[p] / shape[-1])
+                new_s["vc"][p] = (cfg.b2 * s["vc"].shards[p]
+                                  + (1 - cfg.b2) * mc[p] / shape[-2])
+            den = coll.all_reduce({p: new_s["vr"][p].sum(-1, keepdim=True)
+                                   for p in active}, _axes_of(sp[-2]))
+            for p in active:
+                d = torch.clamp(den[p] / shape[-2], min=1e-30)
+                vr, vc = new_s["vr"][p], new_s["vc"][p]
+                vhat[p] = (vr[..., None] * vc[..., None, :] / d[..., None]) \
+                    / (1.0 - cfg.b2 ** steps[p].float())
+        for p in active:
+            b1c = 1.0 - cfg.b1 ** steps[p].float()
+            m = cfg.b1 * s["m"].shards[p].float() + (1 - cfg.b1) * gf[p]
+            new_s["m"][p] = m.to(s["m"].dtype)
+            w = param(p)
+            upd = (m / b1c) / (torch.sqrt(vhat[p]) + cfg.eps)
+            upd = upd + cfg.weight_decay * w.float()
+            new_w = (w.float() - lr.to(w.device) * upd).to(w.dtype)
+            for u, n in enumerate(names):
+                mp.placed[n].shards[p].copy_(new_w[u] if stacked else new_w)
+        out = {}
+        for k, pl in s.items():
+            shards = pl.shards.copy()
+            for p in active:
+                shards[p] = new_s[k][p]
+            out[k] = Placed(pl.shape, pl.dtype, pl.sharding, shards)
+        new_mu.append(out)
+    sh = step_pl.shards.copy()
+    for p in active:
+        sh[p] = steps[p]
+    return {"mu": tuple(new_mu),
+            "step": Placed((), torch.int32, step_pl.sharding, sh)}
+
+
+# ---------------------------------------------------------------------------
+# the steps
+# ---------------------------------------------------------------------------
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg, exec_cfg: ExecConfig,
+                    total_steps: int = 100_000, warmup: int = 1_000,
+                    positions=None):
+    """The reference's train step on the mesh of ``exec_cfg``: ``(mp,
+    opt_state, batch) -> (mp, opt_state, {"loss", "gnorm", "lr"})`` with
+    ``mp`` a trainable :class:`MeshLM` (updated in place) and
+    ``opt_state`` from :func:`adamw_init`.  ``positions`` (on a mesh of
+    meta devices only) runs those positions' programs alone."""
+    from ..optim import cosine_schedule
+
+    def train_step(mp, opt_state, batch):
+        st = Step(mp, exec_cfg, positions)
+        loss = st.loss(batch)
+        mp.last_log, mp.last_meta_ops = st.log, st.meta_mixer_ops
+        st.c.unit = None
+        grads = _grads(mp, st.c, loss)
+        with torch.no_grad():
+            gnorm = _global_norm(mp, st.c, grads)
+            scale = torch.clamp(opt_cfg.clip_norm / torch.clamp(gnorm,
+                                                               min=1e-12),
+                                max=1.0)
+            for n in grads:
+                for p, g in grads[n].items():
+                    grads[n][p] = (g.float() * scale.to(g.device)).to(
+                        g.dtype)
+        step0 = opt_state["step"].shards[st.active[0]]
+        lr = cosine_schedule(step0 + 1, opt_cfg.lr, warmup, total_steps)
+        new_opt = adamw_update(mp, st.c, grads, opt_state, opt_cfg, lr)
+        return mp, new_opt, {"loss": loss.detach(), "gnorm": gnorm,
+                             "lr": lr}
+
+    return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, exec_cfg: ExecConfig,
+                      positions=None):
+    @torch.no_grad()
+    def prefill_step(mp, batch):
+        st = Step(mp, exec_cfg, positions)
+        out = st.last_logits(st.hidden(batch))
+        mp.last_log, mp.last_meta_ops = st.log, st.meta_mixer_ops
+        return out
+
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# decode on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _layer_kinds(cfg: ModelConfig, n_units: int) -> list:
+    uk = unit_kinds(cfg)
+    return ([(f"prelude.{i}", k) for i, k in enumerate(prelude_kinds(cfg))]
+            + [(f"units.{i}", uk[i % len(uk)])
+               for i in range(n_units * len(uk))]
+            + [(f"trailing.{i}", k)
+               for i, k in enumerate(trailing_kinds(cfg))])
+
+
+def init_caches(mp: MeshLM, batch: int, max_len: int,
+                kv_quant: bool = False) -> dict:
+    """The decode state on the mesh: ``{"prelude", "units", "trailing"}``
+    as :func:`~.model.init_caches` gives it, every leaf a
+    :class:`~.sharding.Placed` of zeros by ``cache_shardings``."""
+    cfg = mp.cfg
+    out = {"prelude": [], "units": [], "trailing": []}
+    for prefix, kind in _layer_kinds(cfg, mp._n_units()):
+        like = init_block_cache(cfg, kind, batch, max_len, kv_quant,
+                                torch.device("meta"))
+        sh = cache_shardings(like, mp.mesh, cfg)
+        out[prefix.split(".")[0]].append(
+            {k: _placed_empty(tuple(v.shape), v.dtype, sh[k])
+             for k, v in like.items()})
+    return out
+
+
+def gather_caches(caches: dict, device=None) -> dict:
+    """The mesh caches as :func:`~.model.init_caches`' tensors (bit for
+    bit)."""
+    from .sharding import gather
+
+    return {part: [{k: gather(v, device) for k, v in c.items()}
+                   for c in layers] for part, layers in caches.items()}
+
+
+def _slot_range(pl: Placed, p) -> tuple:
+    """The batch rows and sequence slots ``[lo, hi)`` of a k / v cache's
+    shard at ``p`` (dims 0 and 1)."""
+    for coords, sl in _blocks(pl.shape, pl.sharding):
+        if coords == p:
+            return sl[0], sl[1]
+    raise MeshError(f"no shard at {p}")
+
+
+class DecodeStep(Step):
+    """One decode step on the mesh."""
+
+    def row_cache(self, pl: Placed, p) -> torch.Tensor:
+        """The whole of row ``p``'s batch rows of a cache leaf on ``p``."""
+        rows, _ = _slot_range(pl, p)
+        region = ((rows.start, rows.stop),) + tuple((0, n)
+                                                    for n in pl.shape[1:])
+        return self.c.fetch(pl, unique_blocks(pl), region, p)
+
+    def write_back(self, pl: Placed, p, value: torch.Tensor) -> None:
+        """Store ``p``'s block of ``value`` (a row's whole cache leaf) into
+        its shard."""
+        rows, _ = _slot_range(pl, p)
+        for coords, sl in _blocks(pl.shape, pl.sharding):
+            if coords == p:
+                local = (slice(0, rows.stop - rows.start),) + tuple(sl[1:])
+                pl.shards[p].copy_(value[local])
+
+    def self_attention(self, prefix, h: dict, cache: dict, pos: int, rope,
+                       window: int) -> dict:
+        cfg, mp = self.cfg, self.mp
+        dh = cfg.d_head
+        quant = "k_scale" in cache
+        kpl, vpl = cache["k"], cache["v"]
+        Smax = kpl.shape[1]
+        slot = pos % Smax if window > 0 else pos
+        # the members scoring distinct slot ranges (a range held by more
+        # than one member is scored by its first holder)
+        owners = {}
+        for coords, sl in _blocks(kpl.shape, kpl.sharding):
+            owners.setdefault((self.L.row(coords), sl[1].start), coords)
+        scorers = set(owners.values())
+
+        mods = {}
+
+        def part(p):
+            ns = mods[p] = self.mp.module(prefix, self.c, p)
+            q, k, v = _project_qkv(h[p], h[p], ns, cfg)
+            B = q.shape[0]
+            if rope[p] is not None:
+                cos, sin = rope[p]
+                pc = cos[pos].expand(B, 1, dh // 2)
+                ps = sin[pos].expand(B, 1, dh // 2)
+                q = apply_rope(q, pc, ps)
+                k = apply_rope(k, pc, ps)
+            _, seq = _slot_range(kpl, p)
+            if seq.start <= slot < seq.stop:
+                i = slot - seq.start
+                if quant:
+                    kq, ks = _quantize_kv(k)
+                    vq, vs = _quantize_kv(v)
+                    kpl.shards[p][:, i] = kq[:, 0]
+                    vpl.shards[p][:, i] = vq[:, 0]
+                    cache["k_scale"].shards[p][:, i] = ks[:, 0]
+                    cache["v_scale"].shards[p][:, i] = vs[:, 0]
+                else:
+                    kpl.shards[p][:, i] = k[:, 0]
+                    vpl.shards[p][:, i] = v[:, 0]
+            if p not in scorers:
+                return q, None
+            if quant:
+                k_eff = (kpl.shards[p].to(torch.bfloat16) * cache[
+                    "k_scale"].shards[p][..., None].to(torch.bfloat16))
+                v_eff = (vpl.shards[p].to(torch.bfloat16) * cache[
+                    "v_scale"].shards[p][..., None].to(torch.bfloat16))
+            else:
+                k_eff, v_eff = kpl.shards[p], vpl.shards[p]
+            idx = torch.arange(seq.start, seq.stop, device=q.device)
+            if window > 0:
+                valid = (idx <= slot) | (pos >= Smax)
+            else:
+                valid = idx <= pos
+            s = mm_f32(q, k_eff, "bqkgd,bckd->bkgqc") * (dh ** -0.5)
+            s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+            mx = s.amax(-1)
+            e = torch.exp(s - mx[..., None])
+            o = mm_f32(e.to(v_eff.dtype), v_eff, "bkgqc,bckd->bkgqd")
+            return q, (mx, e.sum(-1), o)
+
+        parts = self.each(part)
+        like = next(st for _, st in parts.values() if st is not None)
+        out = {}
+        for p in self.active:
+            grp = [q for q in self.L.group(p, ("model",)) if q in scorers]
+            dev = self.L.device(p)
+            stats = [tuple(t.to(dev) for t in (
+                parts[q][1] if q in parts else
+                tuple(self.c.value({}, q, t) for t in like))) for q in grp]
+            if len(grp) > 1:
+                self.log.add("all-gather", sum(_nbytes(t) for s in stats
+                                               for t in s),
+                             len(grp), self.c.unit)
+            mx = functools.reduce(torch.maximum, [s[0] for s in stats])
+            den = sum(s[1] * torch.exp(s[0] - mx) for s in stats)
+            num = sum(s[2] * torch.exp(s[0] - mx)[..., None] for s in stats)
+            o = (num / den[..., None]).permute(0, 3, 1, 2, 4)
+            B = o.shape[0]
+            out[p] = mm(o.to(h[p].dtype).reshape(B, 1, cfg.n_heads * dh),
+                        mods[p].wo)
+        return out
+
+    def layer(self, xs, prefix, kind, cache, pos, rope) -> dict:
+        cfg, mp = self.cfg, self.mp
+        ln = lambda name, xs: {p: rmsnorm(xs[p], mp.full(  # noqa: E731
+            f"{prefix}.{name}", self.c, p)) for p in xs}
+        if kind in ("attn", "dense_attn", "moe"):
+            window = cfg.window if cfg.kind == "hybrid" else 0
+            a = self.self_attention(f"{prefix}.attn", ln("ln1", xs), cache,
+                                    pos, rope, window)
+            xs = {p: xs[p] + a[p] for p in xs}
+            h = ln("ln2", xs)
+            if kind == "moe":
+                f = self.moe(f"{prefix}.moe", h)
+            else:
+                d_ff = cfg.dense_first_layer_ff if kind == "dense_attn" \
+                    else cfg.d_ff
+                f = self.mlp(f"{prefix}.mlp", h, d_ff)
+            return {p: xs[p] + f[p] for p in xs}
+        # recurrent states and cross-attention caches: the row's whole
+        # state gathered, the single-device layer run, each shard written
+        out, new = {}, {}
+        for p in self.active:
+            full = {k: self.row_cache(v, p) for k, v in cache.items()}
+            out[p], new[p] = decode_block(
+                xs[p], mp.module(prefix, self.c, p), cfg, self.ec, kind,
+                full, pos, rope[p])
+        if kind != "cross":  # every member read the old state first
+            for p in self.active:
+                for k, v in cache.items():
+                    self.write_back(v, p, new[p][k])
+        return out
+
+
+def make_decode_step(cfg: ModelConfig, exec_cfg: ExecConfig, max_len: int,
+                     positions=None):
+    """``decode_one(mp, caches, token, pos) -> (logits (B, V) float32 on
+    the first position's device, caches)`` with ``caches`` from
+    :func:`init_caches` (updated in place)."""
+
+    @torch.no_grad()
+    def decode_one(mp, caches, token, pos):
+        st = DecodeStep(mp, exec_cfg, positions)
+        pos = int(pos)
+        xs = st.embed({"tokens": token})
+        rope = st.each(lambda p: None if cfg.kind in ("ssm",) else
+                       _rope_cache(cfg, max_len, st.L.device(p)))
+        layers = caches["prelude"] + caches["units"] + caches["trailing"]
+        nk = len(unit_kinds(cfg))
+        for (prefix, kind), c in zip(_layer_kinds(cfg, mp._n_units()),
+                                     layers, strict=True):
+            if prefix.startswith("units."):
+                st.c.unit = int(prefix.split(".")[1]) // nk
+            xs = st.layer(xs, prefix, kind, c, pos, rope)
+            st.c.unit = None
+        h = {p: rmsnorm(xs[p], mp.full("ln_f", st.c, p)) for p in xs}
+        out = st.last_logits(h)
+        mp.last_log, mp.last_meta_ops = st.log, st.meta_mixer_ops
+        return out, caches
+
+    return decode_one

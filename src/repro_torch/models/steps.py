@@ -1,5 +1,7 @@
 """Step builders of the port (``repro/models/steps.py``): the loss and the
-train step, and the prefill and decode steps the launchers call."""
+train step, and the prefill and decode steps the launchers call.  With
+``exec_cfg.mesh`` set each builder returns :mod:`.spmd`'s step, which takes
+a :class:`~.spmd.MeshLM` (``spmd.place_model``) where these take an LM."""
 from __future__ import annotations
 
 from typing import Optional
@@ -49,6 +51,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     over the parameters in the reference's leaf order, clipped to
     ``opt_cfg.clip_norm``, then AdamW at ``cosine_schedule(step + 1)``.
     ``params`` (a trainable LM) is updated in place."""
+    if exec_cfg.mesh is not None:
+        from . import spmd
+
+        return spmd.make_train_step(cfg, opt_cfg, exec_cfg, total_steps,
+                                    warmup)
     loss_fn = make_loss_fn(cfg, exec_cfg, n_units_override)
 
     def train_step(params, opt_state, batch):
@@ -66,6 +73,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 def make_prefill_step(cfg: ModelConfig, exec_cfg: ExecConfig,
                       n_units_override: Optional[int] = None):
+    if exec_cfg.mesh is not None:
+        from . import spmd
+
+        return spmd.make_prefill_step(cfg, exec_cfg)
+
     def prefill_step(params, batch):
         return prefill_logits(params, cfg, exec_cfg, batch, n_units_override)
 
@@ -74,6 +86,11 @@ def make_prefill_step(cfg: ModelConfig, exec_cfg: ExecConfig,
 
 def make_decode_step(cfg: ModelConfig, exec_cfg: ExecConfig, max_len: int,
                      n_units_override: Optional[int] = None):
+    if exec_cfg.mesh is not None:
+        from . import spmd
+
+        return spmd.make_decode_step(cfg, exec_cfg, max_len)
+
     def decode_one(params, caches, token, pos):
         return _decode(params, caches, cfg, exec_cfg, token, pos,
                        max_len=max_len)

@@ -24,10 +24,12 @@ from typing import Callable
 
 import numpy as np
 
-from ..checkpoint import CheckpointManager, latest_step
+import torch
+
+from ..checkpoint import CheckpointManager, latest_step, restore_checkpoint
 from ..core.executor import cache_stats
 from ..data import ShardedTokenPipeline
-from ..tree import copy_
+from ..tree import copy_, map_leaves
 
 
 @dataclass
@@ -50,7 +52,10 @@ class Trainer:
     metrics)`` over ``pipeline``'s batches.  ``params`` is a trainable LM
     (or any module with ``param_tree()``), updated in place by the step and
     by a restore; the checkpoint holds ``{"params": its param tree, "opt":
-    opt_state}`` under the reference's keys."""
+    opt_state}`` under the reference's keys.  A
+    :class:`~repro_torch.models.spmd.MeshLM` (a step on a mesh) is
+    checkpointed gathered, bit for bit, and restored placed back by its
+    shardings (``restore_checkpoint(shardings=)``)."""
 
     def __init__(self, cfg: TrainerConfig, train_step, pipeline: ShardedTokenPipeline,
                  params, opt_state):
@@ -68,7 +73,15 @@ class Trainer:
         self.restarts = 0
 
     # ------------------------------------------------------------------
+    def _on_mesh(self) -> bool:
+        return hasattr(self.params, "mesh")
+
     def _state(self):
+        if self._on_mesh():
+            from ..models.sharding import gather_tree
+
+            return {"params": self.params.gathered(),
+                    "opt": gather_tree(self.opt_state)}
         return {"params": self.params.param_tree(), "opt": self.opt_state}
 
     def _save(self):
@@ -78,13 +91,34 @@ class Trainer:
         last = latest_step(Path(self.cfg.ckpt_dir))
         if last is None:
             return False
-        like = self._state()
-        state, step = self.ckpt.restore_latest(like)
-        copy_(like["params"], state["params"])
-        self.opt_state = state["opt"]
+        if self._on_mesh():
+            state, step = self._restore_mesh()
+            self.params.load_stacked(state["params"])
+            self.opt_state = state["opt"]
+        else:
+            like = self._state()
+            state, step = self.ckpt.restore_latest(like)
+            copy_(like["params"], state["params"])
+            self.opt_state = state["opt"]
         self.step = step
         self.cfg.log_fn(f"[trainer] resumed from step {step}")
         return True
+
+    def _restore_mesh(self):
+        """The latest checkpoint placed by the mesh model's and the
+        optimizer state's shardings."""
+        from ..models.sharding import Sharding
+
+        mp = self.params
+        like = {"params": mp.structure.param_tree(),
+                "opt": map_leaves(lambda pl: torch.empty(
+                    pl.shape, dtype=pl.dtype, device="meta"),
+                    self.opt_state)}
+        shard = {"params": mp.shardings(),
+                 "opt": map_leaves(lambda pl: Sharding(pl.sharding.mesh,
+                                                       pl.sharding.spec),
+                                   self.opt_state)}
+        return restore_checkpoint(self.cfg.ckpt_dir, like, shardings=shard)
 
     def _install_signals(self):
         def handler(signum, frame):

@@ -43,7 +43,7 @@ operands only): :attr:`HaloProgram.slab_bytes` counts the slabs, which
 per halo dim.
 
 ``"auto"`` picks by a bytes-over-bandwidth roofline using the port's
-H100 constants (:mod:`repro_torch.launch.mesh`, not the reference's v5e
+H100 constants (:mod:`repro_torch.launch.mesh`, not the reference's TPU
 ones): exchange moves its halo bytes over NVLink (``LINK_BW``), recompute
 reads one full copy per shard through device memory (``HBM_BW``).
 Auxiliary-array halo *flops* do not enter the comparison: both strategies

@@ -1,0 +1,254 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and its traffic
+accounting (``repro_torch.launch.hlo_analysis``) against the reference's,
+on the CPU: the analytic HBM model term for term, the collective wire
+models on one op list, per-device bytes against the spec trees' shards, a
+dense train cell's FLOPs against their closed form, the record's keys, and
+no TPU v5e figure anywhere in the port."""
+import ast
+import dataclasses
+import io
+import json
+import re
+import tokenize
+from math import prod
+from pathlib import Path
+
+import pytest
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as ref_get_config
+from repro.launch import hlo_analysis as ref_hlo
+from repro.models import SHAPES as REF_SHAPES
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch import dryrun, hlo_analysis, specs
+from repro_torch.launch.mesh import HBM_BW, LINK_BW, PEAK_BF16_FLOPS
+from repro_torch.models import SHAPES, ShapeSpec
+from repro_torch.models.sharding import _blocks
+from repro_torch.models.spmd import Transfer, TransferLog
+from repro_torch.tree import leaves
+
+pytestmark = pytest.mark.port
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_analytic_hbm_bytes_matches_the_reference(arch):
+    for name, shape in SHAPES.items():
+        for n, opt, lg, kv in ((256, 8, 4, 2), (512, 2.5, 2, 1.07)):
+            want = ref_hlo.analytic_hbm_bytes(
+                ref_get_config(arch), REF_SHAPES[name], n, opt,
+                logits_bytes_per=lg, kv_bytes_per=kv)
+            got = hlo_analysis.analytic_hbm_bytes(
+                get_config(arch), shape, n, opt, logits_bytes_per=lg,
+                kv_bytes_per=kv)
+            assert got == want, (arch, name, n)
+
+
+#: (op, dtype, result shape, group): one op list for both packages
+OPS = [("all-gather", "bf16", (8, 64), 4), ("all-reduce", "f32", (16, 32), 2),
+       ("reduce-scatter", "bf16", (4, 128), 4),
+       ("all-to-all", "f32", (8, 8), 8),
+       ("collective-permute", "bf16", (32,), 2),
+       ("all-reduce", "bf16", (2, 3, 5), 16)]
+_SIZE = {"bf16": 2, "f32": 4}
+
+
+def test_collective_traffic_wire_models_match_the_reference():
+    """The reference parses the ops from HLO text; the port reads them from
+    a transfer log (a reduce-scatter's entry holds its operand, the
+    result's group-fold).  Bytes, counts and bytes by op agree."""
+    lines, log = [], TransferLog()
+    for i, (op, dt, shape, g) in enumerate(OPS):
+        dims = ",".join(map(str, shape))
+        lines.append(f"  %x{i} = {dt}[{dims}]{{0}} {op}({dt}[{dims}] %p{i}), "
+                     f"replica_groups=[{16 // g},{g}]<=[16]")
+        nbytes = prod(shape) * _SIZE[dt]
+        if op == "reduce-scatter":
+            nbytes *= g
+        log.entries.append(Transfer(op, nbytes, g, None, "forward"))
+    want = ref_hlo.collective_traffic("\n".join(lines))
+    got = hlo_analysis.collective_traffic(log)
+    assert got["counts"] == pytest.approx(want["counts"])
+    assert got["by_op"] == pytest.approx(want["by_op"])
+    assert got["bytes"] == pytest.approx(want["bytes"])
+    # per position: a log of four positions' entries is four programs
+    four = TransferLog(log.entries * 4)
+    assert hlo_analysis.collective_traffic(four, 4)["bytes"] == \
+        pytest.approx(want["bytes"])
+
+
+def test_collective_schedule_splits_units_from_the_top_level():
+    log = TransferLog()
+    for unit in (None, 0, 0, 1, 1, None):
+        log.add("all-gather", 8, 2, unit)
+    log.add("all-reduce", 8, 2, 0)
+    log.add("all-reduce", 8, 2, 1)
+    sched = hlo_analysis.collective_schedule(log)
+    assert sched == {"per_layer": {"all-gather": 2, "all-reduce": 1},
+                     "top_level": {"all-gather": 2}}
+
+
+def test_roofline_takes_the_h100_data_sheet():
+    t = hlo_analysis.roofline(989e12, 3.35e12, 450e9)
+    assert (t.compute_s, t.memory_s, t.collective_s) == pytest.approx(
+        (1.0, 1.0, 1.0))
+    assert (PEAK_BF16_FLOPS, HBM_BW, LINK_BW) == (989e12, 3.35e12, 450e9)
+    assert hlo_analysis.roofline(1, 0, 0).dominant == "compute"
+
+
+#: the TPU v5e figures of the reference's roofline
+#: (``repro/launch/hlo_analysis.py``: peak flop/s, HBM bytes/s, ICI bytes/s
+#: per link)
+V5E = ("197e12", "819e9", "50e9")
+
+
+def _port_sources():
+    yield from sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    yield ROOT / "chip_smoke.py"
+    yield from sorted((ROOT / "examples").glob("*_torch.py"))
+
+
+def test_no_tpu_v5e_figure_in_the_port():
+    """No number literal of the port, ``chip_smoke.py`` or the port's
+    examples spells a v5e figure (197e12 flop/s, 819e9 B/s, 50e9 B/s a
+    link, in any notation), and no text names the v5e.  The optimizer
+    choice's threshold of 5e10 parameters (the reference dry run's, copied)
+    is a count of parameters, not a rate, and is exempt."""
+    bad = {float(v) for v in V5E}
+    for path in _port_sources():
+        text = path.read_text()
+        assert "v5e" not in text.lower(), path
+        for tok in tokenize.generate_tokens(io.StringIO(text).readline):
+            if tok.type == tokenize.NUMBER:
+                try:
+                    value = float(tok.string.replace("_", ""))
+                except ValueError:
+                    continue
+                assert value not in bad or "n_params" in tok.line, (
+                    path, tok.start, tok.line)
+
+
+# ---------------------------------------------------------------------------
+# the dry run on a 2x2 meta mesh
+# ---------------------------------------------------------------------------
+
+CELLS = {"train": ShapeSpec("train_t", 32, 4, "train"),
+         "decode": ShapeSpec("decode_t", 64, 4, "decode")}
+
+
+def _small():
+    """qwen2's reduced config at two KV heads (so the 2-member head split
+    holds whole KV groups and every product splits four ways)."""
+    return dataclasses.replace(get_config("qwen2_7b").reduced(),
+                               n_kv_heads=2)
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dry")
+    return {mode: dryrun.run_cell("qwen2_7b", s.name, False, out,
+                                  force=True, cfg=_small(), shape=s,
+                                  mesh_shape=(2, 2))
+            for mode, s in CELLS.items()}
+
+
+def _position0_bytes(structs) -> int:
+    """Bytes of every leaf's block at position (0, 0), by ``_blocks``."""
+    total = 0
+    for s in leaves(structs):
+        for coords, sl in _blocks(s.shape, s.sharding):
+            if coords == (0, 0):
+                n = prod(x.stop - x.start for x in sl)
+                total += n * torch.empty((), dtype=s.dtype).element_size()
+    return total
+
+
+def test_per_device_bytes_are_the_spec_shards(records):
+    cfg = _small()
+    mesh = dryrun.meta_mesh(False, (2, 2))
+    p, o = specs.param_structs(cfg, mesh, opt_cfg=dryrun._opt_cfg(cfg))
+    b = specs.batch_structs_sharded(cfg, mesh, CELLS["train"])
+    mem = records["train"]["full"]["memory"]
+    assert mem["argument_size_in_bytes"] == (
+        _position0_bytes(p) + _position0_bytes(o) + _position0_bytes(b))
+    p, _ = specs.param_structs(cfg, mesh)
+    c = specs.cache_structs(cfg, mesh, CELLS["decode"])
+    t = specs.decode_token_struct(cfg, mesh, CELLS["decode"])
+    mem = records["decode"]["full"]["memory"]
+    assert mem["argument_size_in_bytes"] == (
+        _position0_bytes(p) + _position0_bytes(c) + _position0_bytes(t))
+    assert mem["temp_is_analytic"] and mem["fits_h100_80gb"]
+
+
+def test_dense_train_flops_match_their_closed_form(records):
+    """Per position of the 2x2 mesh (two rows of the batch, two members
+    splitting heads, ``d_ff`` and vocab), the flop counter's total over a
+    train step is exactly ``[8 T N - 2 T F D + 8 T D V + 11 M] L / 4``
+    per layer: N a layer's matrix weights and T = B S tokens: 6 N T, plus
+    remat's recompute of the unit's forward, 2 N T, but for its last
+    product (``w_down``: PyTorch's non-reentrant checkpoint stops
+    recomputing once every saved tensor is back, and that product's output
+    is not saved); the head 6 T D V plus the loss chunks' recomputed
+    logits, 2 T D V; attention's products M = 2 B H S^2 d_head each,
+    computed on every tile (the masked ones too), twice forward (QK^T, PV;
+    again under remat) and seven times in the backward (scores and dP in
+    each of its two passes, dK, dV, dQ).  That lies between 1.0 and 1.6
+    times 6 N T plus attention's 6 M, the textbook count."""
+    cfg = _small()
+    s = CELLS["train"]
+    T = s.global_batch * s.seq_len
+    D, H, KV, dh, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.d_head, cfg.d_ff, cfg.vocab, cfg.num_layers)
+    N = D * H * dh * 2 + 2 * D * KV * dh + 3 * D * F
+    M = 2 * s.global_batch * H * s.seq_len ** 2 * dh
+    want = (L * (8 * T * N - 2 * T * F * D + 11 * M) + 8 * T * D * V) / 4
+    got = records["train"]["totals"]["flops_per_device"]
+    assert got == pytest.approx(want, rel=1e-9)
+    textbook = (6 * T * (L * N + D * V) + 6 * M * L) / 4
+    assert 1.0 <= got / textbook <= 1.6
+
+
+def _reference_record_keys():
+    """The keys the reference's ``run_cell`` writes (its source's ``rec``
+    dict literal and ``rec[...]`` assignments) and its ``totals``'."""
+    tree = ast.parse((ROOT / "src" / "repro" / "launch" /
+                      "dryrun.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    keys, totals = set(), set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign):
+            tgt = node.targets[0]
+            if isinstance(tgt, ast.Name) and tgt.id == "rec" and isinstance(
+                    node.value, ast.Dict):
+                keys |= {k.value for k in node.value.keys}
+            if isinstance(tgt, ast.Subscript) and isinstance(
+                    tgt.value, ast.Name) and tgt.value.id == "rec":
+                keys.add(tgt.slice.value)
+                if tgt.slice.value == "totals":
+                    totals = {k.value for k in node.value.keys}
+    return keys, totals
+
+
+def test_record_keys_are_the_references(records):
+    keys, totals = _reference_record_keys()
+    for rec in records.values():
+        assert set(rec) == keys - {"error", "traceback"}
+        assert set(rec["totals"]) == totals
+        assert set(rec["full"]) >= {"compile_s", "cost", "memory"}
+        assert set(rec["probes"]) == {1, 2}
+        assert rec["ok"] and "one of 4" in rec["full"]["positions_run"]
+
+
+def test_unrunnable_cells_carry_the_ports_reason(tmp_path):
+    rec = dryrun.run_cell("qwen2_7b", "long_500k", False, tmp_path)
+    assert rec["runnable"] is False and "quadratic" in rec["skip_reason"]
+    assert json.loads((tmp_path / "qwen2_7b.long_500k.pod.json")
+                      .read_text()) == rec
+
+
+def test_the_cli_writes_under_build_by_default():
+    assert dryrun.OUT_DEFAULT == ROOT / "build" / "dryrun_torch"
+    assert re.search(r"experiments", str(dryrun.OUT_DEFAULT)) is None

@@ -478,10 +478,18 @@ def test_from_reference_keeps_bfloat16_bits():
 
 
 def test_exec_config_mesh_is_not_ported():
+    """What of the reference's mesh knobs the port has no counterpart of:
+    ``constrain`` (GSPMD's layout hint) is the identity, and an abstract
+    mesh (no devices) cannot run; a mesh of devices gives the reference's
+    batch axes (the mesh itself runs through ``models.spmd``)."""
+    from repro_torch.launch.mesh import make_mesh
+
     assert P.ExecConfig().constrain(3, None) == 3
     assert P.ExecConfig().batch_axes() == ()
-    with pytest.raises(ValueError, match="sharding.py"):
-        P.ExecConfig(mesh=object())
+    with pytest.raises(ValueError, match="abstract"):
+        P.ExecConfig(mesh=make_mesh((2, 2), ("data", "model")))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    assert P.ExecConfig(mesh=mesh).batch_axes() == ("data",)
 
 
 @pytest.mark.parametrize("arch,dtype,knobs", [

@@ -405,8 +405,10 @@ def test_launch_train_prints_the_reference_line(tmp_path, capsys):
 
 
 def test_launch_train_mesh_is_not_ported(tmp_path):
+    """``--mesh`` without that many CUDA cards (none here) does not fall
+    back to one device: it raises, naming ``--devices``."""
     args = launch_train.parser().parse_args([
         "--arch", "qwen2_7b", "--reduced", "--device", "cpu", "--mesh", "2x2",
         "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(ValueError, match="item 9.3"):
+    with pytest.raises(ValueError, match="--devices"):
         launch_train.setup(args)
