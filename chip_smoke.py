@@ -245,23 +245,34 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
  18. the LM on a 2x2 (``data``, ``model``) mesh of cuda:0 four times
      (``repro_torch.models.spmd``: FSDP gathers, tensor parallel over
-     ``model``, the batch over ``data``).  ``mesh:train:qwen2-7b``: phase
-     16's cell through ``launch.train --mesh 2x2 --devices cuda:0,...``, 6
-     steps (no checkpoint written): the step-1 loss within
-     :data:`MESH_LOSS_TOL` of one device's from the same initialization and
-     batch, the loss falling, K1 once a step on every position (an
-     ``spmd_mixer`` span per position in ``repro_torch.obs``) and its
-     launch counts (zeroed just before) on the forward and every adjoint
-     spec 4 per step; the position's mixer on K1 against ``"torch"``
-     (``plan``; gradients ``grad``); step ms beside phase 16's, peak memory
-     and the transfer log's bytes by kind.  ``mesh:prefill:qwen2-7b``: phase
-     15's prefill at full depth on the mesh against one device's (argmax,
+     ``model`` for attention, MLPs, MoE experts, Mamba and RG-LRU channels,
+     the batch and MoE capacity over ``data``).  ``mesh:train:qwen2-7b``
+     (phase 16's cell) and ``mesh:train:deepseek-moe-16b`` (full width, 4
+     layers: :data:`MOE_TRAIN_ARGV`) through ``launch.train --mesh 2x2
+     --devices cuda:0,...``, 6 steps each (no checkpoint written): every
+     step's loss within :data:`MESH_LOSS_TOL` of the same model's
+     one-device step's from the same initialization and batches (the 6
+     one-device steps run first, timed), the loss falling, K1 once a step
+     on every position (an ``spmd_mixer`` span per position in
+     ``repro_torch.obs``) and its launch counts (zeroed just before) on the
+     forward and every adjoint spec 4 per step; the position's mixer on
+     K1 against ``"torch"`` (``plan``; gradients ``grad``); step ms beside
+     the one-device step's, peak memory and the transfer log's bytes by
+     kind;
+     for the MoE cell a position's expert buffer (E, C / R, F / M), gated
+     on the experts' partial outputs being summed over ``model``.
+     ``mesh:prefill`` of qwen2-7b (phase 15's prefill at full depth),
+     falcon-mamba-7b and recurrentgemma-9b (full width, depth cut:
+     :data:`MESH_RECURRENT`) on the mesh against one device's (argmax,
      3e-2 of the largest), K1 once per position.  ``mesh:parity``: phase
-     15's parity model on the mesh, its decode against its prefill within
-     1e-3.  The ``launch.train --mesh ... --devices`` CLI on the reduced
-     config with the mixer; one ``launch.dryrun`` record (qwen2_7b x
-     train_4k on the 16x16 pod, meta devices).  Its mixers' K1 sources are
-     built in phase 2.
+     15's parity model and both recurrent families (float32, full width,
+     :data:`MESH_PARITY_UNITS` layer units) on the mesh, decode against
+     prefill within 1e-3.  K1 against ``F.conv1d`` at mesh positions'
+     mixer shapes, timed in turns (:data:`MIXER_CONV_CHANNELS`).  The
+     ``launch.train --mesh ... --devices`` CLI on the reduced config with
+     the mixer; one ``launch.dryrun`` record (qwen2_7b x train_4k on the
+     16x16 pod, meta devices).  Its mixers' K1 sources are built in phase
+     2.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -425,6 +436,39 @@ GRAD_SYNC_BATCH = (4, 512)
 #: 2,048 tokens of log-sum-exp minus gold moves far less; and the CLI's run
 MESH = (2, 2)
 MESH_LOSS_TOL = 1e-2
+#: mesh:train:deepseek-moe-16b: deepseek-moe-16b at full width, depth cut
+#: to 4 layers (the dense first one and three MoE; 28 layers, 16.4 B
+#: parameters under AdamW, do not fit 80 GB), capacity 1.25 (its
+#: default), phase 16's batch, sequence and steps; lr 1e-3 (phase 16's
+#: resume cell's): at 3e-4 the fall of its loss over 6 steps of uniform
+#: synthetic tokens is smaller than the spread between their batches'
+#: losses, so the falling-loss gate read the batches, not the training
+MOE_TRAIN_ARGV = ["--arch", "deepseek_moe_16b", "--num-layers", "4",
+                  "--batch", "4", "--seq", "512", "--steps", "6",
+                  "--race-smooth", str(LM_RADIUS), "--lr", "1e-3",
+                  "--ckpt-every", "100"]
+#: phase 18's training cells: (label, ``launch.train``'s arguments); each
+#: one's one-device steps run in the same call
+MESH_TRAIN_CELLS = (("qwen2-7b", TRAIN_ARGV),
+                    ("deepseek-moe-16b", MOE_TRAIN_ARGV))
+#: mesh:prefill of the recurrent families at full width: (label, arch,
+#: layers), B = LM_BATCH x LM_PROMPT.  Depth cut from 64 and 38: a deep
+#: random bfloat16 recurrent stack amplifies rounding (at 64 layers the
+#: mesh's falcon-mamba logits were 5.5 off one device's, whose largest was
+#: 5.1), so the prefill gate cannot tell a fault from rounding there; the
+#: cell prints the model's own bfloat16 noise beside the gate, and 64
+#: layers took 36 s
+MESH_RECURRENT = (("falcon-mamba-7b", "falcon_mamba_7b", 2),
+                  ("recurrentgemma-9b", "recurrentgemma_9b", 6))
+#: timed prefills a recurrent cell takes (after a warm-up), each side
+MESH_PREFILL_REPS = 3
+#: mesh:parity of the recurrent families: float32, full width, layer units
+MESH_PARITY_UNITS = 2
+#: the mixer at mesh positions' shapes (channels of ``sx``: 2 examples x
+#: d_model / 2 of qwen2-7b, then of deepseek-moe-16b) against F.conv1d:
+#: rounds of calls each, alternating
+MIXER_CONV_CHANNELS = (3584, 2048)
+MIXER_CONV_ROUNDS, MIXER_CONV_CALLS = 5, 10
 MESH_CLI_ARGV = ["--arch", LM_ARCH, "--reduced", "--mesh", "2x2", "--steps",
                  "3", "--batch", "4", "--seq", "64", "--race-smooth",
                  str(LM_RADIUS)]
@@ -441,12 +485,13 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, torch) -> float:
-    """Median over REPS of one call, timed with CUDA events, after a warm-up."""
+def _time_ms(fn, torch, reps: int = 0) -> float:
+    """Median over ``reps`` (default REPS) of one call, timed with CUDA
+    events, after a warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps or REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2881,8 +2926,9 @@ def lm_families(torch) -> None:
         raise SystemExit("lm:families failed:\n" + "\n".join(failures))
 
 
-def _train_arg(flag: str) -> int:
-    return int(TRAIN_ARGV[TRAIN_ARGV.index(flag) + 1])
+def _train_arg(flag: str, argv=None) -> int:
+    argv = argv or TRAIN_ARGV
+    return int(argv[argv.index(flag) + 1])
 
 
 def train_mixer_cells() -> list:
@@ -3379,18 +3425,31 @@ def mesh_devices() -> list:
 
 
 def mesh_mixer_cells() -> list:
-    """(label, S, channels, adjoints) of every mixer one mesh position runs
-    in phase 18: its rows' examples and its ``d_model / 2`` channels."""
+    """(label, S, channels, adjoints) of every mixer phase 18 runs: a mesh
+    position's (its row's examples and ``d_model / 2`` channels) in each
+    cell, and the one-device runs each cell is compared with."""
     from repro_torch.configs import get_config
 
+    rows, m = MESH
+    out = []
+    for label, argv in MESH_TRAIN_CELLS:
+        D = get_config(argv[argv.index("--arch") + 1]).d_model
+        B, S = _train_arg("--batch", argv), _train_arg("--seq", argv)
+        out += [(f"train {label}", S, B // rows * D // m, True),
+                (f"train {label}, one device", S, B * D, True)]
+    for label, arch, _ in MESH_RECURRENT:
+        D = get_config(arch).d_model
+        out += [(f"prefill {label}", LM_PROMPT, LM_BATCH // rows * D // m,
+                 False),
+                (f"prefill {label}, one device", LM_PROMPT, LM_BATCH * D,
+                 False)]
     D = get_config(LM_ARCH).d_model
     d_red = get_config(LM_ARCH).reduced().d_model
-    rows, m = MESH
-    return [("train, prefill", _train_arg("--seq"),
-             _train_arg("--batch") // rows * D // m, True),
-            ("parity", LM_PARITY_PROMPT, LM_PARITY_BATCH // rows * D // m,
-             False),
-            ("cli", 64, 4 // rows * d_red // m, True)]
+    return out + [("prefill qwen2-7b", LM_PROMPT, LM_BATCH // rows * D // m,
+                   False),
+                  ("parity", LM_PARITY_PROMPT,
+                   LM_PARITY_BATCH // rows * D // m, False),
+                  ("cli", 64, 4 // rows * d_red // m, True)]
 
 
 def mesh_sources() -> list:
@@ -3409,14 +3468,47 @@ def _mesh_obs_positions(obs) -> dict:
     return out
 
 
-def mesh_train(root, single_ms, torch) -> list:
-    """mesh:train:qwen2-7b: phase 16's cell on the 2x2 mesh through
-    ``launch.train --mesh 2x2 --devices cuda:0,...``; returns the mixer's
-    kernel-line entries."""
+def one_device_steps(trainer, n: int, torch) -> tuple:
+    """``n`` steps of ``trainer``'s one-device train step on its pipeline's
+    first batches: (the losses, the median ms of steps 2-n).  The trainer
+    takes each step's state, so the old AdamW state is freed."""
+    losses, times = [], []
+    for i in range(n):
+        b = trainer.pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.params, trainer.opt_state, m = trainer.train_step(
+            trainer.params, trainer.opt_state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, statistics.median(times[1:])
+
+
+def moe_buffer(cfg, args, mesh) -> tuple:
+    """A mesh position's expert buffer (E, C / R, F / M) in a train step of
+    ``args``' batch, by ``models/spmd``'s split of the dispatch."""
+    from repro_torch.launch import train
+    from repro_torch.models import spmd
+
+    T = args.batch * args.seq
+    n = spmd._moe_chunks(T, train.exec_config(args, mesh))
+    C = max(8, int(T // n * cfg.moe_top_k * cfg.moe_capacity)
+            // cfg.moe_experts)
+    rows, m = MESH
+    c0, c1 = spmd._even(C, rows, 0)
+    f0, f1 = spmd._even(cfg.d_ff, m, 0)
+    return cfg.moe_experts, c1 - c0, f1 - f0
+
+
+def mesh_train(root, label, argv, torch) -> list:
+    """mesh:train:<label>: ``launch.train`` with ``argv`` on the 2x2 mesh
+    (``--mesh 2x2 --devices cuda:0,...``, no checkpoint), against the same
+    model's one-device steps from the same initialization and batches in
+    this call; returns the mixer's kernel-line entries."""
     from repro_torch import compile_plan, obs
     from repro_torch.launch import train
     from repro_torch.launch.hlo_analysis import collective_traffic
-    from repro_torch.models import init_params, make_loss_fn
     from repro_torch.models.ssm import _smooth_result, smooth_env
     from repro_torch.testing import default_tolerances
 
@@ -3424,29 +3516,22 @@ def mesh_train(root, single_ms, torch) -> list:
 
     ckpt = root / "build" / "mesh_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)  # nothing to resume from
-    argv = TRAIN_ARGV + ["--mesh", "x".join(map(str, MESH)), "--devices",
-                         ",".join(mesh_devices()), "--ckpt-dir", str(ckpt)]
-    args = train.parser().parse_args(argv)
-    cfg = train.model_config(args)
-    # one device's step-1 loss from the same initialization and batch
     t0 = time.time()
-    model = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(0),
-                        device=DEVICE)
-    from repro_torch.data import DataConfig, ShardedTokenPipeline
-
-    batch0 = ShardedTokenPipeline(DataConfig(
-        seq_len=args.seq, global_batch=args.batch,
-        vocab=cfg.vocab)).batch_at(0)
+    rows, m = MESH
+    args = train.parser().parse_args(argv + ["--ckpt-dir", str(ckpt)])
+    cfg, one = train.setup(args)
+    tokens = torch.as_tensor(one.pipe.batch_at(0)["tokens"], device=DEVICE)
     with torch.no_grad():
-        single = float(make_loss_fn(cfg, train.exec_config(args))(
-            model, batch0))
-        tokens = torch.as_tensor(batch0["tokens"], device=DEVICE)
-        rows, m = MESH
-        x = model.embed[tokens[:args.batch // rows]][
+        x = one.params.embed[tokens[:args.batch // rows]][
             ..., :cfg.d_model // m].clone()  # position (0, 0)'s slice
-    del model
+    ones, single_ms = one_device_steps(one, args.steps, torch)
+    single = ones[0]
+    del one
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    args = train.parser().parse_args(
+        argv + ["--mesh", "x".join(map(str, MESH)), "--devices",
+                ",".join(mesh_devices()), "--ckpt-dir", str(ckpt)])
     cfg, trainer = train.setup(args)
     mp = trainer.params
     trainer.cfg.log_fn = lambda *a: print(*a, flush=True)
@@ -3465,14 +3550,17 @@ def mesh_train(root, single_ms, torch) -> list:
     off = [f"{spec.input}: {e.backend}" for spec, _, e in adj
            if e.backend != "hopper"]
     if ex.backend != "hopper" or off or not adj:
-        raise SystemExit(f"mesh:train: mixer off K1: forward {ex.backend}, "
-                         f"adjoints {off or len(adj)}")
+        raise SystemExit(f"mesh:train:{label}: mixer off K1: forward "
+                         f"{ex.backend}, adjoints {off or len(adj)}")
     execs = [ex] + [e for _, _, e in adj]
-    print(f"mesh:train:qwen2-7b: {mp.mesh}, {cfg.num_layers} layers, "
-          f"{cfg.dtype}, batch {args.batch} x {args.seq} ({B_r} a row), "
-          f"position (0, 0)'s mixer sx {tuple(env['sx'].shape)}; one "
-          f"device's step-1 loss {single:.6f}; setup {time.time() - t0:.1f} "
-          f"s", flush=True)
+    n_all = sum(p.numel() for p in mp.structure.parameters())
+    print(f"mesh:train:{label}: {mp.mesh}, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.dtype}, {n_all} parameters, batch "
+          f"{args.batch} x {args.seq} ({B_r} a row), position (0, 0)'s "
+          f"mixer sx {tuple(env['sx'].shape)}; one device's step-1 loss "
+          f"{single:.6f}, step {single_ms:.4f} ms (median of steps "
+          f"2-{len(ones)}), losses {[round(v, 4) for v in ones]}; setup "
+          f"{time.time() - t0:.1f} s", flush=True)
     times = []
     inner = trainer.train_step
 
@@ -3503,25 +3591,42 @@ def mesh_train(root, single_ms, torch) -> list:
     by_kind = log.bytes_by_kind()
     traffic = collective_traffic(log, npos)
     step_ms = statistics.median(times[1:])
-    print(f"mesh:train losses {[round(v, 4) for v in losses]}; step 1 "
-          f"{losses[0]:.6f} vs one device {single:.6f} (rel "
-          f"{abs(losses[0] - single) / abs(single):.2e} <= "
-          f"{MESH_LOSS_TOL:.0e}); K1 launches: forward {launches[0]}, "
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ones)]
+    print(f"mesh:train:{label} losses {[round(v, 4) for v in losses]}; step "
+          f"1 {losses[0]:.6f} vs one device {single:.6f} (rel "
+          f"{rel[0]:.2e} <= {MESH_LOSS_TOL:.0e}), every step's rel "
+          f"{[float(f'{r:.2e}') for r in rel]}; K1 launches: forward "
+          f"{launches[0]}, "
           f"adjoints {dict(zip((s.input for s, _, _ in adj), launches[1:]))}"
           f" over {n} steps on {npos} positions; mixer calls per position "
           f"{spans}", flush=True)
-    ok = (n == args.steps and all(math.isfinite(v) for v in losses)
+    ok = (n == args.steps == len(ones)
+          and all(math.isfinite(v) for v in losses)
           and losses[-1] < losses[0]
-          and abs(losses[0] - single) <= MESH_LOSS_TOL * abs(single)
+          and max(rel) <= MESH_LOSS_TOL
           and all(k == n * npos for k in launches)
           and len(spans) == npos and set(spans.values()) == {n})
     if not ok:
-        raise SystemExit("mesh:train: a loss is not finite, did not fall or "
-                         "is off one device's, or K1 did not run once a "
-                         "step on every position, forward and adjoints")
-    print(f"mesh:train step on {_nvidia_smi()}: {step_ms:.4f} ms (median of "
-          f"steps 2-{len(times)}; each {[round(t, 1) for t in times]}) "
-          f"against one device's {single_ms} ms (phase 16, this run); "
+        raise SystemExit(f"mesh:train:{label}: a loss is not finite, did not "
+                         f"fall or is off one device's step's, or K1 did "
+                         f"not run once a step on every position, forward "
+                         f"and adjoints")
+    if cfg.moe_experts:
+        E, Cr, Fm = moe_buffer(cfg, args, mp.mesh)
+        nb = E * Cr * cfg.d_model * torch.empty((), dtype=getattr(
+            torch, cfg.dtype)).element_size()
+        sums = sum(e.kind == "all-reduce" and e.nbytes == nb
+                   for e in log.entries)
+        print(f"mesh:train:{label} expert buffer a position (E, C/R, F/M) "
+              f"= {(E, Cr, Fm)}; the experts' partial outputs (E, C/R, D) "
+              f"summed over model {sums} times in the last step", flush=True)
+        if not sums:
+            raise SystemExit(f"mesh:train:{label}: no expert output was "
+                             f"summed over model: the dispatch did not split")
+    print(f"mesh:train:{label} step on {_nvidia_smi()}: {step_ms:.4f} ms "
+          f"(median of steps 2-{len(times)}; each "
+          f"{[round(t, 1) for t in times]}) against one device's "
+          f"{single_ms:.4f} ms (this call); "
           f"{args.batch * args.seq / step_ms * 1e3:.1f} tok/s; peak memory "
           f"{peak / 1e9:.2f} GB; transfer bytes per step by kind (every "
           f"position's results, forward and backward) {by_kind}; wire bytes "
@@ -3529,32 +3634,38 @@ def mesh_train(root, single_ms, torch) -> list:
           flush=True)
     e_grad, grad_abs = train_mixer_grads(x, execs, torch)
     tol = default_tolerances("float32")["grad"]
-    print(f"mesh:train mixer grads (sx, taps) K1 vs torch {e_grad:.2e} (<= "
-          f"{tol:.0e}), max_abs_err {grad_abs:.3e}", flush=True)
+    print(f"mesh:train:{label} mixer grads (sx, taps) K1 vs torch "
+          f"{e_grad:.2e} (<= {tol:.0e}), max_abs_err {grad_abs:.3e}",
+          flush=True)
     if not e_grad <= tol:
-        raise SystemExit("mesh:train: the mixer's gradients on K1 disagree "
-                         "with torch's")
-    entries, _, _ = k1_mixer_lines("mesh:train", "mesh", ex, env, adj,
-                                   launches[0], sum(launches[1:]), grad_abs,
-                                   torch)
+        raise SystemExit(f"mesh:train:{label}: the mixer's gradients on K1 "
+                         f"disagree with torch's")
+    entries, _, _ = k1_mixer_lines(f"mesh:train:{label}", f"mesh {label}",
+                                   ex, env, adj, launches[0],
+                                   sum(launches[1:]), grad_abs, torch)
     del trainer, mp, env, ex, adj, execs, x
     torch.cuda.empty_cache()
     return entries
 
 
-def mesh_prefill(prefill_ms, torch) -> None:
-    """mesh:prefill:qwen2-7b: phase 15's prefill at full depth on the
-    mesh against one device's."""
+def mesh_prefill(label, cfg, one_ms, torch) -> None:
+    """mesh:prefill:<label>: ``cfg``'s prefill (random weights and taps, B =
+    LM_BATCH x LM_PROMPT) on the mesh against one device's; ``one_ms`` is
+    one device's prefill ms from an earlier phase of this run, or None:
+    then both are timed here, MESH_PREFILL_REPS times each, and the
+    model's own bfloat16 noise is printed beside the gate: one device's
+    logits against a float32 copy's of the same weights."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import compile_plan
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import (ExecConfig, init_params,
                                     make_prefill_step, prefill_logits, spmd)
     from repro_torch.models.ssm import _smooth_result, smooth_env
 
-    cfg = get_config(LM_ARCH).scaled(race_smooth_radius=LM_RADIUS)
+    t0 = time.time()
     gen = torch.Generator(DEVICE).manual_seed(0)
     model = init_params(cfg, generator=gen, device=DEVICE)
     with torch.no_grad():
@@ -3564,6 +3675,27 @@ def mesh_prefill(prefill_ms, torch) -> None:
         0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=DEVICE)
     batch = {"tokens": tokens}
     want = prefill_logits(model, cfg, ExecConfig(), batch)
+    reps = MESH_PREFILL_REPS if one_ms is None else 0
+    noise = ""
+    if one_ms is None:
+        ms1 = _time_ms(lambda: prefill_logits(model, cfg, ExecConfig(),
+                                              batch), torch, reps)
+        one_ms = f"{ms1:.4f} ms (this call)"
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        copy = init_params(f32, generator=torch.Generator(DEVICE),
+                           device=DEVICE)
+        with torch.no_grad():
+            for a, b in zip(copy.parameters(), model.parameters(),
+                            strict=True):
+                a.copy_(b)
+        w32 = prefill_logits(copy, f32, ExecConfig(), batch)
+        noise = (f"; one device's bfloat16 against a float32 copy: max "
+                 f"|diff| {float((want - w32).abs().max()):.3e}, argmax "
+                 f"equal {bool((want.argmax(-1) == w32.argmax(-1)).all())}")
+        del copy, w32
+        torch.cuda.empty_cache()
+    else:
+        one_ms = f"{one_ms} ms (phase 15, this run)"
     mesh = make_mesh(MESH, ("data", "model"), devices=mesh_devices())
     rows, m = MESH
     x = model.embed[tokens[:LM_BATCH // rows]][..., :cfg.d_model // m]
@@ -3580,40 +3712,37 @@ def mesh_prefill(prefill_ms, torch) -> None:
     scale = float(want.abs().max())
     diff = float((got - want).abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
-    ms = _time_ms(lambda: step(mp, batch), torch)
+    ms = _time_ms(lambda: step(mp, batch), torch, reps)
     by_kind = mp.last_log.bytes_by_kind()
-    print(f"mesh:prefill:qwen2-7b ({cfg.num_layers} layers, {mesh}): K1 "
-          f"launches {launches} ({ex.backend}); logits "
-          f"{tuple(got.shape)} finite {bool(torch.isfinite(got).all())}; vs "
-          f"one device argmax equal on every row {same}, max |diff| "
-          f"{diff:.3e} (<= {LM_LOGITS_TOL:.0e} x {scale:.3e}); "
-          f"{ms:.4f} ms on {_nvidia_smi()} against one device's {prefill_ms}"
-          f" ms (phase 15, this run); transfer bytes by kind {by_kind}",
+    print(f"mesh:prefill:{label} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {mesh}): K1 launches {launches} ({ex.backend}); "
+          f"logits {tuple(got.shape)} finite "
+          f"{bool(torch.isfinite(got).all())}; vs one device argmax equal on "
+          f"every row {same}, max |diff| {diff:.3e} (<= "
+          f"{LM_LOGITS_TOL:.0e} x {scale:.3e}); {ms:.4f} ms on "
+          f"{_nvidia_smi()} against one device's {one_ms}; transfer "
+          f"bytes by kind {by_kind}; {time.time() - t0:.1f} s{noise}",
           flush=True)
     if not (same and diff <= LM_LOGITS_TOL * scale
             and bool(torch.isfinite(got).all())
             and launches == len(mp.layout.positions)):
-        raise SystemExit("mesh:prefill: the mesh's logits disagree with "
-                         "one device's, or K1 did not run once on every "
-                         "position")
+        raise SystemExit(f"mesh:prefill:{label}: the mesh's logits disagree "
+                         f"with one device's, or K1 did not run once on "
+                         f"every position")
     del mp, want, got
     torch.cuda.empty_cache()
 
 
-def mesh_parity(torch) -> None:
-    """mesh:parity: lm:parity's model (float32, 4 layers, zero taps) on the
-    mesh: teacher-forced mesh decode against the mesh prefill."""
+def mesh_parity(label, cfg, torch) -> None:
+    """mesh:parity:<label>: ``cfg`` (float32) on the mesh: teacher-forced
+    mesh decode against the mesh prefill."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import (ExecConfig, init_params,
                                     make_decode_step, make_prefill_step,
                                     spmd)
 
-    cfg = get_config(LM_ARCH).scaled(num_layers=LM_PARITY_LAYERS,
-                                     dtype="float32",
-                                     race_smooth_radius=LM_RADIUS)
     mesh = make_mesh(MESH, ("data", "model"), devices=mesh_devices())
     model = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(1),
                         device=DEVICE)
@@ -3629,14 +3758,71 @@ def mesh_parity(torch) -> None:
         got, caches = step(mp, caches, tokens[:, t:t + 1], t)
     scale = float(want.abs().max())
     diff = float((got - want).abs().max())
-    print(f"mesh:parity ({cfg.num_layers} layers, float32, {mesh}, "
-          f"{LM_PARITY_PROMPT} tokens): mesh decode vs mesh prefill max "
-          f"|diff| {diff:.3e} (<= 1e-3 x {scale:.3e})", flush=True)
+    print(f"mesh:parity:{label} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, float32, {mesh}, {LM_PARITY_PROMPT} tokens): mesh "
+          f"decode vs mesh prefill max |diff| {diff:.3e} (<= 1e-3 x "
+          f"{scale:.3e})", flush=True)
     if not diff <= 1e-3 * scale:
-        raise SystemExit("mesh:parity: the mesh's decode does not reproduce "
-                         "its prefill")
+        raise SystemExit(f"mesh:parity:{label}: the mesh's decode does not "
+                         f"reproduce its prefill")
     del mp, caches
     torch.cuda.empty_cache()
+
+
+def mixer_vs_conv1d(torch) -> None:
+    """K1 against ``F.conv1d`` at mesh positions' mixer shapes (``sx``
+    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), checked first, then timed
+    in turns: per round MIXER_CONV_CALLS calls of each, shape by shape, K1
+    then conv1d, after a warm-up; the median of every call per shape and
+    side, and each round's."""
+    from repro_torch import compile_plan
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances, rel_err
+
+    g = torch.Generator(DEVICE).manual_seed(5)
+    taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
+    sides = {}
+    for C in MIXER_CONV_CHANNELS:
+        x = torch.randn((2, LM_PROMPT, C // 2), generator=g, device=DEVICE,
+                        dtype=torch.bfloat16)
+        env = smooth_env(x, taps, LM_RADIUS)
+        ex = compile_plan(_smooth_result(LM_PROMPT, C, LM_RADIUS).plan, env,
+                          "hopper")
+        lib = mixer_library_call(env, LM_RADIUS, torch)
+        before = ex.kernel_launches
+        e = rel_err(lib(), ex(env))
+        torch.cuda.synchronize()
+        if ex.kernel_launches != before + 1 or e > default_tolerances(
+                "float32")["baseline"]:
+            raise SystemExit(f"mixer vs conv1d: K1 at sx "
+                             f"{tuple(env['sx'].shape)} did not launch or "
+                             f"disagrees with conv1d ({e:.2e})")
+        sides[C] = {"K1": lambda ex=ex, env=env: ex(env), "conv1d": lib}
+    for fns in sides.values():
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    times = {(C, k): [] for C in sides for k in ("K1", "conv1d")}
+    rounds = {k: [] for k in times}
+    for _ in range(MIXER_CONV_ROUNDS):
+        for C, fns in sides.items():
+            for k, fn in fns.items():
+                ts = []
+                for _ in range(MIXER_CONV_CALLS):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    fn()
+                    b.record()
+                    b.synchronize()
+                    ts.append(a.elapsed_time(b))
+                times[C, k] += ts
+                rounds[C, k].append(statistics.median(ts))
+    for (C, k), ts in times.items():
+        print(f"mixer vs conv1d on {_nvidia_smi()}: sx "
+              f"({LM_PROMPT + LM_RADIUS + 2}, {C}) {k} median "
+              f"{statistics.median(ts):.4f} ms over {len(ts)} calls; per "
+              f"round {[round(r, 4) for r in rounds[C, k]]}", flush=True)
 
 
 def mesh_cli(root, torch) -> None:
@@ -3690,13 +3876,32 @@ def mesh_dryrun(root) -> None:
           f"({terms.dominant})", flush=True)
 
 
-def mesh_main(root, single_ms, prefill_ms, torch) -> list:
+def mesh_main(root, prefill_ms, torch) -> list:
     """Phase 18: the LM on a mesh; returns the kernel-line entries."""
-    entries = mesh_train(root, single_ms, torch)
-    mesh_prefill(prefill_ms, torch)
-    mesh_parity(torch)
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import unit_kinds
+
+    t0 = time.time()
+    entries = []
+    for label, argv in MESH_TRAIN_CELLS:
+        entries += mesh_train(root, label, argv, torch)
+    mesh_prefill("qwen2-7b", get_config(LM_ARCH).scaled(
+        race_smooth_radius=LM_RADIUS), prefill_ms, torch)
+    for label, arch, layers in MESH_RECURRENT:
+        mesh_prefill(label, get_config(arch).scaled(
+            race_smooth_radius=LM_RADIUS, num_layers=layers), None, torch)
+    mesh_parity("qwen2-7b", get_config(LM_ARCH).scaled(
+        num_layers=LM_PARITY_LAYERS, dtype="float32",
+        race_smooth_radius=LM_RADIUS), torch)
+    for label, arch, _ in MESH_RECURRENT:
+        cfg = get_config(arch)
+        mesh_parity(label, cfg.scaled(
+            num_layers=MESH_PARITY_UNITS * len(unit_kinds(cfg)),
+            dtype="float32"), torch)
+    mixer_vs_conv1d(torch)
     mesh_cli(root, torch)
     mesh_dryrun(root)
+    print(f"phase 18: {time.time() - t0:.1f} s", flush=True)
     return entries
 
 
@@ -3766,7 +3971,7 @@ def main() -> int:
         compile_sources(mesh_sources())
         print(f"build: the mesh's mixer sources in {time.time() - t0:.1f} s",
               flush=True)
-        kernels = mesh_main(root, "(not run)", "(not run)", torch)
+        kernels = mesh_main(root, None, torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
         print(json.dumps({"kernels": kernels}))
         print(smi)
@@ -4073,7 +4278,7 @@ def main() -> int:
 
     # ---- phase 16: the LM training path on the card -------------------------
     marks.append((16, time.time()))
-    entries, train_ms = train_main(root, torch)
+    entries, _ = train_main(root, torch)
     kernels += entries
     train_resume(root, torch)
     torch.cuda.empty_cache()
@@ -4086,7 +4291,7 @@ def main() -> int:
 
     # ---- phase 18: the LM on a 2x2 mesh ------------------------------------
     marks.append((18, time.time()))
-    kernels += mesh_main(root, f"{train_ms:.4f}", f"{prefill_ms:.4f}", torch)
+    kernels += mesh_main(root, f"{prefill_ms:.4f}", torch)
 
     marks.append((None, time.time()))
     print("phase seconds: " + ", ".join(

@@ -44,17 +44,38 @@ the function computed):
   ``race_smooth`` mixer splits by channels, which is exact (each channel is
   its own stream): each position runs it on its row's ``B_r`` examples and
   ``D / M`` channels, ``S + R + 2`` by ``B_r D / M`` on K1.
-* **Replicated within a row:** Mamba, RG-LRU and MoE blocks gather their
-  full weights and compute on every member.  MoE's ``"capacity"`` dispatch
-  is global (its capacity counts all tokens), so a MoE block first gathers
-  every row's tokens and keeps its own row's outputs.
+* **MoE** (the reference's ``moe.py`` constraints: the dispatch buffer's
+  capacity over the batch axes, the expert FFN over ``model``; the expert
+  axis stays whole, no all-to-all).  Routing is global: every position
+  gathers every row's tokens and routes them all, since the capacity
+  counts them all.  Row ``r`` fills and computes its capacity slots
+  ``[r C / R, (r + 1) C / R)`` of every expert, member ``m`` with its
+  ``d_ff`` columns of ``w_gate`` / ``w_up`` and rows of ``w_down``
+  (E, D, F / M each); the members' partial outputs are summed over
+  ``model``, the rows' slots gathered over the batch axes, and each row
+  combines its own tokens.  The shared experts split as the MLPs do; the
+  router is gathered whole.
+* **Mamba and RG-LRU** split their channels (``d_inner``, W) over
+  ``model``, as the reference pins their (B, S, channels) intermediates:
+  a member runs the conv, the scan and the gating on its channels, from
+  its two column regions of ``in_proj`` (one in each half: at ``model`` =
+  2 the reference's column blocks are the halves, so one region lies in
+  the other member's block).  Mamba sums ``x_proj``'s small (B, S,
+  dt_rank + 2N) product over ``model``; RG-LRU all-gathers its conv output
+  (B, S, W) for the two (W, W) gates, of which a member computes its
+  channels' columns.  ``out_proj``'s products are summed over ``model``.
+  A dimension an axis does not divide stays whole (the reference's
+  ``ExecConfig.constrain`` and ``_fit``).
 * **Decode** splits attention by the KV cache's sequence, as
-  ``cache_shardings`` places it (flash-decoding's split-K): every member
-  projects the token's q, k, v for all heads, the member holding slot
-  ``pos`` writes k and v, each member scores its slots and the members'
-  partial softmax sums are merged by their maxima.  Recurrent states and
-  cross-attention caches are gathered for the row, updated and written
-  back shard by shard.
+  ``cache_shardings`` places it (flash-decoding's split-K): each member
+  projects the token's q, k and v for its own heads, the members' are
+  gathered over ``model``, the member holding slot ``pos`` writes k and
+  v, each member scores its slots for every head, the members' partial
+  softmax sums are merged by their maxima, and each member multiplies its
+  heads' rows of ``wo`` (summed over ``model``).  Mamba and RG-LRU states
+  are read and updated in place in each member's shard (``conv`` and
+  ``h`` by channel, as ``cache_shardings`` lays them out);
+  cross-attention's vision caches are gathered for the row.
 
 Every cross-position copy, gather and partial sum is logged in a
 :class:`TransferLog` in mesh positions (not devices), so the log is the
@@ -77,16 +98,17 @@ from torch.utils.checkpoint import (checkpoint,
 from .. import obs
 from ..tree import Stack, leaves, leaves_with_paths, map_with_paths
 from .attention import NEG_INF, _project_qkv, _quantize_kv, attention_block
-from .common import (ExecConfig, apply_rope, mm, mm_f32, rmsnorm,
+from .common import (ExecConfig, apply_rope, mm, mm_f32, rmsnorm, silu,
                      to_device, torch_dtype)
 from .config import ModelConfig
 from .model import (LM, _rope_cache, _save_dots, decode_block,
                     init_block_cache, prelude_kinds, trailing_kinds,
                     unit_kinds)
-from .moe import mlp_block, moe_block
+from .moe import _route, mlp_block
 from .sharding import (P, Placed, Sharding, _blocks, batch_axes,
                        cache_shardings, leaf_shape, param_spec)
-from .ssm import _smooth_result, race_smooth
+from .ssm import (_causal_conv1d, _mamba_conv, _mamba_scan, _rglru_scan,
+                  _smooth_result, race_smooth)
 
 class MeshError(ValueError):
     """A mesh, batch or model this execution cannot run."""
@@ -186,6 +208,20 @@ def _split(n: int, parts: int, i: int) -> tuple:
     return lo, lo + base + (1 if i < extra else 0)
 
 
+def _divides(n: int, parts: int) -> bool:
+    return parts > 1 and n % parts == 0
+
+
+def _even(n: int, parts: int, i: int) -> tuple:
+    """``[lo, hi)`` of the ``i``-th of ``parts`` equal runs of ``n``, or all
+    of ``n`` where ``parts`` does not divide it: the reference's
+    ``ExecConfig.constrain`` and ``_fit`` leave such a dimension whole."""
+    if not _divides(n, parts):
+        return 0, n
+    step = n // parts
+    return i * step, (i + 1) * step
+
+
 # ---------------------------------------------------------------------------
 # collectives: differentiable, logged
 # ---------------------------------------------------------------------------
@@ -202,6 +238,9 @@ class Collectives:
         #: meta device: every position runs the same program)
         self.active = list(active or layout.positions)
         self.unit: Optional[int] = None
+        #: on the meta device, the running positions' parts of a collective
+        #: that positions which do not run read (see :meth:`Step.loss`)
+        self.sent: list = []
 
     def value(self, vals: dict, q, like: torch.Tensor) -> torch.Tensor:
         """``vals[q]``; a position that does not run stands in with its
@@ -264,6 +303,10 @@ class Collectives:
                                len(sources))
         return out
 
+    def _sending(self, vals: dict, p, grp) -> None:
+        if vals[p].requires_grad and any(q not in vals for q in grp):
+            self.sent.append(vals[p])
+
     def all_reduce(self, vals: dict, axes) -> dict:
         """Every position's sum of ``vals`` over the positions differing
         from it on ``axes``, added in one order on every member (so the
@@ -274,6 +317,7 @@ class Collectives:
         out = {}
         for p in vals:
             grp = self.L.group(p, axes)
+            self._sending(vals, p, grp)
             dev = self.L.device(p)
             s = None
             for q in grp:
@@ -282,18 +326,21 @@ class Collectives:
             out[p] = self._logged(s, "all-reduce", "all-reduce", len(grp))
         return out
 
-    def all_gather(self, vals: dict, axes, dim: int) -> dict:
+    def all_gather(self, vals: dict, axes, dim: int, like=None) -> dict:
         """Every position's concatenation along ``dim`` of ``vals`` over the
         positions differing from it on ``axes``, in their coordinates'
-        order."""
+        order.  ``like(q)`` gives the shape of ``q``'s part where the
+        parts differ (a position that does not run stands in by it)."""
         axes = self.L.live(axes)
         if not axes:
             return vals
         out = {}
         for p in vals:
             grp = self.L.group(p, axes)
+            self._sending(vals, p, grp)
             dev = self.L.device(p)
-            t = torch.cat([self.value(vals, q, vals[p]).to(dev)
+            t = torch.cat([self.value(vals, q, vals[p] if like is None
+                                      else like(q)).to(dev)
                            for q in grp], dim)
             out[p] = self._logged(t, "all-gather", "reduce-scatter", len(grp))
         return out
@@ -440,8 +487,11 @@ class MeshLM:
         return coll.fetch(pl, self.blocks[name], region, at)
 
     def rows(self, name: str, coll, at, lo: int, hi: int) -> torch.Tensor:
+        """Rows ``[lo, hi)`` of a matrix (of each matrix of a stack, such
+        as the experts' ``w_down``): its second-to-last dimension."""
         pl = self.placed[name]
-        region = ((lo, hi),) + tuple((0, n) for n in pl.shape[1:])
+        region = tuple((0, n) for n in pl.shape)
+        region = region[:-2] + ((lo, hi),) + region[-1:]
         return coll.fetch(pl, self.blocks[name], region, at)
 
     def module(self, prefix: str, coll, at) -> SimpleNamespace:
@@ -606,37 +656,57 @@ class Step:
             self.meta_mixer_ops += r.op_table()["weighted_total"] * pts
         return torch.empty_like(x)
 
+    def head_runs(self) -> tuple:
+        """(whether the heads split over ``model``, ``run(q)``): ``run(q)``
+        is position ``q``'s (KV heads, query heads per KV head, query
+        columns ``(lo, hi)``) run of :func:`_head_split` (every head where
+        they do not split)."""
+        cfg = self.cfg
+        G = cfg.n_heads // cfg.n_kv_heads
+        split = [_head_split(cfg, self.L.M, m) for m in range(self.L.M)]
+        tp = self.L.M > 1 and all(s is not None for s in split)
+
+        def run(q):
+            kv0, kv1, g0, g1 = (split[self.L.member(q)] if tp
+                                else (0, cfg.n_kv_heads, 0, G))
+            return ((kv0, kv1), g1 - g0, ((kv0 * G + g0) * cfg.d_head,
+                                          ((kv1 - 1) * G + g1) * cfg.d_head))
+
+        return tp, run
+
+    def head_weights(self, prefix, p, run) -> SimpleNamespace:
+        """Position ``p``'s columns of ``wq`` / ``wk`` / ``wv`` (and biases)
+        and rows of ``wo`` for its heads ``run``; the q / k norms whole."""
+        cfg, mp, c = self.cfg, self.mp, self.c
+        (kv0, kv1), _, (q_lo, q_hi) = run
+        k_lo, k_hi = kv0 * cfg.d_head, kv1 * cfg.d_head
+        ns = SimpleNamespace(
+            wq=mp.cols(f"{prefix}.wq", c, p, q_lo, q_hi),
+            wk=mp.cols(f"{prefix}.wk", c, p, k_lo, k_hi),
+            wv=mp.cols(f"{prefix}.wv", c, p, k_lo, k_hi),
+            wo=mp.rows(f"{prefix}.wo", c, p, q_lo, q_hi))
+        if cfg.qkv_bias:
+            ns.bq = mp.cols(f"{prefix}.bq", c, p, q_lo, q_hi)
+            ns.bk = mp.cols(f"{prefix}.bk", c, p, k_lo, k_hi)
+            ns.bv = mp.cols(f"{prefix}.bv", c, p, k_lo, k_hi)
+        if cfg.qk_norm:
+            ns.q_norm = mp.full(f"{prefix}.q_norm", c, p)
+            ns.k_norm = mp.full(f"{prefix}.k_norm", c, p)
+        return ns
+
     def attention(self, prefix, h: dict, rope, kv_src=None,
                   window: int = 0) -> dict:
         """The attention block's output on every position, summed over the
         members' heads (or computed whole on each member where the heads
         do not split)."""
-        cfg, mp = self.cfg, self.mp
-        dh = cfg.d_head
-        G = cfg.n_heads // cfg.n_kv_heads
-        split = [_head_split(cfg, self.L.M, m) for m in range(self.L.M)]
-        tp = self.L.M > 1 and all(s is not None for s in split)
+        tp, run = self.head_runs()
 
         def part(p):
-            kv0, kv1, g0, g1 = (split[self.L.member(p)] if tp
-                                else (0, cfg.n_kv_heads, 0, G))
-            q_lo = (kv0 * G + g0) * dh
-            q_hi = ((kv1 - 1) * G + g1) * dh
-            ns = SimpleNamespace(
-                wq=mp.cols(f"{prefix}.wq", self.c, p, q_lo, q_hi),
-                wk=mp.cols(f"{prefix}.wk", self.c, p, kv0 * dh, kv1 * dh),
-                wv=mp.cols(f"{prefix}.wv", self.c, p, kv0 * dh, kv1 * dh),
-                wo=mp.rows(f"{prefix}.wo", self.c, p, q_lo, q_hi))
-            if cfg.qkv_bias:
-                ns.bq = mp.cols(f"{prefix}.bq", self.c, p, q_lo, q_hi)
-                ns.bk = mp.cols(f"{prefix}.bk", self.c, p, kv0 * dh, kv1 * dh)
-                ns.bv = mp.cols(f"{prefix}.bv", self.c, p, kv0 * dh, kv1 * dh)
-            if cfg.qk_norm:
-                ns.q_norm = mp.full(f"{prefix}.q_norm", self.c, p)
-                ns.k_norm = mp.full(f"{prefix}.k_norm", self.c, p)
-            local = _local_heads(cfg, kv1 - kv0, g1 - g0)
+            (kv0, kv1), g, _ = run(p)
             return attention_block(
-                h[p], ns, local, self.ec, rope_cache=rope[p],
+                h[p], self.head_weights(prefix, p, run(p)),
+                _local_heads(self.cfg, kv1 - kv0, g), self.ec,
+                rope_cache=rope[p],
                 kv_src=None if kv_src is None else kv_src[p], window=window)
 
         out = self.each(part)
@@ -656,21 +726,166 @@ class Step:
         return self.c.all_reduce(self.each(part), ("model",))
 
     def moe(self, prefix, h: dict) -> dict:
-        """The MoE block over every row's tokens (global capacity
-        dispatch); each position keeps its row's outputs."""
-        full = (self.c.all_gather(h, self.L.batch_axes, 0) if self.split
-                else h)
+        """The MoE block, the reference's layout (``moe.py``'s constraints:
+        the dispatch buffer's capacity over the batch axes, the expert FFN
+        over ``model``).  Routing stays global: every position routes every
+        row's tokens (the capacity counts them all).  Row ``r`` computes
+        its capacity slots ``[r C / R, (r + 1) C / R)`` of every expert,
+        member ``m`` its ``d_ff`` columns ``[m F / M, (m + 1) F / M)``; the
+        members' partial outputs are summed over ``model``, the rows' slots
+        gathered over the batch axes, and each row combines its own
+        tokens.  A C or F the axes do not divide stays whole.  Only kept
+        tokens are written (F8)."""
+        cfg, mp, L, c = self.cfg, self.mp, self.L, self.c
+        E, K, Fd = cfg.moe_experts, cfg.moe_top_k, cfg.d_ff
+        full = c.all_gather(h, L.batch_axes, 0) if self.split else h
+        B, S, D = full[self.active[0]].shape
+        T = B * S
+        n = _moe_chunks(T, self.ec)
+        Tc = T // n
+        C = max(8, int(Tc * K * cfg.moe_capacity) // E)
+        c_split, f_split = _divides(C, L.n_rows), _divides(Fd, L.M)
+        w, span = {}, {}
+        for p in self.active:
+            f0, f1 = _even(Fd, L.M, L.member(p))
+            w[p] = SimpleNamespace(
+                router=mp.full(f"{prefix}.router", c, p),
+                w_gate=mp.cols(f"{prefix}.w_gate", c, p, f0, f1),
+                w_up=mp.cols(f"{prefix}.w_up", c, p, f0, f1),
+                w_down=mp.rows(f"{prefix}.w_down", c, p, f0, f1))
+            T_r = h[p].shape[0] * S
+            t0 = L.row(p) * T_r if self.split else 0
+            span[p] = (t0, t0 + T_r)
+        outs = {p: [] for p in self.active}
+        for i in range(n):
+            xc = {p: full[p].reshape(T, D)[i * Tc:(i + 1) * Tc]
+                  for p in self.active}
+            route = {p: _moe_route(xc[p], w[p].router, cfg, C)
+                     for p in self.active}
+
+            def part(p):
+                r = route[p]
+                c0, c1 = _even(C, L.n_rows, L.row(p))
+                cs = torch.arange(c0, c1, device=xc[p].device)
+                j = (r.start[:, None] + cs).clamp(max=Tc * K - 1)
+                buf = torch.where((cs < r.sizes[:, None])[..., None],
+                                  xc[p][r.tok[j]], 0)       # (E, C/R, D)
+                g = mm(buf, w[p].w_gate)
+                u = mm(buf, w[p].w_up)
+                return mm(silu(g) * u, w[p].w_down)
+
+            y = self.each(part)
+            if f_split:
+                y = c.all_reduce(y, ("model",))
+            if c_split:
+                y = c.all_gather(y, L.batch_axes, 1)
+            for p in self.active:
+                a = max(span[p][0], i * Tc) - i * Tc
+                b = min(span[p][1], (i + 1) * Tc) - i * Tc
+                if b > a:
+                    outs[p].append(_moe_combine(y[p], route[p], K, a, b))
+        shared = (self.mlp(f"{prefix}.shared", h, cfg.moe_shared * Fd)
+                  if cfg.moe_shared else None)
+        out = {}
+        for p in self.active:
+            o = torch.cat(outs[p]) if len(outs[p]) > 1 else outs[p][0]
+            if shared is not None:
+                o = o + shared[p].reshape(o.shape)
+            out[p] = o.reshape(h[p].shape).to(h[p].dtype)
+        return out
+
+    def _ssm_parts(self, prefix, width: int, names_cols, names_rows, p):
+        """Member ``p``'s channels ``[c0, c1)`` of ``width`` (all of it where
+        ``model`` does not divide it) and its slices of a recurrent block's
+        per-channel leaves: columns of ``names_cols``, rows of
+        ``names_rows``, and both ``in_proj`` column regions, one in each
+        half (``in_proj`` is (D, 2 width): x branch, then z / gate
+        branch)."""
+        mp, c = self.mp, self.c
+        c0, c1 = _even(width, self.L.M, self.L.member(p))
+        ns = SimpleNamespace(
+            in_x=mp.cols(f"{prefix}.in_proj", c, p, c0, c1),
+            in_z=mp.cols(f"{prefix}.in_proj", c, p, width + c0, width + c1))
+        for k in names_cols:
+            setattr(ns, k, mp.cols(f"{prefix}.{k}", c, p, c0, c1))
+        for k in names_rows:
+            setattr(ns, k, mp.rows(f"{prefix}.{k}", c, p, c0, c1))
+        return ns
+
+    def mamba(self, prefix, h: dict, cache=None) -> dict:
+        """The Mamba block with ``d_inner`` over ``model`` (the reference's
+        ``ssm.py`` pins every (B, S, d_inner) intermediate there): each
+        member runs the conv, the scan and the gating on its channels;
+        ``x_proj``'s product (B, S, dt_rank + 2N) and ``out_proj``'s are
+        summed over ``model``.  With ``cache`` (decode) each member reads
+        and updates its own shard of ``conv`` and ``h`` in place, as
+        ``cache_shardings`` lays them out."""
+        cfg = self.cfg
+        tp = _divides(cfg.d_inner, self.L.M)
+        ns, stage = {}, {}
+        for p in self.active:
+            q = ns[p] = self._ssm_parts(
+                prefix, cfg.d_inner, ("conv_w", "dt_proj", "dt_bias",
+                                      "D_skip"),
+                ("x_proj", "A_log", "out_proj"), p)
+            state = None if cache is None else cache["conv"].shards[p]
+            xc, new_conv = _mamba_conv(mm(h[p], q.in_x), q, state)
+            stage[p] = (xc, mm(h[p], q.in_z), new_conv)
+        proj = self.each(lambda p: mm(stage[p][0], ns[p].x_proj))
+        if tp:
+            proj = self.c.all_reduce(proj, ("model",))
 
         def part(p):
-            B_r = h[p].shape[0]
-            r = self.L.row(p) if self.split else 0
-            ns = self.mp.module(prefix, self.c, p)
-            y = (_meta_moe(full[p], ns, self.cfg, self.ec)
-                 if h[p].device.type == "meta" else
-                 moe_block(full[p], ns, self.cfg, exec_cfg=self.ec))
-            return y[r * B_r:(r + 1) * B_r]
+            xc, z, new_conv = stage[p]
+            h0 = (cache["h"].shards[p] if cache is not None else
+                  torch.zeros((xc.shape[0], xc.shape[2], cfg.ssm_state),
+                              dtype=torch.float32, device=xc.device))
+            y, h_last = _mamba_scan(xc, z, proj[p], ns[p], cfg, h0, self.ec)
+            if cache is not None:
+                cache["conv"].shards[p].copy_(new_conv)
+                cache["h"].shards[p].copy_(h_last)
+            return mm(y, ns[p].out_proj)
 
-        return self.each(part)
+        out = self.each(part)
+        return self.c.all_reduce(out, ("model",)) if tp else out
+
+    def rglru(self, prefix, h: dict, cache=None) -> dict:
+        """The RG-LRU block with its width W over ``model``: each member
+        runs the conv, ``lambda_p``, the scan and the gelu gate on its
+        channels.  The input and recurrence gates (W, W) read every
+        channel: the members' conv outputs are all-gathered over ``model``
+        (B, S, W, once for both gates), and each member computes its
+        channels' columns of both, rather than summing two (B, S, W)
+        partial products; ``out_proj``'s product is summed over ``model``.
+        ``cache`` as :meth:`mamba`'s."""
+        cfg = self.cfg
+        W = cfg.lru_width or cfg.d_model
+        tp = _divides(W, self.L.M)
+        ns, stage = {}, {}
+        for p in self.active:
+            q = ns[p] = self._ssm_parts(
+                prefix, W, ("conv_w", "w_input_gate", "w_rec_gate",
+                            "lambda_p"), ("out_proj",), p)
+            state = None if cache is None else cache["conv"].shards[p]
+            xc, new_conv = _causal_conv1d(mm(h[p], q.in_x), q.conv_w, state)
+            stage[p] = (xc, mm(h[p], q.in_z), new_conv)
+        xc = {p: stage[p][0] for p in self.active}
+        xc_all = self.c.all_gather(xc, ("model",), -1) if tp else xc
+
+        def part(p):
+            _, gate, new_conv = stage[p]
+            h0 = (cache["h"].shards[p] if cache is not None else
+                  torch.zeros(xc[p].shape[::2], dtype=torch.float32,
+                              device=xc[p].device))
+            y, h_last = _rglru_scan(xc_all[p], xc[p], gate, ns[p], h0,
+                                    self.ec)
+            if cache is not None:
+                cache["conv"].shards[p].copy_(new_conv)
+                cache["h"].shards[p].copy_(h_last)
+            return mm(y, ns[p].out_proj)
+
+        out = self.each(part)
+        return self.c.all_reduce(out, ("model",)) if tp else out
 
     def block(self, xs: dict, prefix: str, kind: str, rope, vision) -> dict:
         cfg, mp = self.cfg, self.mp
@@ -693,19 +908,11 @@ class Step:
                 f = self.mlp(f"{prefix}.mlp", h, d_ff)
             return {p: xs[p] + f[p] for p in xs}
         if kind == "mamba":
-            from .ssm import mamba_block
-
-            h = ln("ln1")
-            return {p: xs[p] + mamba_block(
-                h[p], mp.module(f"{prefix}.mamba", self.c, p), cfg, self.ec)
-                for p in xs}
+            m = self.mamba(f"{prefix}.mamba", ln("ln1"))
+            return {p: xs[p] + m[p] for p in xs}
         if kind == "rglru":
-            from .ssm import rglru_block
-
-            h = ln("ln1")
-            xs = {p: xs[p] + rglru_block(
-                h[p], mp.module(f"{prefix}.rglru", self.c, p), cfg, self.ec)
-                for p in xs}
+            g = self.rglru(f"{prefix}.rglru", ln("ln1"))
+            xs = {p: xs[p] + g[p] for p in xs}
             f = self.mlp(f"{prefix}.mlp", ln("ln2"), cfg.d_ff)
             return {p: xs[p] + f[p] for p in xs}
         raise ValueError(kind)
@@ -821,7 +1028,14 @@ class Step:
         if self.L.n_rows > 1 and self.split:  # the rows' sums and counts
             for _ in range(self.L.n_rows):
                 self.log.add("all-reduce", 8, self.L.n_rows, None)
-        return total / torch.clamp(cnt, min=1.0)
+        loss = total / torch.clamp(cnt, min=1.0)
+        # on the meta device the positions that do not run send no
+        # gradient back to the parts they read (a reduce-scatter's share of
+        # another row's loss: a MoE chunk's slots of a row with no tokens in
+        # it); a zero-weighted use stands in, so the backward runs whole
+        for t in self.c.sent:
+            loss = loss + 0 * t.sum().to(loss.device)
+        return loss
 
     def last_logits(self, h: dict) -> torch.Tensor:
         """(B, V) float32 logits of the last position, on the first
@@ -839,17 +1053,8 @@ class Step:
         return full[self.active[0]]
 
 
-def _meta_moe(x, p, cfg: ModelConfig, exec_cfg: ExecConfig):
-    """``moe_block``'s ``"capacity"`` path on the meta device, where its
-    data-dependent indexing cannot run: the router, top-k and gates, each
-    dispatch chunk's (E, C, D) buffer through the three expert products,
-    the gated combine and the shared experts, with index tensors standing
-    in for the routing (their values are never read)."""
-    from .common import silu
-
-    B, S, D = x.shape
-    E, K = cfg.moe_experts, cfg.moe_top_k
-    T = B * S
+def _moe_chunks(T: int, exec_cfg: ExecConfig) -> int:
+    """``moe_block``'s dispatch chunks over ``T`` tokens."""
     if exec_cfg.unroll_scans:
         n = min(exec_cfg.probe_chunks, T)
     elif exec_cfg.moe_chunk and T > exec_cfg.moe_chunk:
@@ -858,24 +1063,39 @@ def _meta_moe(x, p, cfg: ModelConfig, exec_cfg: ExecConfig):
         n = 1
     while T % n:
         n -= 1
-    Tc = T // n
-    C = max(8, int(Tc * K * cfg.moe_capacity) // E)
-    xf = x.reshape(T, D)
-    gates = torch.softmax(torch.topk(xf.float() @ p.router, K).values, -1)
-    outs = []
-    for i in range(n):
-        xc = xf[i * Tc:(i + 1) * Tc]
-        take = torch.empty(E * C, dtype=torch.long, device=x.device)
-        buf = xc[take].reshape(E, C, D)
-        y = mm(silu(mm(buf, p.w_gate)) * mm(buf, p.w_up), p.w_down)
-        back = torch.empty(Tc * K, dtype=torch.long, device=x.device)
-        g = gates[i * Tc:(i + 1) * Tc].reshape(Tc * K, 1)
-        outs.append((y.reshape(E * C, D)[back] * g.to(y.dtype)).reshape(
-            Tc, K, D).sum(1))
-    out = torch.cat(outs)
-    if cfg.moe_shared:
-        out = out + mlp_block(xf, p.shared)
-    return out.reshape(B, S, D).to(x.dtype)
+    return n
+
+
+def _moe_route(xc, router, cfg: ModelConfig, C: int) -> SimpleNamespace:
+    """One dispatch chunk's routing, ``moe_block``'s ``"capacity"`` path
+    up to its buffer: the entries (token, k) sorted by expert (``tok``,
+    ``se``), each one's slot and whether it is kept (within C), its gate,
+    the experts' sizes and first sorted entries, and each entry's sorted
+    position (``inv``).  Every tensor has a static shape (no mask, no
+    ``bincount``), so the meta device runs it too."""
+    E = cfg.moe_experts
+    _, expert_flat, token_flat, gate_flat, order = _route(
+        xc[None], SimpleNamespace(router=router), cfg)
+    se = expert_flat[order]
+    sizes = torch.zeros(E, dtype=torch.long, device=xc.device).index_add_(
+        0, expert_flat, torch.ones_like(expert_flat))
+    start = torch.cumsum(sizes, 0) - sizes
+    within = torch.arange(se.shape[0], device=xc.device) - start[se]
+    keep = within < C
+    return SimpleNamespace(
+        tok=token_flat[order], se=se, slot=torch.clamp(within, 0, C - 1),
+        gate=gate_flat[order] * keep, sizes=sizes, start=start,
+        inv=torch.argsort(order))
+
+
+def _moe_combine(y, r: SimpleNamespace, K: int, a: int, b: int):
+    """Tokens ``[a, b)`` of a chunk from its experts' whole output ``y``
+    (E, C, D): each token's kept entries, gated, added in sorted order (as
+    ``moe_block``'s scatter-add adds them)."""
+    sel = torch.sort(r.inv[a * K:b * K]).values
+    y_tok = y[r.se[sel], r.slot[sel]] * r.gate[sel][:, None].to(y.dtype)
+    out = torch.zeros((b - a, y.shape[-1]), dtype=y.dtype, device=y.device)
+    return out.index_add_(0, r.tok[sel] - a, y_tok)
 
 
 def _local_heads(cfg: ModelConfig, n_kv: int, g: int) -> ModelConfig:
@@ -1169,19 +1389,19 @@ class DecodeStep(Step):
                                                     for n in pl.shape[1:])
         return self.c.fetch(pl, unique_blocks(pl), region, p)
 
-    def write_back(self, pl: Placed, p, value: torch.Tensor) -> None:
-        """Store ``p``'s block of ``value`` (a row's whole cache leaf) into
-        its shard."""
-        rows, _ = _slot_range(pl, p)
-        for coords, sl in _blocks(pl.shape, pl.sharding):
-            if coords == p:
-                local = (slice(0, rows.stop - rows.start),) + tuple(sl[1:])
-                pl.shards[p].copy_(value[local])
-
     def self_attention(self, prefix, h: dict, cache: dict, pos: int, rope,
                        window: int) -> dict:
-        cfg, mp = self.cfg, self.mp
+        """Split-K decode attention.  Each member projects the token's q, k
+        and v for its own heads only (:func:`_head_split`'s runs; every
+        head where they do not split), the members' q, k and v are
+        gathered over ``model`` (one token: tiny), the member holding slot
+        ``pos`` writes k and v, each member scores its slots for every
+        head, the members' partial softmax sums merge by their maxima, and
+        each member multiplies its heads' rows of ``wo``, summed over
+        ``model``."""
+        cfg = self.cfg
         dh = cfg.d_head
+        G = cfg.n_heads // cfg.n_kv_heads
         quant = "k_scale" in cache
         kpl, vpl = cache["k"], cache["v"]
         Smax = kpl.shape[1]
@@ -1192,12 +1412,15 @@ class DecodeStep(Step):
         for coords, sl in _blocks(kpl.shape, kpl.sharding):
             owners.setdefault((self.L.row(coords), sl[1].start), coords)
         scorers = set(owners.values())
+        tp, run = self.head_runs()
+        wo = {}
 
-        mods = {}
-
-        def part(p):
-            ns = mods[p] = self.mp.module(prefix, self.c, p)
-            q, k, v = _project_qkv(h[p], h[p], ns, cfg)
+        def project(p):
+            (kv0, kv1), g, _ = run(p)
+            ns = self.head_weights(prefix, p, run(p))
+            wo[p] = ns.wo
+            q, k, v = _project_qkv(h[p], h[p], ns,
+                                   _local_heads(cfg, kv1 - kv0, g))
             B = q.shape[0]
             if rope[p] is not None:
                 cos, sin = rope[p]
@@ -1205,6 +1428,40 @@ class DecodeStep(Step):
                 ps = sin[pos].expand(B, 1, dh // 2)
                 q = apply_rope(q, pc, ps)
                 k = apply_rope(k, pc, ps)
+            return tuple(t.reshape(B, 1, -1) for t in (q, k, v))
+
+        qkv = self.each(project)
+        if tp:
+            # the parts' widths follow the members' head runs (a position
+            # that does not run, on the meta device, stands in by its own)
+            t0 = next(iter(qkv.values()))
+
+            def width(q, i):
+                (kv0, kv1), _, (q_lo, q_hi) = run(q)
+                return q_hi - q_lo if i == 0 else (kv1 - kv0) * dh
+
+            g = [self.c.all_gather(
+                {p: t[i] for p, t in qkv.items()}, ("model",), -1,
+                lambda q, i=i: t0[i].new_empty(t0[i].shape[:-1]
+                                               + (width(q, i),)))
+                for i in range(3)]
+            # where members split one KV group, each computed its group's
+            # k and v: keep the first member's of each group
+            kv_runs = [run(q)[0] for q in self.L.group(self.active[0],
+                                                         ("model",))]
+            at = np.cumsum([0] + [(b - a) * dh for a, b in kv_runs])
+            keep = [i for i, r in enumerate(kv_runs) if r not in kv_runs[:i]]
+            qkv = {p: (g[0][p],) + tuple(
+                g[i][p] if len(keep) == len(kv_runs) else torch.cat(
+                    [g[i][p][..., at[j]:at[j + 1]] for j in keep], -1)
+                for i in (1, 2)) for p in qkv}
+
+        def part(p):
+            q, k, v = qkv[p]
+            B = q.shape[0]
+            q = q.reshape(B, 1, cfg.n_kv_heads, G, dh)
+            k = k.reshape(B, 1, cfg.n_kv_heads, dh)
+            v = v.reshape(B, 1, cfg.n_kv_heads, dh)
             _, seq = _slot_range(kpl, p)
             if seq.start <= slot < seq.stop:
                 i = slot - seq.start
@@ -1219,7 +1476,7 @@ class DecodeStep(Step):
                     kpl.shards[p][:, i] = k[:, 0]
                     vpl.shards[p][:, i] = v[:, 0]
             if p not in scorers:
-                return q, None
+                return None
             if quant:
                 k_eff = (kpl.shards[p].to(torch.bfloat16) * cache[
                     "k_scale"].shards[p][..., None].to(torch.bfloat16))
@@ -1237,16 +1494,16 @@ class DecodeStep(Step):
             mx = s.amax(-1)
             e = torch.exp(s - mx[..., None])
             o = mm_f32(e.to(v_eff.dtype), v_eff, "bkgqc,bckd->bkgqd")
-            return q, (mx, e.sum(-1), o)
+            return mx, e.sum(-1), o
 
         parts = self.each(part)
-        like = next(st for _, st in parts.values() if st is not None)
+        like = next(st for st in parts.values() if st is not None)
         out = {}
         for p in self.active:
             grp = [q for q in self.L.group(p, ("model",)) if q in scorers]
             dev = self.L.device(p)
             stats = [tuple(t.to(dev) for t in (
-                parts[q][1] if q in parts else
+                parts[q] if q in parts else
                 tuple(self.c.value({}, q, t) for t in like))) for q in grp]
             if len(grp) > 1:
                 self.log.add("all-gather", sum(_nbytes(t) for s in stats
@@ -1257,9 +1514,10 @@ class DecodeStep(Step):
             num = sum(s[2] * torch.exp(s[0] - mx)[..., None] for s in stats)
             o = (num / den[..., None]).permute(0, 3, 1, 2, 4)
             B = o.shape[0]
-            out[p] = mm(o.to(h[p].dtype).reshape(B, 1, cfg.n_heads * dh),
-                        mods[p].wo)
-        return out
+            q_lo, q_hi = run(p)[2]
+            o = o.to(h[p].dtype).reshape(B, 1, cfg.n_heads * dh)
+            out[p] = mm(o[..., q_lo:q_hi], wo[p])
+        return self.c.all_reduce(out, ("model",)) if tp else out
 
     def layer(self, xs, prefix, kind, cache, pos, rope) -> dict:
         cfg, mp = self.cfg, self.mp
@@ -1278,18 +1536,22 @@ class DecodeStep(Step):
                     else cfg.d_ff
                 f = self.mlp(f"{prefix}.mlp", h, d_ff)
             return {p: xs[p] + f[p] for p in xs}
-        # recurrent states and cross-attention caches: the row's whole
-        # state gathered, the single-device layer run, each shard written
-        out, new = {}, {}
+        if kind == "mamba":
+            m = self.mamba(f"{prefix}.mamba", ln("ln1", xs), cache)
+            return {p: xs[p] + m[p] for p in xs}
+        if kind == "rglru":
+            g = self.rglru(f"{prefix}.rglru", ln("ln1", xs), cache)
+            xs = {p: xs[p] + g[p] for p in xs}
+            f = self.mlp(f"{prefix}.mlp", ln("ln2", xs), cfg.d_ff)
+            return {p: xs[p] + f[p] for p in xs}
+        # cross-attention: the row's whole vision cache gathered, the
+        # single-device layer run (its cache is not updated)
+        out = {}
         for p in self.active:
             full = {k: self.row_cache(v, p) for k, v in cache.items()}
-            out[p], new[p] = decode_block(
+            out[p], _ = decode_block(
                 xs[p], mp.module(prefix, self.c, p), cfg, self.ec, kind,
                 full, pos, rope[p])
-        if kind != "cross":  # every member read the old state first
-            for p in self.active:
-                for k, v in cache.items():
-                    self.write_back(v, p, new[p][k])
         return out
 
 

@@ -169,12 +169,25 @@ def init_mamba(generator, cfg: ModelConfig, device=None) -> Mamba:
 def _mamba_core(xz, p: Mamba, cfg: ModelConfig, conv_state, h0, exec_cfg):
     """Shared prefill/decode core.  xz: (B, S, 2*di).  The (B, C, di, N)
     discretization lives only inside the chunk body."""
-    N = cfg.ssm_state
-    S = xz.shape[1]
     xin, z = xz.chunk(2, dim=-1)
+    xc, new_conv = _mamba_conv(xin, p, conv_state)
+    y, h_last = _mamba_scan(xc, z, mm(xc, p.x_proj), p, cfg, h0, exec_cfg)
+    return mm(y, p.out_proj), new_conv, h_last
+
+
+def _mamba_conv(xin, p: Mamba, conv_state):
+    """The x branch's causal conv and SiLU: (xc, new conv state)."""
     xc, new_conv = _causal_conv1d(xin, p.conv_w, conv_state)
-    xc = silu(xc)
-    proj = mm(xc, p.x_proj)
+    return silu(xc), new_conv
+
+
+def _mamba_scan(xc, z, proj, p: Mamba, cfg: ModelConfig, h0, exec_cfg):
+    """Everything between ``x_proj`` and ``out_proj``, per channel: ``xc``,
+    ``z`` (B, S, di), ``proj`` = ``xc @ x_proj`` (B, S, dt_rank + 2N) and
+    ``p``'s per-channel leaves may hold any run of the d_inner channels
+    (a mesh member's).  Returns (y (B, S, di), h_last)."""
+    N = cfg.ssm_state
+    S = xc.shape[1]
     dt_low, Bm, Cm = torch.split(proj, [cfg.dt_rank, N, N], dim=-1)
     dt = F.softplus(mm(dt_low, p.dt_proj).float() + p.dt_bias)
     A = -torch.exp(p.A_log)  # (di, N)
@@ -189,12 +202,12 @@ def _mamba_core(xz, p: Mamba, cfg: ModelConfig, conv_state, h0, exec_cfg):
     y, h_last = _scan_recurrence(h0, chunk_fn, (dt, Bm, Cm, xc.float()),
                                  exec_cfg, S)
     if getattr(exec_cfg, "ssm_bf16", False):
-        y = y.to(xz.dtype) + p.D_skip.to(xz.dtype) * xc
+        y = y.to(z.dtype) + p.D_skip.to(z.dtype) * xc
         y = y * silu(z)
     else:
         y = y + p.D_skip * xc.float()
-        y = (y * silu(z.float())).to(xz.dtype)
-    return mm(y, p.out_proj), new_conv, h_last
+        y = (y * silu(z.float())).to(z.dtype)
+    return y, h_last
 
 
 def mamba_block(x, p: Mamba, cfg: ModelConfig, exec_cfg: ExecConfig):
@@ -250,11 +263,21 @@ def init_rglru(generator, cfg: ModelConfig, device=None) -> RGLRU:
 
 
 def _rglru_core(x2, p: RGLRU, cfg: ModelConfig, conv_state, h0, exec_cfg):
-    S = x2.shape[1]
     x_br, gate_br = x2.chunk(2, dim=-1)
     xc, new_conv = _causal_conv1d(x_br, p.conv_w, conv_state)
-    i_t = sigmoid(mm(xc, p.w_input_gate).float())
-    r_t = sigmoid(mm(xc, p.w_rec_gate).float())
+    y, h_last = _rglru_scan(xc, xc, gate_br, p, h0, exec_cfg)
+    return mm(y, p.out_proj), new_conv, h_last
+
+
+def _rglru_scan(xc_all, xc, gate_br, p: RGLRU, h0, exec_cfg):
+    """The gates, the recurrence and the gelu gate, per channel: the gates
+    read every channel of ``xc_all`` (B, S, W) through ``w_input_gate`` /
+    ``w_rec_gate``' columns for the channels of ``xc`` and ``gate_br``
+    (any run of the W channels, a mesh member's, as are ``p``'s
+    per-channel leaves).  Returns (y before ``out_proj``, h_last)."""
+    S = xc.shape[1]
+    i_t = sigmoid(mm(xc_all, p.w_input_gate).float())
+    r_t = sigmoid(mm(xc_all, p.w_rec_gate).float())
     log_a = -_LRU_C * r_t * F.softplus(p.lambda_p)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
@@ -266,8 +289,8 @@ def _rglru_core(x2, p: RGLRU, cfg: ModelConfig, conv_state, h0, exec_cfg):
 
     h, h_last = _scan_recurrence(h0, chunk_fn, (a, b), exec_cfg, S)
     # jax.nn.gelu's default is the tanh approximation
-    y = (h * F.gelu(gate_br.float(), approximate="tanh")).to(x2.dtype)
-    return mm(y, p.out_proj), new_conv, h_last
+    y = (h * F.gelu(gate_br.float(), approximate="tanh")).to(gate_br.dtype)
+    return y, h_last
 
 
 def rglru_block(x, p: RGLRU, cfg: ModelConfig, exec_cfg: ExecConfig):

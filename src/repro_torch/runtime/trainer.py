@@ -120,19 +120,32 @@ class Trainer:
                                    self.opt_state)}
         return restore_checkpoint(self.cfg.ckpt_dir, like, shardings=shard)
 
-    def _install_signals(self):
+    def _install_signals(self) -> dict:
+        """Preemption handlers for the run; returns the handlers they
+        replace (:meth:`run` puts them back, so a finished trainer is not
+        kept alive, with its parameters and optimizer state, by a process
+        handler that holds it)."""
         def handler(signum, frame):
             self._preempted = True
 
+        old = {}
         for s in (signal.SIGTERM, signal.SIGINT):
             try:
-                signal.signal(s, handler)
+                old[s] = signal.signal(s, handler)
             except ValueError:  # not main thread (tests)
                 pass
+        return old
 
     # ------------------------------------------------------------------
     def run(self) -> dict:
-        self._install_signals()
+        old = self._install_signals()
+        try:
+            return self._run()
+        finally:
+            for s, h in old.items():
+                signal.signal(s, h)
+
+    def _run(self) -> dict:
         self.maybe_resume()
         losses = []
         while self.step < self.cfg.total_steps:

@@ -210,6 +210,55 @@ def test_dense_train_flops_match_their_closed_form(records):
     assert 1.0 <= got / textbook <= 1.6
 
 
+def test_moe_train_flops_match_the_splits_closed_form(tmp_path):
+    """deepseek-moe-16b's reduced config (d_model 64, 4 heads of 16, one
+    dense first layer of d_ff 64, one MoE layer: 8 experts top-6 of d_ff
+    F = 64, two shared, capacity 1.25) on the 2x2 meta mesh, T = 4 x 32
+    tokens in the probe's 2 dispatch chunks of Tc = 64: C = 60 slots an
+    expert.  One position's train FLOPs are exactly
+
+    * the dense layer (outside remat): 6 T N_p / 4 and attention's 9 M / 4
+      (forward 2, backward 7, ``test_dense_train_flops_match_their_closed_
+      form``'s count);
+    * the MoE layer's attention (under remat): 8 T N_a / 4 + 11 M / 4;
+    * the router on every row's tokens: 2 T D E forward, again under remat,
+      and its backward 4 Tc D E for the one chunk that holds the row's
+      tokens (the other chunk's gates are combined, and differentiated, by
+      the other row);
+    * the experts: per chunk three (E, C / R, D) x (E, D, F / M) products,
+      2 E (C / R) D (F / M) each, four times (forward, remat, two in the
+      backward): the split's share, a quarter of the layer's whole
+      dispatch;
+    * the shared experts, split as the MLP: (24 - 2) T D Fs / 4 (remat
+      skips the last product, as for the dense MLP);
+    * the head and loss: 8 T D V / 4."""
+    cfg = get_config("deepseek_moe_16b").reduced()
+    s = CELLS["train"]
+    rec = dryrun.run_cell("deepseek_moe_16b", s.name, False, tmp_path,
+                          force=True, cfg=cfg, shape=s, mesh_shape=(2, 2))
+    assert rec["ok"], rec.get("traceback")
+    T = s.global_batch * s.seq_len
+    D, H, KV, dh, F, V, E, K = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.d_head, cfg.d_ff, cfg.vocab,
+                                cfg.moe_experts, cfg.moe_top_k)
+    n = 2
+    Tc = T // n
+    C = max(8, int(Tc * K * cfg.moe_capacity) // E)
+    assert (C, C % 2, F % 2) == (60, 0, 0)
+    N_a = D * H * dh * 2 + 2 * D * KV * dh
+    N_p = N_a + 3 * D * cfg.dense_first_layer_ff
+    M = 2 * s.global_batch * H * s.seq_len ** 2 * dh
+    Fs = cfg.moe_shared * F
+    experts = n * 4 * 3 * 2 * E * (C // 2) * D * (F // 2)
+    want = ((6 * T * N_p + 9 * M) / 4 + (8 * T * N_a + 11 * M) / 4
+            + 4 * T * D * E + 4 * Tc * D * E + experts
+            + 22 * T * D * Fs / 4 + 8 * T * D * V / 4)
+    got = rec["totals"]["flops_per_device"]
+    assert got == pytest.approx(want, rel=1e-9)
+    # the whole dispatch on one position would be four times the experts'
+    assert experts * 4 == n * 4 * 3 * 2 * E * C * D * F
+
+
 def _reference_record_keys():
     """The keys the reference's ``run_cell`` writes (its source's ``rec``
     dict literal and ``rec[...]`` assignments) and its ``totals``'."""

@@ -54,7 +54,9 @@ from repro_torch.launch import train
 from repro_torch.launch.mesh import AbstractMeshError, make_mesh
 from repro_torch.models import spmd
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_block
 from repro_torch.models.sharding import gather
+from repro_torch.models.ssm import mamba_block, rglru_block
 from repro_torch.tree import as_array, leaves
 
 pytestmark = pytest.mark.port
@@ -242,17 +244,31 @@ print("OK")
 """
 
 
-def test_mesh_train_steps_match_the_reference_mesh_step(tmp_path):
+#: the archs held against the reference's own 2x2 step, with their config
+#: overrides (MoE at capacity E, ``CASES``' setting: the reference's drops
+#: differ, ROADMAP F8)
+REF_MESH_CASES = {
+    "qwen2_7b": {"race_smooth_radius": 2},
+    "deepseek_moe_16b": {"moe_capacity": 8.0},
+    "falcon_mamba_7b": {},
+    "recurrentgemma_9b": {},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(REF_MESH_CASES))
+def test_mesh_train_steps_match_the_reference_mesh_step(arch, tmp_path):
     """The reference's own ``jax.jit(make_train_step(..., ExecConfig(mesh=
     2x2)))`` over four forced host devices, in a subprocess: the port's
-    mesh steps give its losses and parameters."""
-    kw = {"dtype": "float32", "race_smooth_radius": 2}
-    rcfg, pcfg = _cfgs("qwen2_7b", race_smooth_radius=2)
+    mesh steps (MoE, Mamba and RG-LRU split the reference's way) give its
+    losses and parameters."""
+    kw = REF_MESH_CASES[arch]
+    rcfg, pcfg = _cfgs(arch, **kw)
     params = _numpy_init(rcfg)
     batches = _batches(pcfg, STEPS)
     with open(tmp_path / "in.pkl", "wb") as f:
-        pickle.dump({"arch": "qwen2_7b", "cfg": kw, "exec": EXEC, "lr": LR,
-                     "eps": EPS, "params": params, "batches": batches}, f)
+        pickle.dump({"arch": arch, "cfg": {"dtype": "float32", **kw},
+                     "exec": EXEC, "lr": LR, "eps": EPS, "params": params,
+                     "batches": batches}, f)
     r = subprocess.run(
         [sys.executable, "-c", REF_MESH, str(tmp_path / "in.pkl"),
          str(tmp_path / "out.pkl")], capture_output=True, text=True,
@@ -463,6 +479,215 @@ def test_transfer_log_matches_a_hand_count():
     assert len(per_unit) == 4 * 9  # wq wk wv wo, attn sum, 3 MLP, MLP sum
     assert log.bytes_by_kind() == {"all-gather": 4 * sum(gathers),
                                    "all-reduce": 4 * sum(sums)}
+
+
+class _Fetches:
+    """Every ``Collectives.fetch`` of a step: (parameter name, position,
+    the region's shape), and the cache leaves fetched."""
+
+    def __init__(self, monkeypatch, mp, caches=None):
+        self.names = {id(pl): n for n, pl in mp.placed.items()}
+        self.cache_ids = {id(pl) for pl in leaves(caches or {})}
+        self.got, self.cache_fetches = [], 0
+        inner = spmd.Collectives.fetch
+
+        def fetch(coll, placed, blocks, region, at):
+            if id(placed) in self.cache_ids:
+                self.cache_fetches += 1
+            self.got.append((self.names.get(id(placed)), at,
+                             tuple(hi - lo for lo, hi in region),
+                             tuple(region)))
+            return inner(coll, placed, blocks, region, at)
+
+        monkeypatch.setattr(spmd.Collectives, "fetch", fetch)
+
+    def shapes(self, suffix, at) -> list:
+        return [sh for n, a, sh, _ in self.got
+                if n and n.endswith(suffix) and a == at]
+
+
+POSITIONS = [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def _block_on_the_mesh(cfg, kind, run, monkeypatch):
+    """One ``kind`` block of a one-layer ``cfg`` (float32, weights from a
+    seed) on the 2x2 mesh, batch 2 x 4 (one example a row): ``run(st, h)``
+    calls the step's block method; returns (the single device's block
+    output, the mesh's per position, the log, the fetches)."""
+    model = P.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    with torch.no_grad():  # the unit-scale norms and SSM constants stay
+        for n, t in model.named_parameters():
+            if t.dim() >= 2:
+                t.copy_(torch.randn(t.shape, generator=torch.Generator()
+                                    .manual_seed(len(n))) / t.shape[-2] ** .5)
+    mp = spmd.place_model(model, _mesh())
+    fetches = _Fetches(monkeypatch, mp)
+    x = np.random.default_rng(0).standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32)
+    ec = P.ExecConfig(mesh=mp.mesh, **EXEC)
+    st = spmd.Step(mp, ec)
+    with torch.no_grad():
+        got = run(st, st.rows(x))
+        blk = model.units[0]
+        xt = torch.as_tensor(x)
+        if kind == "moe":
+            want = moe_block(xt, blk.moe, cfg, exec_cfg=ec)
+        elif kind == "mamba":
+            want = mamba_block(xt, blk.mamba, cfg, ec)
+        else:
+            want = rglru_block(xt, blk.rglru, cfg, ec)
+    for p, y in got.items():
+        r = p[0]
+        np.testing.assert_allclose(y.numpy(), want[r:r + 1].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    return st.log, fetches
+
+
+def _log_per_position(log, kind) -> list:
+    return sorted(e.nbytes for e in log.entries if e.kind == kind)
+
+
+def test_moe_block_transfer_log_matches_a_hand_count(monkeypatch):
+    """One MoE block (d_model 16, 4 experts top-2, expert ``d_ff`` 8, one
+    shared expert of 8, float32; T = 8 tokens, capacity 1.0: C = 8) on the
+    2x2 mesh.  Per position: every row's tokens gathered over ``data``
+    (2 x 4 x 16 x 4 B); the router gathered whole over ``data`` (16 x 4 x
+    4 B); its member's F / M = 4 columns of ``w_gate`` and ``w_up`` and
+    rows of ``w_down``, each (E, D, F / M) = (4, 16, 4) with D gathered
+    over ``data`` (1,024 B each); the experts' partial outputs at its row's
+    C / R = 4 slots summed over ``model`` (4 x 4 x 16 x 4 B), the rows'
+    slots gathered over ``data`` (4 x 8 x 16 x 4 B); the shared expert
+    split as the MLP is (three 16 x 4 x 4 B fetches, its 4 x 16 x 4 B
+    sum).  No position fetches a whole expert weight."""
+    cfg = ModelConfig(name="tiny-moe", kind="moe", num_layers=1, d_model=16,
+                      n_heads=2, n_kv_heads=2, d_head=8, d_ff=8, vocab=64,
+                      moe_experts=4, moe_top_k=2, moe_shared=1,
+                      moe_capacity=1.0, dtype="float32")
+    log, f = _block_on_the_mesh(
+        cfg, "moe", lambda st, h: st.moe("units.0.moe", h), monkeypatch)
+    gathers = [2 * 4 * 16 * 4, 16 * 4 * 4] + [4 * 16 * 4 * 4] * 3 + [
+        4 * 8 * 16 * 4] + [16 * 4 * 4] * 3
+    sums = [4 * 4 * 16 * 4, 4 * 16 * 4]
+    assert _log_per_position(log, "all-gather") == sorted(gathers * 4)
+    assert _log_per_position(log, "all-reduce") == sorted(sums * 4)
+    assert {e.group for e in log.entries} == {2}
+    for p in POSITIONS:
+        for w in ("moe.w_gate", "moe.w_up"):
+            assert f.shapes(w, p) == [(4, 16, 4)]
+        assert f.shapes("moe.w_down", p) == [(4, 4, 16)]
+    regions = {(a, n): r for n, a, _, r in f.got if n.endswith("moe.w_gate")}
+    assert regions[((0, 1), "units.0.moe.w_gate")][-1] == (4, 8)
+
+
+def test_mamba_block_transfer_log_matches_a_hand_count(monkeypatch):
+    """One Mamba block (d_model 16, d_inner 32, state 4, dt_rank 1, conv 4,
+    float32) on the 2x2 mesh, batch 2 x 4.  Member m computes channels
+    [16 m, 16 m + 16).  Its two ``in_proj`` regions (16 x 16 each, one in
+    the x half, one in the z half: at ``model`` = 2 the reference's
+    column blocks are the two halves, so one of them lies in the other
+    member's block) are gathered (1,024 B each), as are its ``out_proj``
+    rows (16 x 16, d_model over ``data``: 1,024 B).  ``conv_w``, ``A_log``,
+    ``dt_bias`` and ``D_skip`` are its own blocks (``model``); ``dt_proj``
+    (1, 32) splits its columns over ``data`` and ``x_proj`` (32, 9) its
+    rows (9 does not split over ``model``), so the positions whose
+    channels lie in the other row's block fetch them: (0, 1) and (1, 0)
+    fetch 1 x 16 x 4 and 16 x 9 x 4 B.  Summed over ``model``: ``x_proj``'s
+    product (1 x 4 x 9 x 4 B) and ``out_proj``'s (1 x 4 x 16 x 4 B)."""
+    cfg = ModelConfig(name="tiny-mamba", kind="ssm", num_layers=1,
+                      d_model=16, n_heads=1, n_kv_heads=1, d_head=16,
+                      d_ff=0, vocab=64, ssm_state=4, dtype="float32")
+    log, f = _block_on_the_mesh(
+        cfg, "mamba", lambda st, h: st.mamba("units.0.mamba", h),
+        monkeypatch)
+    gathers = [16 * 16 * 4] * 3 * 4 + [1 * 16 * 4, 16 * 9 * 4] * 2
+    sums = [4 * 9 * 4, 4 * 16 * 4] * 4
+    assert _log_per_position(log, "all-gather") == sorted(gathers)
+    assert _log_per_position(log, "all-reduce") == sorted(sums)
+    for p in POSITIONS:
+        assert f.shapes("mamba.in_proj", p) == [(16, 16), (16, 16)]
+        m = p[1]
+        ins = [r for n, a, _, r in f.got if a == p
+               and n.endswith("mamba.in_proj")]
+        assert [r[1] for r in ins] == [(16 * m, 16 * m + 16),
+                                      (32 + 16 * m, 32 + 16 * m + 16)]
+        for name, shape in (("conv_w", (4, 16)), ("x_proj", (16, 9)),
+                            ("dt_proj", (1, 16)), ("A_log", (16, 4)),
+                            ("D_skip", (16,)), ("out_proj", (16, 16))):
+            assert f.shapes(f"mamba.{name}", p) == [shape], name
+
+
+def test_rglru_block_transfer_log_matches_a_hand_count(monkeypatch):
+    """One RG-LRU block (d_model 16, width W 16, conv 4, float32) on the
+    2x2 mesh, batch 2 x 4.  Member m computes channels [8 m, 8 m + 8): its
+    two ``in_proj`` regions (16 x 8, one per half), its columns of
+    ``w_input_gate`` and ``w_rec_gate`` (16 x 8, W over ``data``) and its
+    ``out_proj`` rows (8 x 16) are gathered (512 B each); the conv's output
+    is all-gathered over ``model`` (1 x 4 x 16 x 4 B, once for both
+    gates), ``out_proj``'s product summed (1 x 4 x 16 x 4 B)."""
+    cfg = ModelConfig(name="tiny-rglru", kind="hybrid", num_layers=1,
+                      d_model=16, n_heads=2, n_kv_heads=1, d_head=8,
+                      d_ff=32, vocab=64, pattern=("rglru",), window=16,
+                      lru_width=16, dtype="float32")
+    log, f = _block_on_the_mesh(
+        cfg, "rglru", lambda st, h: st.rglru("units.0.rglru", h),
+        monkeypatch)
+    gathers = [16 * 8 * 4] * 5 + [4 * 16 * 4]
+    sums = [4 * 16 * 4]
+    assert _log_per_position(log, "all-gather") == sorted(gathers * 4)
+    assert _log_per_position(log, "all-reduce") == sorted(sums * 4)
+    for p in POSITIONS:
+        assert f.shapes("rglru.in_proj", p) == [(16, 8), (16, 8)]
+        for name, shape in (("w_input_gate", (16, 8)),
+                            ("w_rec_gate", (16, 8)), ("conv_w", (4, 8)),
+                            ("lambda_p", (8,)), ("out_proj", (8, 16))):
+            assert f.shapes(f"rglru.{name}", p) == [shape], name
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "falcon_mamba_7b",
+                                  "recurrentgemma_9b"])
+def test_decode_members_project_only_their_heads_and_states(arch,
+                                                            monkeypatch):
+    """Four mesh decode steps: every ``wq`` / ``wk`` / ``wv`` fetch is its
+    member's run of columns (``_head_split``'s: qwen2's reduced config has
+    one KV group, so both members project that group's k and v and each
+    its two query heads), every ``wo`` fetch its rows; no position fetches
+    a cache leaf (the recurrent states are read and written in each
+    member's shard), and the gathered caches equal the single device's."""
+    cfg, model, mp = _frozen(arch)
+    caches = spmd.init_caches(mp, B, S)
+    f = _Fetches(monkeypatch, mp, caches)
+    ec = P.ExecConfig(**EXEC)
+    dec = P.make_decode_step(cfg, dataclasses.replace(ec, mesh=mp.mesh),
+                             max_len=S)
+    dec1 = P.make_decode_step(cfg, ec, max_len=S)
+    c1 = P.init_caches(cfg, B, S, device=CPU)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (B, 4))
+    for t in range(4):
+        got, caches = dec(mp, caches, tokens[:, t:t + 1], t)
+        want, c1 = dec1(model, c1, tokens[:, t:t + 1], t)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+    assert f.cache_fetches == 0
+    H, dh = cfg.n_heads, cfg.d_head
+    seen = 0
+    for n, at, _, region in f.got:
+        if n and n.rsplit(".", 1)[-1] in ("wq", "wo"):
+            kv0, kv1, g0, g1 = spmd._head_split(cfg, 2, at[1])
+            G = H // cfg.n_kv_heads
+            run = ((kv0 * G + g0) * dh, ((kv1 - 1) * G + g1) * dh)
+            dim = -1 if n.endswith("wq") else 0
+            assert region[dim] == run and run[1] - run[0] == H * dh // 2
+            seen += 1
+    n_attn = sum(k == "attn" for _, k in spmd._layer_kinds(
+        cfg, mp._n_units()))
+    assert seen == 2 * len(POSITIONS) * 4 * n_attn  # wq, wo; 4 steps
+    back = spmd.gather_caches(caches)
+    for part in ("prelude", "units", "trailing"):
+        for a, b in zip(c1[part], back[part], strict=True):
+            for k in a:
+                d = (a[k].float() - b[k].float()).abs().max()
+                assert d <= 1e-4 * max(1.0, float(a[k].abs().max())), k
 
 
 def test_the_backward_logs_the_gradients_collectives():

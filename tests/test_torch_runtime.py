@@ -312,6 +312,39 @@ def test_preemption_checkpoints_and_stops(small, tmp_path):
     assert out["step"] == 2 and latest_step(tmp_path / "ck") == 2
 
 
+def test_a_finished_run_restores_the_signal_handlers(small, tmp_path):
+    """``run`` installs its preemption handlers for the run only: after it
+    the SIGTERM and SIGINT handlers are the ones before it, so nothing of
+    the process holds the finished trainer (its parameters and optimizer
+    state are freed with it)."""
+    import gc
+    import signal
+    import weakref
+
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    tc = TrainerConfig(total_steps=2, ckpt_dir=str(tmp_path / "ck"),
+                       ckpt_every=100, **QUIET)
+    tr = Trainer(tc, small.step, small.data, *small.fresh())
+    seen = []
+    inner = tr.train_step
+
+    def step(p, o, b):  # the run's own handler is installed meanwhile
+        seen.append(signal.getsignal(signal.SIGTERM) is before[
+            signal.SIGTERM])
+        return inner(p, o, b)
+
+    tr.train_step = step
+    out = tr.run()
+    assert out["step"] == 2
+    assert seen == [False, False]
+    assert {s: signal.getsignal(s) for s in before} == before
+    gone = weakref.ref(tr)
+    del tr, step
+    gc.collect()
+    assert gone() is None
+
+
 def test_end_to_end_training_loss_decreases(tmp_path):
     """``tests/test_system.py``'s run on the port: a tiny model on a
     near-stationary corpus, AdamW, the checkpointing trainer; the loss
