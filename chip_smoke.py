@@ -272,7 +272,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``launch.train --mesh ... --devices`` CLI on the reduced config with
      the mixer; one ``launch.dryrun`` record (qwen2_7b x train_4k on the
      16x16 pod, meta devices).  Its mixers' K1 sources are built in phase
-     2.
+     2.  Every mesh step runs the sequence-parallel residual (the
+     default: a member holds its S / M tokens between layer units);
+     mesh:train:qwen2-7b runs again with ``--no-seq-parallel`` (the
+     replicated residual, :data:`MESH_LAYOUT_CELLS`), and
+     ``mesh:layouts`` prints both layouts' step ms, peak memory, transfer
+     bytes by kind, the bytes the units' remat saved a position
+     (``saved_tensors_hooks``) and step-1 losses, gated on the losses
+     (:data:`MESH_LAYOUT_TOL`) and on the saved bytes falling by M.  The
+     mesh cells' kernel lines split K1's adjoints into the ``sx`` adjoint
+     (timed beside ``F.conv1d`` with the reversed filter) and the tap
+     adjoints (no library call: products of two streams); ``mixer vs
+     conv1d`` times the ``sx`` adjoint in turns too.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -436,6 +447,12 @@ GRAD_SYNC_BATCH = (4, 512)
 #: 2,048 tokens of log-sum-exp minus gold moves far less; and the CLI's run
 MESH = (2, 2)
 MESH_LOSS_TOL = 1e-2
+#: the training cells phase 18 also runs on the replicated residual
+#: (``--no-seq-parallel``) after the default sequence-parallel one; their
+#: step-1 losses, relative: the layout changes no sum of the forward, so
+#: the two agree to the card's run-to-run rounding, far inside this
+MESH_LAYOUT_CELLS = ("qwen2-7b",)
+MESH_LAYOUT_TOL = 1e-3
 #: mesh:train:deepseek-moe-16b: deepseek-moe-16b at full width, depth cut
 #: to 4 layers (the dense first one and three MoE; 28 layers, 16.4 B
 #: parameters under AdamW, do not fit 80 GB), capacity 1.25 (its
@@ -2548,20 +2565,40 @@ def lm_sources() -> list:
     return out
 
 
-def mixer_library_call(env, radius: int, torch):
-    """``F.conv1d`` of the mixer's stream with its effective 5-tap filter:
-    ``y[s] = sum_d sw_d (x[s+R-d] + x[s+R-d+1] + x[s+R-d+2])`` is one
-    cross-correlation whose tap ``k`` sums the ``sw_d`` with ``R - d <= k
-    <= R - d + 2``.  The channels become the batch (a transposed view)."""
-    import torch.nn.functional as F
-
+def _mixer_filter(env, radius: int, device, torch):
+    """The mixer's effective (R + 3)-tap filter: ``y[s] = sum_d sw_d
+    (x[s+R-d] + x[s+R-d+1] + x[s+R-d+2])`` is one cross-correlation whose
+    tap ``k`` sums the ``sw_d`` with ``R - d <= k <= R - d + 2``."""
     w = torch.zeros(radius + 3, dtype=torch.float64)
     for d in range(radius + 1):
         for e in range(3):
             w[radius - d + e] += float(env[f"sw{d}"])
-    w = w.to(device=env["sx"].device, dtype=torch.float32)[None, None]
+    return w.to(device=device, dtype=torch.float32)
+
+
+def mixer_library_call(env, radius: int, torch):
+    """``F.conv1d`` of the mixer's stream with its effective filter
+    (:func:`_mixer_filter`).  The channels become the batch (a transposed
+    view)."""
+    import torch.nn.functional as F
+
+    w = _mixer_filter(env, radius, env["sx"].device, torch)[None, None]
     x = env["sx"].t()[:, None, :]
     return lambda: {"sy": F.conv1d(x, w)[:, 0].t()}
+
+
+def sx_adjoint_library_call(adj_env, radius: int, torch):
+    """``F.conv1d`` computing the mixer's ``sx`` adjoint plan: ``_adj_sx[q]
+    = sum_k w[R + 2 - k] g[q + k]`` over the output gradient ``_g_sy``
+    (padded by R + 2 at each end), ``w`` the forward's filter reversed.
+    The tap adjoints have no such call: each is a product of two streams
+    (a box sum of ``sx`` times ``_g_sy``), not a filter."""
+    import torch.nn.functional as F
+
+    g = adj_env["_g_sy"]
+    w = _mixer_filter(adj_env, radius, g.device, torch).flip(0)[None, None]
+    x = g.t()[:, None, :]
+    return lambda: {"_adj_sx": F.conv1d(x, w)[:, 0].t()}
 
 
 def lm_mixer_check(x, taps, torch) -> tuple:
@@ -3146,7 +3183,7 @@ def train_main(root, torch) -> list:
                          "with torch's")
 
     entries, fwd_ms, adj_ms = k1_mixer_lines(
-        "lm:train", "train", ex, env, adj, launches[0], sum(launches[1:]),
+        "lm:train", "train", ex, env, adj, launches[0], launches[1:],
         grad_abs, torch)
     print(f"lm:train K1 = {(fwd_ms + adj_ms) / step_ms:.4f} of the step",
           flush=True)
@@ -3159,12 +3196,15 @@ def train_main(root, torch) -> list:
 
 
 def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
-                   grad_abs, torch) -> tuple:
+                   grad_abs, torch, split_sx: bool = False) -> tuple:
     """The mixer's forward executor ``ex`` at ``env`` on K1 against
     ``"torch"`` (within ``plan``), then it and every adjoint spec's
     executor timed beside their plain versions, bounds and (forward) the
-    library call; returns (the two kernel-line entries, forward ms, summed
-    adjoint ms)."""
+    library call; ``adj_launches`` per spec of ``adj``.  Returns (the
+    kernel-line entries, forward ms, summed adjoint ms): the forward and
+    the adjoints summed, or with ``split_sx`` the ``sx`` adjoint (checked
+    against and timed beside its library call,
+    :func:`sx_adjoint_library_call`) and the tap adjoints apart."""
     from repro_torch import compile_plan
     from repro_torch.testing import default_tolerances, rel_err
 
@@ -3181,34 +3221,51 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     fwd_lib = _time_ms(mixer_library_call(env, LM_RADIUS, torch), torch)
     fb, fo = plan_work(ex.plan, env, 4)
     fwd_bound, fwd_by = bound_of(fb, fo, PEAK_FLOPS["float32"])
-    adj_ms = adj_plain = 0.0
-    ab = ao = 0
+    groups = {}  # adjoint line -> ms, plain ms, bytes, ops, launches
     per_spec = []
-    for spec, a, e in adj:
+    sx_lib = None
+    for (spec, a, e), n in zip(adj, adj_launches, strict=True):
+        key = "" if not split_sx else " sx" if spec.input == "sx" else " sw"
+        g = groups.setdefault(key, [0.0, 0.0, 0, 0, 0])
         ms = _time_ms(lambda: e(a), torch)
-        adj_ms += ms
         per_spec.append(f"{spec.input} {ms:.4f}")
         e_t = compile_plan(spec.result().plan, a, "torch")
-        adj_plain += _time_ms(lambda: e_t(a), torch)
         b_, o_ = plan_work(spec.result().plan, a, 4)
-        ab, ao = ab + b_, ao + o_
-    adj_bound, adj_by = bound_of(ab, ao, PEAK_FLOPS["float32"])
-    print(f"{label} K1 per call, sx {tuple(env['sx'].shape)}: forward "
-          f"{fwd_ms:.4f} ms (torch {fwd_plain:.4f}, conv1d {fwd_lib:.4f}, "
-          f"bound {fwd_bound:.4f} {fwd_by}), adjoints {adj_ms:.4f} ms "
-          f"({len(adj)} launches: {', '.join(per_spec)}; torch "
-          f"{adj_plain:.4f}, bound {adj_bound:.4f} {adj_by})", flush=True)
+        g[0] += ms
+        g[1] += _time_ms(lambda: e_t(a), torch)
+        g[2], g[3], g[4] = g[2] + b_, g[3] + o_, g[4] + n
+        if key == " sx":
+            lib = sx_adjoint_library_call(a, LM_RADIUS, torch)
+            e_lib = rel_err(lib(), e(a))
+            if e_lib > default_tolerances("float32")["baseline"]:
+                raise SystemExit(f"{label}: conv1d and K1 disagree on the "
+                                 f"sx adjoint ({e_lib:.2e})")
+            sx_lib = _time_ms(lib, torch)
+    adj_ms = sum(g[0] for g in groups.values())
     common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
                   replaces="src/repro/lowering/emit.py:273")
-    return ([dict(name=f"race_stencil[race_smooth {tag}]",
-                  launches=fwd_launches, max_abs_err=fwd_abs, ms=fwd_ms,
-                  plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
-                  library_ms=fwd_lib, **common),
-             dict(name=f"race_stencil[race_smooth {tag} adjoint]",
-                  launches=adj_launches, max_abs_err=grad_abs, ms=adj_ms,
-                  plain_ms=adj_plain, bound_ms=adj_bound, bound_by=adj_by,
-                  library_ms=None, **common)],
-            fwd_ms, adj_ms)
+    entries = [dict(name=f"race_stencil[race_smooth {tag}]",
+                    launches=fwd_launches, max_abs_err=fwd_abs, ms=fwd_ms,
+                    plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                    library_ms=fwd_lib, **common)]
+    parts = []
+    for key, (ms, plain, b_, o_, n) in groups.items():
+        bound, by = bound_of(b_, o_, PEAK_FLOPS["float32"])
+        lib = sx_lib if key == " sx" else None
+        parts.append(f"adjoint{key} {ms:.4f} ms (torch {plain:.4f}, "
+                     f"bound {bound:.4f} {by}, library "
+                     f"{'none' if lib is None else f'{lib:.4f}'})")
+        entries.append(dict(name=f"race_stencil[race_smooth {tag} "
+                                 f"adjoint{key}]",
+                            launches=n, max_abs_err=grad_abs, ms=ms,
+                            plain_ms=plain, bound_ms=bound, bound_by=by,
+                            library_ms=lib, **common))
+    print(f"{label} K1 per call, sx {tuple(env['sx'].shape)}: forward "
+          f"{fwd_ms:.4f} ms (torch {fwd_plain:.4f}, conv1d {fwd_lib:.4f}, "
+          f"bound {fwd_bound:.4f} {fwd_by}); {'; '.join(parts)}; "
+          f"{len(adj)} adjoint launches a step: {', '.join(per_spec)}",
+          flush=True)
+    return entries, fwd_ms, adj_ms
 
 
 def elastic_check(root, torch) -> None:
@@ -3505,12 +3562,10 @@ def mesh_train(root, label, argv, torch) -> list:
     """mesh:train:<label>: ``launch.train`` with ``argv`` on the 2x2 mesh
     (``--mesh 2x2 --devices cuda:0,...``, no checkpoint), against the same
     model's one-device steps from the same initialization and batches in
-    this call; returns the mixer's kernel-line entries."""
-    from repro_torch import compile_plan, obs
+    this call, on the sequence-parallel residual (the default) and, for
+    :data:`MESH_LAYOUT_CELLS`, again on the replicated one; returns the
+    mixer's kernel-line entries (the default layout's)."""
     from repro_torch.launch import train
-    from repro_torch.launch.hlo_analysis import collective_traffic
-    from repro_torch.models.ssm import _smooth_result, smooth_env
-    from repro_torch.testing import default_tolerances
 
     import shutil
 
@@ -3525,10 +3580,40 @@ def mesh_train(root, label, argv, torch) -> list:
         x = one.params.embed[tokens[:args.batch // rows]][
             ..., :cfg.d_model // m].clone()  # position (0, 0)'s slice
     ones, single_ms = one_device_steps(one, args.steps, torch)
-    single = ones[0]
     del one
+    layouts = [("sequence-parallel", [])]
+    if label in MESH_LAYOUT_CELLS:
+        layouts.append(("replicated", ["--no-seq-parallel"]))
+    runs, entries = {}, []
+    for layout, extra in layouts:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runs[layout], ent = mesh_train_layout(
+            root, label, layout, argv + extra, x, ones, single_ms, t0,
+            torch, kernel_lines=not runs)
+        entries += ent
+    if len(runs) == 2:
+        mesh_layouts(label, runs)
+    del x
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    return entries
+
+
+def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
+                      torch, kernel_lines: bool) -> tuple:
+    """One layout's run of mesh:train:<label> against one device's losses
+    ``ones`` (``single_ms`` a step): (its numbers, its kernel-line entries
+    if ``kernel_lines``)."""
+    from repro_torch import compile_plan, obs
+    from repro_torch.launch import train
+    from repro_torch.launch.hlo_analysis import collective_traffic
+    from repro_torch.models import spmd
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances
+
+    ckpt = root / "build" / "mesh_ckpt"
+    tag = label if layout == "sequence-parallel" else f"{label}:{layout}"
+    single = ones[0]
     args = train.parser().parse_args(
         argv + ["--mesh", "x".join(map(str, MESH)), "--devices",
                 ",".join(mesh_devices()), "--ckpt-dir", str(ckpt)])
@@ -3550,17 +3635,24 @@ def mesh_train(root, label, argv, torch) -> list:
     off = [f"{spec.input}: {e.backend}" for spec, _, e in adj
            if e.backend != "hopper"]
     if ex.backend != "hopper" or off or not adj:
-        raise SystemExit(f"mesh:train:{label}: mixer off K1: forward "
+        raise SystemExit(f"mesh:train:{tag}: mixer off K1: forward "
                          f"{ex.backend}, adjoints {off or len(adj)}")
     execs = [ex] + [e for _, _, e in adj]
+    ec = train.exec_config(args, mp.mesh)
+    seq = spmd.seq_layout(cfg, ec, mp.layout.M, args.seq)
     n_all = sum(p.numel() for p in mp.structure.parameters())
-    print(f"mesh:train:{label}: {mp.mesh}, {cfg.num_layers} layers, "
+    print(f"mesh:train:{tag}: {mp.mesh}, {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {cfg.dtype}, {n_all} parameters, batch "
-          f"{args.batch} x {args.seq} ({B_r} a row), position (0, 0)'s "
-          f"mixer sx {tuple(env['sx'].shape)}; one device's step-1 loss "
-          f"{single:.6f}, step {single_ms:.4f} ms (median of steps "
-          f"2-{len(ones)}), losses {[round(v, 4) for v in ones]}; setup "
-          f"{time.time() - t0:.1f} s", flush=True)
+          f"{args.batch} x {args.seq} ({B_r} a row), residual {layout} "
+          f"(seq_parallel={ec.seq_parallel}, sequence-split {seq}), "
+          f"position (0, 0)'s mixer sx {tuple(env['sx'].shape)}; one "
+          f"device's step-1 loss {single:.6f}, step {single_ms:.4f} ms "
+          f"(median of steps 2-{len(ones)}), losses "
+          f"{[round(v, 4) for v in ones]}; setup {time.time() - t0:.1f} s",
+          flush=True)
+    if seq != (layout == "sequence-parallel"):
+        raise SystemExit(f"mesh:train:{tag}: the step does not take the "
+                         f"{layout} layout")
     times = []
     inner = trainer.train_step
 
@@ -3592,7 +3684,7 @@ def mesh_train(root, label, argv, torch) -> list:
     traffic = collective_traffic(log, npos)
     step_ms = statistics.median(times[1:])
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ones)]
-    print(f"mesh:train:{label} losses {[round(v, 4) for v in losses]}; step "
+    print(f"mesh:train:{tag} losses {[round(v, 4) for v in losses]}; step "
           f"1 {losses[0]:.6f} vs one device {single:.6f} (rel "
           f"{rel[0]:.2e} <= {MESH_LOSS_TOL:.0e}), every step's rel "
           f"{[float(f'{r:.2e}') for r in rel]}; K1 launches: forward "
@@ -3607,7 +3699,7 @@ def mesh_train(root, label, argv, torch) -> list:
           and all(k == n * npos for k in launches)
           and len(spans) == npos and set(spans.values()) == {n})
     if not ok:
-        raise SystemExit(f"mesh:train:{label}: a loss is not finite, did not "
+        raise SystemExit(f"mesh:train:{tag}: a loss is not finite, did not "
                          f"fall or is off one device's step's, or K1 did "
                          f"not run once a step on every position, forward "
                          f"and adjoints")
@@ -3617,35 +3709,68 @@ def mesh_train(root, label, argv, torch) -> list:
             torch, cfg.dtype)).element_size()
         sums = sum(e.kind == "all-reduce" and e.nbytes == nb
                    for e in log.entries)
-        print(f"mesh:train:{label} expert buffer a position (E, C/R, F/M) "
+        print(f"mesh:train:{tag} expert buffer a position (E, C/R, F/M) "
               f"= {(E, Cr, Fm)}; the experts' partial outputs (E, C/R, D) "
               f"summed over model {sums} times in the last step", flush=True)
         if not sums:
-            raise SystemExit(f"mesh:train:{label}: no expert output was "
+            raise SystemExit(f"mesh:train:{tag}: no expert output was "
                              f"summed over model: the dispatch did not split")
-    print(f"mesh:train:{label} step on {_nvidia_smi()}: {step_ms:.4f} ms "
+    saved = dict(mp.last_saved)
+    print(f"mesh:train:{tag} step on {_nvidia_smi()}: {step_ms:.4f} ms "
           f"(median of steps 2-{len(times)}; each "
           f"{[round(t, 1) for t in times]}) against one device's "
           f"{single_ms:.4f} ms (this call); "
           f"{args.batch * args.seq / step_ms * 1e3:.1f} tok/s; peak memory "
-          f"{peak / 1e9:.2f} GB; transfer bytes per step by kind (every "
-          f"position's results, forward and backward) {by_kind}; wire bytes "
-          f"a position (hlo_analysis' models) {traffic['bytes']:.4e}",
-          flush=True)
+          f"{peak / 1e9:.2f} GB ({peak} B); transfer bytes per step by kind "
+          f"(every position's results, forward and backward) {by_kind}; "
+          f"wire bytes a position (hlo_analysis' models) "
+          f"{traffic['bytes']:.4e}; bytes the units' remat saved a position "
+          f"in the last step (saved_tensors_hooks) {saved}", flush=True)
+    run = dict(losses=losses, step_ms=step_ms, peak=peak, by_kind=by_kind,
+               saved=saved, M=mp.layout.M)
+    if not kernel_lines:
+        del trainer, mp, env, ex, adj, execs
+        return run, []
     e_grad, grad_abs = train_mixer_grads(x, execs, torch)
     tol = default_tolerances("float32")["grad"]
-    print(f"mesh:train:{label} mixer grads (sx, taps) K1 vs torch "
+    print(f"mesh:train:{tag} mixer grads (sx, taps) K1 vs torch "
           f"{e_grad:.2e} (<= {tol:.0e}), max_abs_err {grad_abs:.3e}",
           flush=True)
     if not e_grad <= tol:
-        raise SystemExit(f"mesh:train:{label}: the mixer's gradients on K1 "
+        raise SystemExit(f"mesh:train:{tag}: the mixer's gradients on K1 "
                          f"disagree with torch's")
-    entries, _, _ = k1_mixer_lines(f"mesh:train:{label}", f"mesh {label}",
-                                   ex, env, adj, launches[0],
-                                   sum(launches[1:]), grad_abs, torch)
-    del trainer, mp, env, ex, adj, execs, x
-    torch.cuda.empty_cache()
-    return entries
+    entries, _, _ = k1_mixer_lines(f"mesh:train:{tag}", f"mesh {label}",
+                                   ex, env, adj, launches[0], launches[1:],
+                                   grad_abs, torch, split_sx=True)
+    del trainer, mp, env, ex, adj, execs
+    return run, entries
+
+
+def mesh_layouts(label, runs) -> None:
+    """mesh:train:<label>'s two residual layouts side by side: step ms,
+    peak memory, transfer bytes by kind, the bytes remat saved a position
+    and the step-1 losses.  Gates: the step-1 losses within
+    :data:`MESH_LAYOUT_TOL` of each other, and the saved bytes of every
+    position smaller by M under the sequence-parallel layout."""
+    seq, rep = runs["sequence-parallel"], runs["replicated"]
+    M = seq["M"]
+    d = abs(seq["losses"][0] - rep["losses"][0]) / abs(rep["losses"][0])
+    ratio = {p: rep["saved"][p] / seq["saved"][p] for p in seq["saved"]
+             if seq["saved"][p]}
+    print(f"mesh:layouts:{label} on {_nvidia_smi()}: step "
+          f"{seq['step_ms']:.4f} ms sequence-parallel / {rep['step_ms']:.4f}"
+          f" ms replicated (median of steps 2-6); peak memory {seq['peak']} "
+          f"/ {rep['peak']} B; remat's saved bytes a position "
+          f"{seq['saved']} / {rep['saved']} (replicated / split {ratio}, M "
+          f"= {M}); transfer bytes per step by kind {seq['by_kind']} / "
+          f"{rep['by_kind']}; step-1 loss {seq['losses'][0]:.6f} / "
+          f"{rep['losses'][0]:.6f} (rel {d:.2e} <= {MESH_LAYOUT_TOL:.0e})",
+          flush=True)
+    if not (d <= MESH_LAYOUT_TOL and len(ratio) == len(seq["saved"])
+            and set(ratio.values()) == {float(M)}):
+        raise SystemExit(f"mesh:layouts:{label}: the layouts' step-1 losses "
+                         f"differ, or the sequence-parallel layout does not "
+                         f"save M times fewer bytes a position")
 
 
 def mesh_prefill(label, cfg, one_ms, torch) -> None:
@@ -3771,7 +3896,8 @@ def mesh_parity(label, cfg, torch) -> None:
 
 def mixer_vs_conv1d(torch) -> None:
     """K1 against ``F.conv1d`` at mesh positions' mixer shapes (``sx``
-    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), checked first, then timed
+    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), the forward and the ``sx``
+    adjoint (:func:`sx_adjoint_library_call`), checked first, then timed
     in turns: per round MIXER_CONV_CALLS calls of each, shape by shape, K1
     then conv1d, after a warm-up; the median of every call per shape and
     side, and each round's."""
@@ -3780,6 +3906,7 @@ def mixer_vs_conv1d(torch) -> None:
     from repro_torch.testing import default_tolerances, rel_err
 
     g = torch.Generator(DEVICE).manual_seed(5)
+    g_sy = torch.Generator(DEVICE).manual_seed(6)
     taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
     sides = {}
     for C in MIXER_CONV_CHANNELS:
@@ -3797,12 +3924,30 @@ def mixer_vs_conv1d(torch) -> None:
             raise SystemExit(f"mixer vs conv1d: K1 at sx "
                              f"{tuple(env['sx'].shape)} did not launch or "
                              f"disagrees with conv1d ({e:.2e})")
-        sides[C] = {"K1": lambda ex=ex, env=env: ex(env), "conv1d": lib}
+        gy = {"sy": torch.randn(env["sy"].shape, generator=g_sy,
+                                device=DEVICE)}
+        (adj_env, adj_ex), = [(a, e) for spec, a, e in adjoint_executors(
+            _smooth_result(LM_PROMPT, C, LM_RADIUS).program, env, gy)
+            if spec.input == "sx"]
+        adj_lib = sx_adjoint_library_call(adj_env, LM_RADIUS, torch)
+        before = adj_ex.kernel_launches
+        e_adj = rel_err(adj_lib(), adj_ex(adj_env))
+        torch.cuda.synchronize()
+        if (adj_ex.backend != "hopper"
+                or adj_ex.kernel_launches != before + 1
+                or e_adj > default_tolerances("float32")["baseline"]):
+            raise SystemExit(f"mixer vs conv1d: K1's sx adjoint at "
+                             f"{tuple(adj_env['_g_sy'].shape)} is off K1, "
+                             f"did not launch or disagrees with conv1d "
+                             f"({e_adj:.2e})")
+        sides[C] = {"K1": lambda ex=ex, env=env: ex(env), "conv1d": lib,
+                    "K1 sx adjoint": lambda e=adj_ex, a=adj_env: e(a),
+                    "conv1d sx adjoint": adj_lib}
     for fns in sides.values():
         for fn in fns.values():
             fn()
     torch.cuda.synchronize()
-    times = {(C, k): [] for C in sides for k in ("K1", "conv1d")}
+    times = {(C, k): [] for C in sides for k in sides[C]}
     rounds = {k: [] for k in times}
     for _ in range(MIXER_CONV_ROUNDS):
         for C, fns in sides.items():

@@ -111,13 +111,27 @@ def argument_bytes(cfg, shape, mesh, exec_cfg) -> dict:
     return out
 
 
-def activation_bytes(cfg, shape, mesh) -> float:
+def activation_bytes(cfg, shape, mesh, exec_cfg=None) -> float:
+    """The sum of :func:`activation_parts`."""
+    return float(sum(activation_parts(cfg, shape, mesh, exec_cfg).values()))
+
+
+def activation_parts(cfg, shape, mesh, exec_cfg=None) -> dict:
     """Analytic per-device activation memory (bf16), not measured: train
-    keeps each unit's input under remat (L x tokens x D x 2) plus one
-    layer's working set, Korthikanti et al.'s ``t (34 D + 5 H S)`` bytes at
-    the member's heads, plus two float32 logit chunks of the member's vocab;
-    prefill one layer's working set; decode a few token-wide vectors."""
+    keeps each unit's input under remat (L x tokens x D x 2, a member's
+    S / M tokens where :func:`~repro_torch.models.spmd.seq_layout` holds)
+    plus one layer's working set, Korthikanti et al.'s at tensor parallel
+    degree M and the member's H heads: ``t (34 D / M + 5 H S)`` bytes with
+    sequence parallelism, ``t (10 D + 24 D / M + 5 H S)`` without (the
+    norms' and residual's tensors whole on every member), plus two float32
+    logit chunks of the member's vocab; prefill one layer's working set;
+    decode a few token-wide vectors.  ``exec_cfg`` defaults to
+    ``ExecConfig()`` (``seq_parallel`` on, as the reference's).  Bytes by
+    part: ``saved``, ``layer``, ``logits`` (train), ``layer`` (prefill),
+    ``tokens`` (decode)."""
+    from ..models import ExecConfig
     from ..models.sharding import batch_axes
+    from ..models.spmd import seq_layout
 
     rows = prod(mesh.shape[a] for a in batch_axes(mesh))
     M = mesh.shape.get("model", 1)
@@ -125,14 +139,17 @@ def activation_bytes(cfg, shape, mesh) -> float:
            else shape.global_batch)
     t = B_r * shape.seq_len
     D, H = cfg.d_model, max(1, cfg.n_heads // M)
-    layer = t * (34 * D + 5 * H * shape.seq_len)
+    seq = seq_layout(cfg, exec_cfg or ExecConfig(), M, shape.seq_len)
+    attn = 5 * H * shape.seq_len
+    layer = t * (34 * D / M + attn if seq else 10 * D + 24 * D / M + attn)
     if shape.mode == "train":
         chunk = min(512, shape.seq_len)
         logits = 2 * B_r * chunk * -(-cfg.vocab // M) * 4
-        return cfg.num_layers * t * D * 2 + layer + logits
+        saved = cfg.num_layers * t * D * 2 / (M if seq else 1)
+        return {"saved": saved, "layer": layer, "logits": logits}
     if shape.mode == "prefill":
-        return float(layer)
-    return float(B_r * D * 2 * 16)
+        return {"layer": layer}
+    return {"tokens": B_r * D * 2 * 16}
 
 
 #: aten ops that move no data of their own (views, metadata, allocation)
@@ -259,7 +276,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         b1, b2 = (probes[n]["cost"]["bytes"] for n in (1, 2))
         c1, c2 = (probes[n]["coll"]["bytes"] for n in (1, 2))
         args = argument_bytes(cfg, shape, mesh, exec_probe)
-        temp = activation_bytes(cfg, shape, mesh)
+        temp_parts = activation_parts(cfg, shape, mesh, exec_probe)
+        temp = float(sum(temp_parts.values()))
         top = probes[1]["schedule"]["top_level"]
         per = probes[1]["schedule"]["per_layer"]
         rec["full"] = {
@@ -271,6 +289,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                 "argument_size_in_bytes": args["total"],
                 "argument_parts": args,
                 "temp_size_in_bytes": temp, "temp_is_analytic": True,
+                "temp_parts": temp_parts,
                 "fits_h100_80gb": args["total"] + temp <= HBM_BYTES},
             "positions_run": (f"one of {mesh.size}: every position runs the "
                               f"same program"),

@@ -55,6 +55,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--race-smooth", type=int, default=0, metavar="R",
                     help="race_smooth_radius (0: no RACE mixer)")
+    ap.add_argument("--no-seq-parallel", action="store_true",
+                    help="on a mesh, hold every row's whole residual stream "
+                         "on each of its members (default: sequence-split "
+                         "over model between layer units, the "
+                         "reference's layout)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu to run here)")
     return ap
@@ -105,7 +110,9 @@ def exec_config(args, mesh=None):
     return ExecConfig(attn_chunk_q=min(128, args.seq),
                       attn_chunk_k=min(256, args.seq),
                       ssm_chunk=min(64, args.seq),
-                      loss_chunk=min(128, args.seq), mesh=mesh)
+                      loss_chunk=min(128, args.seq), mesh=mesh,
+                      seq_parallel=not getattr(args, "no_seq_parallel",
+                                               False))
 
 
 def setup(args):

@@ -28,7 +28,11 @@ class ExecConfig:
     every tensor explicitly; an abstract mesh (no devices) is refused with
     :class:`~repro_torch.launch.mesh.AbstractMeshError`.  So
     :meth:`constrain` is the identity: it is the reference's layout hint
-    to GSPMD, which the port has no counterpart of."""
+    to GSPMD, which the port has no counterpart of.  ``seq_parallel`` (on
+    a mesh) holds the residual stream sequence-split over ``model``
+    between layer units, as the reference's constraints do
+    (:func:`.spmd.seq_layout` says where); off, every member holds its
+    row's whole stream."""
 
     unroll_scans: bool = False
     probe_chunks: int = 2      # chunk count in unrolled (probe) mode

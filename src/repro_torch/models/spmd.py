@@ -44,6 +44,28 @@ the function computed):
   ``race_smooth`` mixer splits by channels, which is exact (each channel is
   its own stream): each position runs it on its row's ``B_r`` examples and
   ``D / M`` channels, ``S + R + 2`` by ``B_r D / M`` on K1.
+* **Sequence-parallel residual** (the reference's ``seq_parallel``: its
+  ``forward_hidden`` constrains the stream to ``(batch, "model", None)``
+  at each layer unit's input and after the trailing blocks).  Where
+  :func:`seq_layout` holds (``ExecConfig.seq_parallel``, a family other
+  than ``ssm`` / ``hybrid``, more than one member and ``model`` dividing
+  S), member ``m`` of a row holds its tokens ``[m S / M, (m + 1) S / M)``
+  of the residual, (B_r, S / M, D), from the first unit's input on: what
+  each unit's remat saves shrinks by M.  Inside a block (Megatron's
+  sequence parallelism) ``rmsnorm`` runs on the member's tokens, the normed
+  tokens are all-gathered over ``model`` along S, the block's per-member
+  code above runs on them unchanged, and the members' partial outputs are
+  reduce-scattered along S (in :meth:`Collectives.all_reduce`'s order, so
+  each part is that sum's slice bit for bit) before the residual add on
+  the member's tokens; a block computed whole on each member (heads that
+  do not split) keeps its slice.  The embedding's sums reduce-scatter
+  straight to the tokens where no mixer or prelude block reads the whole
+  stream; the mixer's channel runs (over the whole S) reach the tokens by
+  an all-to-all over ``model``; prelude blocks run on the replicated
+  stream, which the first unit slices in place.  ``ln_f``'s output is
+  all-gathered along S for the loss (the vocab splits over ``model``);
+  a prefill gathers the last token (member M - 1's).  Decode (one token)
+  and the recurrent families keep the replicated stream.
 * **MoE** (the reference's ``moe.py`` constraints: the dispatch buffer's
   capacity over the batch axes, the expert FFN over ``model``; the expert
   axis stays whole, no all-to-all).  Routing is global: every position
@@ -122,7 +144,9 @@ class MeshError(ValueError):
 @dataclass(frozen=True)
 class Transfer:
     """One mesh position's part in one collective: ``nbytes`` is the
-    result's size there (the whole gathered or summed tensor), ``group``
+    result's size there (the whole gathered or summed tensor; for a
+    reduce-scatter, as for its backward's all-gather, the whole tensor
+    summed), ``group``
     the positions taking part, ``unit`` the layer unit it ran in (None: top
     level), ``phase`` ``"forward"`` or ``"backward"``.  A collective over a
     group of ``g`` positions is ``g`` entries."""
@@ -212,6 +236,16 @@ def _divides(n: int, parts: int) -> bool:
     return parts > 1 and n % parts == 0
 
 
+def seq_layout(cfg: ModelConfig, exec_cfg: ExecConfig, M: int,
+               S: int) -> bool:
+    """Whether a step of S tokens on ``M`` members holds the residual
+    sequence-split over ``model``: where the reference's ``forward_hidden``
+    shards it (``seq_parallel`` set, time not a recurrence's axis) and its
+    ``ExecConfig.constrain`` would (``model`` divides S)."""
+    return (exec_cfg.seq_parallel and cfg.kind not in ("ssm", "hybrid")
+            and _divides(S, M))
+
+
 def _even(n: int, parts: int, i: int) -> tuple:
     """``[lo, hi)`` of the ``i``-th of ``parts`` equal runs of ``n``, or all
     of ``n`` where ``parts`` does not divide it: the reference's
@@ -251,9 +285,12 @@ class Collectives:
             raise MeshError(f"position {q} did not run")
         return torch.empty_like(like)
 
-    def _logged(self, out: torch.Tensor, kind: str, back: str, group: int):
-        """Log ``kind`` now and ``back`` when the gradient reaches ``out``."""
-        unit, log, nb = self.unit, self.log, _nbytes(out)
+    def _logged(self, out: torch.Tensor, kind: str, back: str, group: int,
+                nbytes: Optional[int] = None):
+        """Log ``kind`` now and ``back`` when the gradient reaches ``out``
+        (``nbytes``: the entries' bytes, default ``out``'s)."""
+        unit, log = self.unit, self.log
+        nb = _nbytes(out) if nbytes is None else nbytes
         log.add(kind, nb, group, unit)
         if out.requires_grad:
             out.register_hook(lambda g: log.add(back, nb, group, unit,
@@ -326,6 +363,48 @@ class Collectives:
             out[p] = self._logged(s, "all-reduce", "all-reduce", len(grp))
         return out
 
+    def reduce_scatter(self, vals: dict, axes, dim: int) -> dict:
+        """Every position's part of :meth:`all_reduce`'s sum: the ``i``-th
+        of ``g`` equal runs along ``dim`` for the ``i``-th position of its
+        group, added in the same order (so it is that sum's slice, bit for
+        bit).  Logged with the whole summed tensor's bytes."""
+        axes = self.L.live(axes)
+        if not axes:
+            return vals
+        out = {}
+        for p in vals:
+            grp = self.L.group(p, axes)
+            self._sending(vals, p, grp)
+            dev = self.L.device(p)
+            n = vals[p].shape[dim] // len(grp)
+            lo = grp.index(p) * n
+            s = None
+            for q in grp:
+                t = self.value(vals, q, vals[p]).narrow(dim, lo, n).to(dev)
+                s = t if s is None else s + t
+            out[p] = self._logged(s, "reduce-scatter", "all-gather",
+                                  len(grp), _nbytes(vals[p]))
+        return out
+
+    def all_to_all(self, vals: dict, axes, split: int, cat: int) -> dict:
+        """Every position's concatenation along ``cat`` of the ``i``-th of
+        ``g`` equal runs along ``split`` of each group member's ``vals``
+        (``i`` its own place in the group), in the members' order."""
+        axes = self.L.live(axes)
+        if not axes:
+            return vals
+        out = {}
+        for p in vals:
+            grp = self.L.group(p, axes)
+            self._sending(vals, p, grp)
+            dev = self.L.device(p)
+            n = vals[p].shape[split] // len(grp)
+            lo = grp.index(p) * n
+            t = torch.cat([self.value(vals, q, vals[p]).narrow(split, lo, n)
+                           .to(dev) for q in grp], cat)
+            out[p] = self._logged(t, "all-to-all", "all-to-all", len(grp))
+        return out
+
     def all_gather(self, vals: dict, axes, dim: int, like=None) -> dict:
         """Every position's concatenation along ``dim`` of ``vals`` over the
         positions differing from it on ``axes``, in their coordinates'
@@ -394,10 +473,12 @@ class MeshLM:
         self.blocks = {n: unique_blocks(p) for n, p in placed.items()}
         self.structure = LM(cfg, None, torch.device("meta"),
                             self._n_units())
-        #: the transfer log of the last step run on these parameters, and
-        #: the RACE mixer's operations it ran on the meta device
+        #: the transfer log of the last step run on these parameters, the
+        #: RACE mixer's operations it ran on the meta device, and the bytes
+        #: its units' remat saved per position (:attr:`Step.saved`)
         self.last_log: Optional[TransferLog] = None
         self.last_meta_ops = 0.0
+        self.last_saved: dict = {}
 
     def _n_units(self) -> int:
         nk = len(unit_kinds(self.cfg))
@@ -580,6 +661,11 @@ class Step:
         #: operations the mixer's RACE plans do on the meta device (the
         #: flop counter does not see K1)
         self.meta_mixer_ops = 0.0
+        #: whether the residual stream is sequence-split over ``model`` now
+        #: (:meth:`hidden` sets it where :func:`seq_layout` holds)
+        self.seq = False
+        #: position -> bytes the units' remat saved there (their inputs)
+        self.saved = {p: 0 for p in self.active}
 
     # -- inputs -------------------------------------------------------------
 
@@ -602,14 +688,43 @@ class Step:
     def each(self, fn) -> dict:
         return {p: fn(p) for p in self.active}
 
+    # -- the sequence-parallel residual --------------------------------------
+
+    def tokens(self, t: torch.Tensor, p) -> torch.Tensor:
+        """Member ``p``'s run of the tokens (dim 1) of ``t``."""
+        n = t.shape[1] // self.L.M
+        return t.narrow(1, self.L.member(p) * n, n)
+
+    def own(self, vals: dict) -> dict:
+        """Each member's tokens of a result it holds whole (where the
+        stream is sequence-split; else ``vals``)."""
+        if not self.seq:
+            return vals
+        return {p: self.tokens(v, p).contiguous() for p, v in vals.items()}
+
+    def sum_members(self, vals: dict) -> dict:
+        """The members' partial outputs summed over ``model``: each
+        member's tokens of the sum where the stream is sequence-split (a
+        reduce-scatter along S), else the whole sum on every member."""
+        if self.seq:
+            return self.c.reduce_scatter(vals, ("model",), 1)
+        return self.c.all_reduce(vals, ("model",))
+
+    def whole(self, vals: dict) -> dict:
+        """A row's whole sequence on each member (an all-gather along S
+        where the stream is sequence-split; else ``vals``)."""
+        return self.c.all_gather(vals, ("model",), 1) if self.seq else vals
+
     # -- blocks -------------------------------------------------------------
 
     def embed(self, batch) -> dict:
+        """The rows' embeddings: whole on every member, or each member's
+        tokens where the stream is sequence-split already."""
         cfg, mp = self.cfg, self.mp
         if cfg.input_embed_dim:
             e = self.rows(batch["embeds"], torch_dtype(cfg.dtype))
-            return self.each(lambda p: mm(e[p], mp.full("in_proj", self.c,
-                                                         p)))
+            return self.own(self.each(lambda p: mm(e[p], mp.full(
+                "in_proj", self.c, p))))
         tok = self.rows(batch["tokens"], torch.long)
         V = cfg.vocab
 
@@ -621,9 +736,14 @@ class Step:
             return table[local.clamp(0, hi - lo - 1)] * ok[..., None].to(
                 table.dtype)
 
-        return self.c.all_reduce(self.each(part), ("model",))
+        return self.sum_members(self.each(part))
 
-    def mixer(self, xs: dict) -> dict:
+    def mixer(self, xs: dict, scatter: bool = False) -> dict:
+        """``xs`` plus the ``race_smooth`` mixer, each position running it
+        on its ``D / M`` channels over the whole S; with ``scatter`` the
+        channel runs reach each member's tokens by an all-to-all (the
+        stream becomes sequence-split), else every member gathers them
+        all."""
         cfg = self.cfg
         R = cfg.race_smooth_radius
         D = cfg.d_model
@@ -637,6 +757,9 @@ class Step:
             with obs.span("spmd_mixer", position=",".join(map(str, p))):
                 return race_smooth(x, taps, radius=R)
 
+        if scatter:
+            ys = self.c.all_to_all(self.each(part), ("model",), 1, -1)
+            return {p: self.tokens(xs[p], p) + ys[p] for p in xs}
         ys = self.c.all_gather(self.each(part), ("model",), -1)
         return {p: xs[p] + ys[p] for p in xs}
 
@@ -710,7 +833,7 @@ class Step:
                 kv_src=None if kv_src is None else kv_src[p], window=window)
 
         out = self.each(part)
-        return self.c.all_reduce(out, ("model",)) if tp else out
+        return self.sum_members(out) if tp else self.own(out)
 
     def mlp(self, prefix, h: dict, d_ff: int) -> dict:
         mp = self.mp
@@ -723,7 +846,7 @@ class Step:
                 w_down=mp.rows(f"{prefix}.w_down", self.c, p, lo, hi))
             return mlp_block(h[p], ns)
 
-        return self.c.all_reduce(self.each(part), ("model",))
+        return self.sum_members(self.each(part))
 
     def moe(self, prefix, h: dict) -> dict:
         """The MoE block, the reference's layout (``moe.py``'s constraints:
@@ -734,8 +857,9 @@ class Step:
         member ``m`` its ``d_ff`` columns ``[m F / M, (m + 1) F / M)``; the
         members' partial outputs are summed over ``model``, the rows' slots
         gathered over the batch axes, and each row combines its own
-        tokens.  A C or F the axes do not divide stays whole.  Only kept
-        tokens are written (F8)."""
+        tokens (a member its own where the stream is sequence-split: ``h``
+        is then the row's whole normed sequence).  A C or F the axes do not
+        divide stays whole.  Only kept tokens are written (F8)."""
         cfg, mp, L, c = self.cfg, self.mp, self.L, self.c
         E, K, Fd = cfg.moe_experts, cfg.moe_top_k, cfg.d_ff
         full = c.all_gather(h, L.batch_axes, 0) if self.split else h
@@ -789,9 +913,12 @@ class Step:
         out = {}
         for p in self.active:
             o = torch.cat(outs[p]) if len(outs[p]) > 1 else outs[p][0]
+            o = o.reshape(h[p].shape)
+            if self.seq:
+                o = self.tokens(o, p)
             if shared is not None:
-                o = o + shared[p].reshape(o.shape)
-            out[p] = o.reshape(h[p].shape).to(h[p].dtype)
+                o = o + shared[p]
+            out[p] = o.to(h[p].dtype)
         return out
 
     def _ssm_parts(self, prefix, width: int, names_cols, names_rows, p):
@@ -888,9 +1015,12 @@ class Step:
         return self.c.all_reduce(out, ("model",)) if tp else out
 
     def block(self, xs: dict, prefix: str, kind: str, rope, vision) -> dict:
+        """``x + f(norm(x))`` per sub-block on every position's residual
+        (each member's tokens where the stream is sequence-split: the
+        normed tokens gathered for ``f``, its sum scattered back)."""
         cfg, mp = self.cfg, self.mp
-        ln = lambda name: {p: rmsnorm(xs[p], mp.full(  # noqa: E731
-            f"{prefix}.{name}", self.c, p)) for p in xs}
+        ln = lambda name: self.whole({p: rmsnorm(  # noqa: E731
+            xs[p], mp.full(f"{prefix}.{name}", self.c, p)) for p in xs})
         if kind in ("attn", "dense_attn", "cross", "moe"):
             window = cfg.window if (cfg.kind == "hybrid"
                                     and kind != "cross") else 0
@@ -923,7 +1053,8 @@ class Step:
     def _remat(self, fn, xs: dict) -> dict:
         """``fn`` over every position's residual, recomputed in the
         backward (the reference's per-unit ``jax.checkpoint``): its
-        gathers run again there."""
+        gathers run again there.  The inputs it keeps are counted into
+        :attr:`saved` as autograd packs them."""
         ec = self.ec
         if not (ec.remat and torch.is_grad_enabled()):
             return fn(xs)
@@ -940,23 +1071,46 @@ class Step:
                 create_selective_checkpoint_contexts, _save_dots)}
         else:
             raise ValueError(f"remat_policy {ec.remat_policy!r}")
-        out = checkpoint(body, *(xs[p] for p in order), use_reentrant=False,
-                         preserve_rng_state=False, **kw)
+        # the checkpoint packs each input (and, in some releases, an empty
+        # tensor of its own): an input is known by its identity
+        owner = {id(xs[p]): p for p in order}
+
+        def pack(t):
+            if id(t) in owner:
+                self.saved[owner[id(t)]] += _nbytes(t)
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = checkpoint(body, *(xs[p] for p in order),
+                             use_reentrant=False, preserve_rng_state=False,
+                             **kw)
         return dict(zip(order, out))
 
     def hidden(self, batch) -> dict:
-        """Every position's final hidden states (B_r, S, D) after ``ln_f``:
-        ``forward_hidden`` on the mesh."""
+        """Every position's final hidden states after ``ln_f``:
+        ``forward_hidden`` on the mesh.  (B_r, S, D), or each member's
+        tokens (B_r, S / M, D) where the stream is sequence-split
+        (:attr:`seq`)."""
         cfg, mp = self.cfg, self.mp
+        S = np.shape(batch["embeds" if cfg.input_embed_dim else "tokens"])[1]
+        layout = seq_layout(cfg, self.ec, self.L.M, S)
+        prelude = prelude_kinds(cfg)
+        # without a prelude block the stream splits before the first unit:
+        # the embedding's sums go to the tokens, or else the mixer's output
+        early = layout and not prelude
+        self.seq = early and not cfg.race_smooth_radius
         xs = self.embed(batch)
         if cfg.race_smooth_radius:
-            xs = self.mixer(xs)
-        S = next(iter(xs.values())).shape[1]
+            xs = self.mixer(xs, scatter=early)
+            self.seq = early
         rope = self.each(lambda p: _rope_cache(cfg, S, self.L.device(p)))
         vision = (self.rows(batch["vision"]) if batch.get("vision")
                   is not None else self._none())
-        for i, kind in enumerate(prelude_kinds(cfg)):
+        for i, kind in enumerate(prelude):
             xs = self.block(xs, f"prelude.{i}", kind, rope, vision)
+        if layout and not self.seq:  # the first unit's input, in place
+            xs = {p: self.tokens(x, p).contiguous() for p, x in xs.items()}
+            self.seq = True
         uk = unit_kinds(cfg)
         for u in range(len(mp.structure.units) // len(uk)):
             def unit_body(xs, u=u):
@@ -976,11 +1130,12 @@ class Step:
 
     def loss(self, batch) -> torch.Tensor:
         """``chunked_ce_loss`` on the mesh: each member's logits over its
-        vocab columns, chunk by chunk (recomputed in the backward), its
-        log-sum-exp and gold logit combined over the members, the masked
-        sum and count over every row, on the first position's device."""
+        vocab columns of the row's whole sequence, chunk by chunk
+        (recomputed in the backward), its log-sum-exp and gold logit
+        combined over the members, the masked sum and count over every row,
+        on the first position's device."""
         cfg, ec = self.cfg, self.ec
-        h = self.hidden(batch)
+        h = self.whole(self.hidden(batch))
         labels = self.rows(batch["labels"], torch.long)
         mask = (self.rows(batch["mask"], torch.float32) if batch.get("mask")
                 is not None else None)
@@ -1039,8 +1194,13 @@ class Step:
 
     def last_logits(self, h: dict) -> torch.Tensor:
         """(B, V) float32 logits of the last position, on the first
-        position's device."""
+        position's device (where the stream is sequence-split, member M -
+        1's last token, gathered over ``model``)."""
         V = self.cfg.vocab
+        if self.seq:
+            last = self.c.all_gather({p: t[:, -1:] for p, t in h.items()},
+                                     ("model",), 1)
+            h = {p: t[:, -1:] for p, t in last.items()}
 
         def part(p):
             lo, hi = _split(V, self.L.M, self.L.member(p))
@@ -1172,6 +1332,9 @@ def _grads(mp: MeshLM, coll: Collectives, loss) -> dict:
                          "trainable model (init_params(..., "
                          "trainable=True))")
     gs = torch.autograd.grad(loss, shards, allow_unused=True)
+    # a unit's recompute stops once its saved tensors are back, before its
+    # body resets the unit: the sums below run at top level
+    coll.unit = None
     out = {n: {} for n in names}
     active = set(coll.active)
     for (n, c), s, g in zip(flat, shards, gs):
@@ -1298,7 +1461,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg, exec_cfg: ExecConfig,
         st = Step(mp, exec_cfg, positions)
         loss = st.loss(batch)
         mp.last_log, mp.last_meta_ops = st.log, st.meta_mixer_ops
-        st.c.unit = None
+        mp.last_saved = st.saved
         grads = _grads(mp, st.c, loss)
         with torch.no_grad():
             gnorm = _global_norm(mp, st.c, grads)
@@ -1325,6 +1488,7 @@ def make_prefill_step(cfg: ModelConfig, exec_cfg: ExecConfig,
         st = Step(mp, exec_cfg, positions)
         out = st.last_logits(st.hidden(batch))
         mp.last_log, mp.last_meta_ops = st.log, st.meta_mixer_ops
+        mp.last_saved = st.saved
         return out
 
     return prefill_step

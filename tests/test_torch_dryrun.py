@@ -259,6 +259,57 @@ def test_moe_train_flops_match_the_splits_closed_form(tmp_path):
     assert experts * 4 == n * 4 * 3 * 2 * E * C * D * F
 
 
+def test_activation_term_of_the_pod_train_cell_by_hand():
+    """qwen2-7b ``train_4k`` (256 x 4,096 tokens) on the 16x16 pod: 16 rows
+    of B_r = 16, t = 65,536 tokens a row, M = 16, D = 3,584, 28 layers,
+    one head a member.  Each unit's saved input is 28 t D 2 B = 13.15 GB a
+    device replicated, 0.82 GB sequence-split; the layer's working set is
+    Korthikanti's ``t (10 D + 24 D / M + 5 H S)`` = 4.04 GB replicated and
+    ``t (34 D / M + 5 H S)`` = 1.84 GB split; two float32 logit chunks of
+    512 tokens over the member's 9,504 vocab columns either way."""
+    from repro_torch.models import SHAPES, ExecConfig
+
+    cfg, shape = get_config("qwen2_7b"), SHAPES["train_4k"]
+    mesh = dryrun.meta_mesh(False)
+    t, D = 16 * 4096, 3584
+    logits = 2 * 16 * 512 * 9504 * 4
+    want = {True: {"saved": 28 * t * D * 2 / 16,
+                   "layer": t * (34 * D / 16 + 5 * 4096),
+                   "logits": logits},
+            False: {"saved": 28 * t * D * 2,
+                    "layer": t * (10 * D + 24 * D / 16 + 5 * 4096),
+                    "logits": logits}}
+    for seq, parts in want.items():
+        got = dryrun.activation_parts(cfg, shape, mesh,
+                                      ExecConfig(seq_parallel=seq))
+        assert got == pytest.approx(parts, rel=1e-12)
+        assert dryrun.activation_bytes(
+            cfg, shape, mesh, ExecConfig(seq_parallel=seq)) == \
+            pytest.approx(sum(parts.values()), rel=1e-12)
+    assert round(want[False]["saved"] / 1e9, 2) == 13.15
+    assert round(want[True]["saved"] / 1e9, 2) == 0.82
+    assert round(want[False]["layer"] / 1e9, 2) == 4.04
+    assert round(want[True]["layer"] / 1e9, 2) == 1.84
+    # the default is the reference's (seq_parallel on); a recurrent family
+    # keeps its stream whole
+    assert dryrun.activation_parts(cfg, shape, mesh) == pytest.approx(
+        want[True], rel=1e-12)
+    ssm = get_config("falcon_mamba_7b")
+    assert dryrun.activation_parts(ssm, shape, mesh)["saved"] == \
+        ssm.num_layers * t * ssm.d_model * 2
+
+
+def test_records_carry_the_layouts_activation_parts(records):
+    """The 2x2 train record's activation parts are the split layout's (S =
+    32 divides over M = 2): each unit's saved input at a member's 16 of
+    the row's 2 x 32 tokens."""
+    cfg, s = _small(), CELLS["train"]
+    parts = records["train"]["full"]["memory"]["temp_parts"]
+    assert parts["saved"] == cfg.num_layers * 2 * s.seq_len * cfg.d_model
+    assert records["train"]["full"]["memory"]["temp_size_in_bytes"] == (
+        pytest.approx(sum(parts.values())))
+
+
 def _reference_record_keys():
     """The keys the reference's ``run_cell`` writes (its source's ``rec``
     dict literal and ``rec[...]`` assignments) and its ``totals``'."""

@@ -447,7 +447,8 @@ def _tiny() -> ModelConfig:
                        dtype="float32")
 
 
-def test_transfer_log_matches_a_hand_count():
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_transfer_log_matches_a_hand_count(seq_parallel):
     """A one-layer dense model (d_model 16, 2 heads of 8, d_ff 32, vocab
     64, float32) prefilled on the 2x2 mesh, batch 2 x 4 (one example a
     row).  Per position: the embedding's vocab rows gathered over ``data``
@@ -457,28 +458,39 @@ def test_transfer_log_matches_a_hand_count():
     ``w_gate``, ``w_up``, ``w_down`` (16 x 16 x 4 B each), the MLP's sum;
     the head's vocab half (16 x 32 x 4 B); the last logits gathered over
     ``model`` (1 x 64 x 4 B) and over ``data`` (2 x 64 x 4 B).  Every group
-    has two positions; norms are replicated and read in place."""
+    has two positions; norms are replicated and read in place.
+
+    With ``seq_parallel`` the three sums are reduce-scatters along S
+    (logged at the whole summed tensor, 1 x 4 x 16 x 4 B), each block's
+    normed tokens are all-gathered along S (1 x 4 x 16 x 4 B, twice in
+    the unit) and the last token is gathered from the members (1 x 2 x
+    16 x 4 B): no all-reduce is left."""
     cfg = _tiny()
     model = P.init_params(cfg, generator=torch.Generator().manual_seed(0),
                           device=CPU)
     mp = spmd.place_model(model, _mesh())
     tokens = np.arange(8).reshape(2, 4)
-    P.make_prefill_step(cfg, P.ExecConfig(mesh=mp.mesh))(mp,
-                                                          {"tokens": tokens})
+    P.make_prefill_step(cfg, P.ExecConfig(mesh=mp.mesh,
+                                          seq_parallel=seq_parallel))(
+        mp, {"tokens": tokens})
     log = mp.last_log
     gathers = [32 * 16 * 4] + [16 * 8 * 4] * 4 + [16 * 16 * 4] * 3 + [
         16 * 32 * 4, 64 * 4, 2 * 64 * 4]
     sums = [4 * 16 * 4] * 3
-    assert sorted(e.nbytes for e in log.entries
-                  if e.kind == "all-gather") == sorted(gathers * 4)
-    assert sorted(e.nbytes for e in log.entries
-                  if e.kind == "all-reduce") == sorted(sums * 4)
+    if seq_parallel:
+        gathers += [4 * 16 * 4] * 2 + [2 * 16 * 4]
+        want = {"all-gather": gathers, "reduce-scatter": sums}
+    else:
+        want = {"all-gather": gathers, "all-reduce": sums}
+    for kind, nbytes in want.items():
+        assert sorted(e.nbytes for e in log.entries
+                      if e.kind == kind) == sorted(nbytes * 4)
     assert {e.group for e in log.entries} == {2}
     assert {e.phase for e in log.entries} == {"forward"}
     per_unit = [e for e in log.entries if e.unit == 0]
-    assert len(per_unit) == 4 * 9  # wq wk wv wo, attn sum, 3 MLP, MLP sum
-    assert log.bytes_by_kind() == {"all-gather": 4 * sum(gathers),
-                                   "all-reduce": 4 * sum(sums)}
+    # wq wk wv wo, attn sum, 3 MLP, MLP sum (and the two normed gathers)
+    assert len(per_unit) == 4 * (11 if seq_parallel else 9)
+    assert log.bytes_by_kind() == {k: 4 * sum(v) for k, v in want.items()}
 
 
 class _Fetches:
@@ -509,11 +521,13 @@ class _Fetches:
 POSITIONS = [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
-def _block_on_the_mesh(cfg, kind, run, monkeypatch):
+def _block_on_the_mesh(cfg, kind, run, monkeypatch, seq_parallel=False):
     """One ``kind`` block of a one-layer ``cfg`` (float32, weights from a
     seed) on the 2x2 mesh, batch 2 x 4 (one example a row): ``run(st, h)``
-    calls the step's block method; returns (the single device's block
-    output, the mesh's per position, the log, the fetches)."""
+    calls the step's block method on the rows' whole sequences, as a
+    block gives them to it; with ``seq_parallel`` (where ``seq_layout``
+    holds for ``cfg``) the stream is sequence-split, so each member's
+    output is its tokens' part.  Returns (the log, the fetches)."""
     model = P.init_params(cfg, generator=torch.Generator().manual_seed(0),
                           device=CPU)
     with torch.no_grad():  # the unit-scale norms and SSM constants stay
@@ -525,8 +539,9 @@ def _block_on_the_mesh(cfg, kind, run, monkeypatch):
     fetches = _Fetches(monkeypatch, mp)
     x = np.random.default_rng(0).standard_normal(
         (2, 4, cfg.d_model)).astype(np.float32)
-    ec = P.ExecConfig(mesh=mp.mesh, **EXEC)
+    ec = P.ExecConfig(mesh=mp.mesh, seq_parallel=seq_parallel, **EXEC)
     st = spmd.Step(mp, ec)
+    st.seq = spmd.seq_layout(cfg, ec, 2, x.shape[1])
     with torch.no_grad():
         got = run(st, st.rows(x))
         blk = model.units[0]
@@ -538,9 +553,11 @@ def _block_on_the_mesh(cfg, kind, run, monkeypatch):
         else:
             want = rglru_block(xt, blk.rglru, cfg, ec)
     for p, y in got.items():
-        r = p[0]
-        np.testing.assert_allclose(y.numpy(), want[r:r + 1].numpy(),
-                                   rtol=1e-5, atol=1e-5)
+        w = want[p[0]:p[0] + 1]
+        if st.seq:
+            w = w[:, 2 * p[1]:2 * p[1] + 2]
+        np.testing.assert_allclose(y.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5)
     return st.log, fetches
 
 
@@ -548,7 +565,9 @@ def _log_per_position(log, kind) -> list:
     return sorted(e.nbytes for e in log.entries if e.kind == kind)
 
 
-def test_moe_block_transfer_log_matches_a_hand_count(monkeypatch):
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_moe_block_transfer_log_matches_a_hand_count(seq_parallel,
+                                                     monkeypatch):
     """One MoE block (d_model 16, 4 experts top-2, expert ``d_ff`` 8, one
     shared expert of 8, float32; T = 8 tokens, capacity 1.0: C = 8) on the
     2x2 mesh.  Per position: every row's tokens gathered over ``data``
@@ -559,18 +578,24 @@ def test_moe_block_transfer_log_matches_a_hand_count(monkeypatch):
     C / R = 4 slots summed over ``model`` (4 x 4 x 16 x 4 B), the rows'
     slots gathered over ``data`` (4 x 8 x 16 x 4 B); the shared expert
     split as the MLP is (three 16 x 4 x 4 B fetches, its 4 x 16 x 4 B
-    sum).  No position fetches a whole expert weight."""
+    sum).  No position fetches a whole expert weight.  With
+    ``seq_parallel`` the shared expert's sum is a reduce-scatter along S
+    (each member combines its own tokens); the experts' sum stays an
+    all-reduce."""
     cfg = ModelConfig(name="tiny-moe", kind="moe", num_layers=1, d_model=16,
                       n_heads=2, n_kv_heads=2, d_head=8, d_ff=8, vocab=64,
                       moe_experts=4, moe_top_k=2, moe_shared=1,
                       moe_capacity=1.0, dtype="float32")
     log, f = _block_on_the_mesh(
-        cfg, "moe", lambda st, h: st.moe("units.0.moe", h), monkeypatch)
+        cfg, "moe", lambda st, h: st.moe("units.0.moe", h), monkeypatch,
+        seq_parallel)
     gathers = [2 * 4 * 16 * 4, 16 * 4 * 4] + [4 * 16 * 4 * 4] * 3 + [
         4 * 8 * 16 * 4] + [16 * 4 * 4] * 3
     sums = [4 * 4 * 16 * 4, 4 * 16 * 4]
+    scattered = [sums.pop()] if seq_parallel else []
     assert _log_per_position(log, "all-gather") == sorted(gathers * 4)
     assert _log_per_position(log, "all-reduce") == sorted(sums * 4)
+    assert _log_per_position(log, "reduce-scatter") == sorted(scattered * 4)
     assert {e.group for e in log.entries} == {2}
     for p in POSITIONS:
         for w in ("moe.w_gate", "moe.w_up"):
@@ -580,7 +605,9 @@ def test_moe_block_transfer_log_matches_a_hand_count(monkeypatch):
     assert regions[((0, 1), "units.0.moe.w_gate")][-1] == (4, 8)
 
 
-def test_mamba_block_transfer_log_matches_a_hand_count(monkeypatch):
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_mamba_block_transfer_log_matches_a_hand_count(seq_parallel,
+                                                       monkeypatch):
     """One Mamba block (d_model 16, d_inner 32, state 4, dt_rank 1, conv 4,
     float32) on the 2x2 mesh, batch 2 x 4.  Member m computes channels
     [16 m, 16 m + 16).  Its two ``in_proj`` regions (16 x 16 each, one in
@@ -593,13 +620,15 @@ def test_mamba_block_transfer_log_matches_a_hand_count(monkeypatch):
     rows (9 does not split over ``model``), so the positions whose
     channels lie in the other row's block fetch them: (0, 1) and (1, 0)
     fetch 1 x 16 x 4 and 16 x 9 x 4 B.  Summed over ``model``: ``x_proj``'s
-    product (1 x 4 x 9 x 4 B) and ``out_proj``'s (1 x 4 x 16 x 4 B)."""
+    product (1 x 4 x 9 x 4 B) and ``out_proj``'s (1 x 4 x 16 x 4 B).
+    ``seq_parallel`` changes nothing: time is the recurrence's axis, so
+    ``seq_layout`` keeps the ``ssm`` family's stream whole."""
     cfg = ModelConfig(name="tiny-mamba", kind="ssm", num_layers=1,
                       d_model=16, n_heads=1, n_kv_heads=1, d_head=16,
                       d_ff=0, vocab=64, ssm_state=4, dtype="float32")
     log, f = _block_on_the_mesh(
         cfg, "mamba", lambda st, h: st.mamba("units.0.mamba", h),
-        monkeypatch)
+        monkeypatch, seq_parallel)
     gathers = [16 * 16 * 4] * 3 * 4 + [1 * 16 * 4, 16 * 9 * 4] * 2
     sums = [4 * 9 * 4, 4 * 16 * 4] * 4
     assert _log_per_position(log, "all-gather") == sorted(gathers)
@@ -617,21 +646,24 @@ def test_mamba_block_transfer_log_matches_a_hand_count(monkeypatch):
             assert f.shapes(f"mamba.{name}", p) == [shape], name
 
 
-def test_rglru_block_transfer_log_matches_a_hand_count(monkeypatch):
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_rglru_block_transfer_log_matches_a_hand_count(seq_parallel,
+                                                       monkeypatch):
     """One RG-LRU block (d_model 16, width W 16, conv 4, float32) on the
     2x2 mesh, batch 2 x 4.  Member m computes channels [8 m, 8 m + 8): its
     two ``in_proj`` regions (16 x 8, one per half), its columns of
     ``w_input_gate`` and ``w_rec_gate`` (16 x 8, W over ``data``) and its
     ``out_proj`` rows (8 x 16) are gathered (512 B each); the conv's output
     is all-gathered over ``model`` (1 x 4 x 16 x 4 B, once for both
-    gates), ``out_proj``'s product summed (1 x 4 x 16 x 4 B)."""
+    gates), ``out_proj``'s product summed (1 x 4 x 16 x 4 B).  The same
+    with ``seq_parallel``: the ``hybrid`` family keeps its stream whole."""
     cfg = ModelConfig(name="tiny-rglru", kind="hybrid", num_layers=1,
                       d_model=16, n_heads=2, n_kv_heads=1, d_head=8,
                       d_ff=32, vocab=64, pattern=("rglru",), window=16,
                       lru_width=16, dtype="float32")
     log, f = _block_on_the_mesh(
         cfg, "rglru", lambda st, h: st.rglru("units.0.rglru", h),
-        monkeypatch)
+        monkeypatch, seq_parallel)
     gathers = [16 * 8 * 4] * 5 + [4 * 16 * 4]
     sums = [4 * 16 * 4]
     assert _log_per_position(log, "all-gather") == sorted(gathers * 4)
@@ -690,15 +722,18 @@ def test_decode_members_project_only_their_heads_and_states(arch,
                 assert d <= 1e-4 * max(1.0, float(a[k].abs().max())), k
 
 
-def test_the_backward_logs_the_gradients_collectives():
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_the_backward_logs_the_gradients_collectives(seq_parallel):
     """A train step's log holds the forward's gathers and sums and, in the
     backward, a reduce-scatter per gather and an all-reduce per sum; remat
-    gathers each unit's weights a second time."""
+    gathers each unit's weights a second time (with ``seq_parallel`` also
+    the two blocks' normed tokens, and an all-gather answers each
+    reduce-scatter of a sum)."""
     cfg = _tiny()
     model = P.init_params(cfg, generator=torch.Generator().manual_seed(0),
                           device=CPU, trainable=True)
     mp = spmd.place_model(model, _mesh())
-    ec = P.ExecConfig(mesh=mp.mesh, **EXEC)
+    ec = P.ExecConfig(mesh=mp.mesh, seq_parallel=seq_parallel, **EXEC)
     step = P.make_train_step(cfg, optim.AdamWConfig(), ec)
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, 64, (2, 4)),
@@ -709,9 +744,18 @@ def test_the_backward_logs_the_gradients_collectives():
            and e.kind == "all-gather"]
     bwd = [e for e in log.entries if e.phase == "backward" and e.unit == 0
            and e.kind == "reduce-scatter"]
-    assert len(fwd) == 2 * 4 * 7  # the forward and remat's re-gather
+    # the forward and remat's re-gather
+    assert len(fwd) == 2 * 4 * (9 if seq_parallel else 7)
     assert sorted(e.nbytes for e in bwd) == sorted(
         e.nbytes for e in fwd[:len(fwd) // 2])
+    sums = [e for e in log.entries if e.unit == 0 and e.phase == "forward"
+            and e.kind == ("reduce-scatter" if seq_parallel
+                           else "all-reduce")]
+    back = [e for e in log.entries if e.unit == 0 and e.phase == "backward"
+            and e.kind == ("all-gather" if seq_parallel else "all-reduce")]
+    # two sums a unit, the MLP's not recomputed (remat stops once its saved
+    # tensors are back)
+    assert (len(sums), len(back)) == (4 * 3, 4 * 2)
 
 
 def test_launch_train_on_a_mesh_of_cpu_devices(capsys, tmp_path):
