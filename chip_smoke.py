@@ -17,7 +17,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      baseline program within ``baseline``, and the kernel's launch count
      must rise.  rhs_ph1 and rhs_ph2 overflow float16 at these sizes
      (:data:`F16_OVERFLOW`): there they are held where the baseline lies
-     under :data:`FP16_HELD`;
+     under :data:`FP16_HELD`.  Then the programs with constant
+     subexpressions (``repro_torch/apps/constant_kernels.py``: ``sin(0.3)
+     u[i]``, ``exp(0.1) u[i] + exp(0.1) u[i+1]``, ``log(-1.0) u[i]`` and
+     the ``@race_kernel`` twin with ``math.sqrt(2.0)`` and
+     ``math.exp(0.1)`` coefficients) at float64, K1 against ``"torch"``
+     within ``plan`` (``log(-1.0)``: nan on both), and ``o[i] = 0.1``
+     (K1 refuses it) on ``"torch"``, its output float64;
   4. main path at full size: ``race(program).run(env)`` with the default
      ``"auto"`` backend for j3d27pt n=512 f32, poisson n=512 f32, derivative
      n=256 f64 and hdifft_gm 8192x8192 f32.  The selection must be
@@ -258,22 +264,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
      forward and every adjoint spec 4 per step; the position's mixer on
      K1 against ``"torch"`` (``plan``; gradients ``grad``); step ms beside
      the one-device step's, peak memory and the transfer log's bytes by
-     kind;
+     kind, and the dry run's activation term at the cell's shapes (four
+     positions') beside the measured peak less the bytes allocated before
+     the steps, with their ratio (printed, not gated);
      for the MoE cell a position's expert buffer (E, C / R, F / M), gated
      on the experts' partial outputs being summed over ``model``.
      ``mesh:prefill`` of qwen2-7b (phase 15's prefill at full depth),
      falcon-mamba-7b and recurrentgemma-9b (full width, depth cut:
      :data:`MESH_RECURRENT`) on the mesh against one device's (argmax,
-     3e-2 of the largest), K1 once per position.  ``mesh:parity``: phase
-     15's parity model and both recurrent families (float32, full width,
-     :data:`MESH_PARITY_UNITS` layer units) on the mesh, decode against
-     prefill within 1e-3.  K1 against ``F.conv1d`` at mesh positions'
-     mixer shapes, timed in turns (:data:`MIXER_CONV_CHANNELS`).  The
-     ``launch.train --mesh ... --devices`` CLI on the reduced config with
-     the mixer; one ``launch.dryrun`` record (qwen2_7b x train_4k on the
-     16x16 pod, meta devices).  Its mixers' K1 sources are built in phase
-     2.  Every mesh step runs the sequence-parallel residual (the
-     default: a member holds its S / M tokens between layer units);
+     3e-2 of the largest), K1 once per position, the activation term
+     beside the prefill's measured peak as for training.
+     ``mesh:parity``: phase 15's parity model and both recurrent
+     families (float32, full width, :data:`MESH_PARITY_UNITS` layer
+     units) on the mesh, decode against prefill within 1e-3.  K1 against
+     ``F.conv1d`` at mesh positions' mixer shapes, timed in turns
+     (:data:`MIXER_CONV_CHANNELS`), the tap adjoints also at the
+     full-width mixer.  The ``launch.train --mesh ... --devices`` CLI on
+     the reduced config with the mixer; one ``launch.dryrun`` record
+     (qwen2_7b x train_4k on the 16x16 pod, meta devices).  Its mixers'
+     K1 sources are built in phase 2.  Every mesh step runs the
+     sequence-parallel residual (the default: a member holds its S / M
+     tokens between layer units);
      mesh:train:qwen2-7b runs again with ``--no-seq-parallel`` (the
      replicated residual, :data:`MESH_LAYOUT_CELLS`), and
      ``mesh:layouts`` prints both layouts' step ms, peak memory, transfer
@@ -282,8 +293,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      (:data:`MESH_LAYOUT_TOL`) and on the saved bytes falling by M.  The
      mesh cells' kernel lines split K1's adjoints into the ``sx`` adjoint
      (timed beside ``F.conv1d`` with the reversed filter) and the tap
-     adjoints (no library call: products of two streams); ``mixer vs
-     conv1d`` times the ``sx`` adjoint in turns too.
+     adjoints (timed beside one ``torch.mv`` over ``sx``'s shifted rows
+     and one ``F.conv1d`` of ``sx`` with the output gradient as a single
+     filter across the channels, whose R + 3 lags give every tap:
+     :func:`tap_adjoint_library_call`, each held against K1 within
+     ``plan`` of ``sum |g b|``; the kernel line's library time is mv's);
+     ``mixer vs conv1d`` times both adjoints in turns too.
 
 The last lines are the phase-4 schedules as JSON (``{"schedule": [...]}``),
 the kernel table as JSON, the card's name and power limit, and
@@ -357,6 +372,9 @@ PEAK_BF16_TC_FLOPS = 989e12
 PEAK_TF32_TC_FLOPS = 494.5e12
 SWEEP_SCALE = 3
 REPS = 10
+#: phase 3's programs with constant subexpressions
+#: (``repro_torch/apps/constant_kernels.py``): their extent, at float64
+CONST_N = 1 << 16
 #: where phases 5-8 put their tensors
 DEVICE = "cuda"
 #: the LM head of qwen2-7b (src/repro/configs/qwen2_7b.py): one sequence
@@ -486,6 +504,9 @@ MESH_PARITY_UNITS = 2
 #: rounds of calls each, alternating
 MIXER_CONV_CHANNELS = (3584, 2048)
 MIXER_CONV_ROUNDS, MIXER_CONV_CALLS = 5, 10
+#: a side whose warm call takes longer (the tap adjoints' conv1d: cuDNN
+#: has one output channel to spread) is timed once a round
+MIXER_CONV_SLOW_MS = 10.0
 MESH_CLI_ARGV = ["--arch", LM_ARCH, "--reduced", "--mesh", "2x2", "--steps",
                  "3", "--batch", "4", "--seq", "64", "--race-smooth",
                  str(LM_RADIUS)]
@@ -1364,6 +1385,84 @@ def hvp_check(case, dt, res, torch) -> None:
           f"{auto_ms:.4f} (forward, backward with create_graph, backward), "
           f"plain autograd of the torch evaluator ms {plain_ms:.4f}, vs "
           f"torch {err:.2e} (<= {tol:.0e})", flush=True)
+
+
+def constant_cells() -> list:
+    """Phase 3's programs with constant subexpressions: (label, RaceResult,
+    float64 numpy env) for ``repro_torch.apps.constant_kernels``' programs
+    and its ``@race_kernel`` twin (``math.sqrt(2.0)`` and ``math.exp(0.1)``
+    coefficients), at reassociate 3 over CONST_N points."""
+    import numpy as np
+
+    from repro_torch import race, race_kernel
+    from repro_torch.apps import constant_kernels
+
+    u = np.random.default_rng(7).uniform(-1, 1, CONST_N + 2)
+    out = [(name, race(prog, reassociate=3), {"u": u})
+           for name, prog in constant_kernels.programs(n=CONST_N).items()]
+    env = {"u": u, "o": np.zeros(CONST_N + 2)}
+    twin = race_kernel(constant_kernels.twin, reassociate=3).trace(
+        {k: v.shape for k, v in env.items()})
+    return out + [("twin", twin, env)]
+
+
+def constant_sources() -> list:
+    """The K1 sources (float64) of the constant cells the kernel takes."""
+    from repro_torch.core.backend import select_backend
+    from repro_torch.lowering.emit import specialize_stencil
+
+    return [specialize_stencil(res.plan, {k: v.shape for k, v in env.items()},
+                               {k: "float64" for k in env}).source
+            for _, res, env in constant_cells()
+            if select_backend(res.plan, "auto", ["float64"]).backend
+            == "hopper"]
+
+
+def constant_check(torch) -> list:
+    """Phase 3's constant cells on the card: where K1 takes the program,
+    K1 against ``"torch"`` at float64 within ``plan`` (its launch count
+    rising); ``o[i] = 0.1`` (K1 refuses it: no array to stream) on
+    ``"torch"`` only, its output float64 and 0.1 everywhere; ``log(-1.0)``
+    nan on both.  Returns the failing lines."""
+    from repro_torch import compile_plan
+    from repro_torch.core.backend import select_backend
+    from repro_torch.testing import default_tolerances, env_to_torch, rel_err
+
+    tol = default_tolerances("float64")["plan"]
+    failures = []
+    for label, res, env_np in constant_cells():
+        env = env_to_torch(env_np, DEVICE)
+        plain = res.run(env, "torch", device=DEVICE)
+        sel = select_backend(res.plan, "auto", ["float64"])
+        if sel.backend != "hopper":
+            (o,) = plain.values()
+            ok = (label == "const" and o.dtype == torch.float64
+                  and bool((o == 0.1).all()))
+            why = sel.capability.explain()
+            line = (f"constants {label}: K1 refuses ({why}); torch "
+                    f"output {o.dtype}, all 0.1 {bool((o == 0.1).all())} "
+                    f"{'ok' if ok else 'FAIL'}")
+        else:
+            ex = compile_plan(res.plan, env, "hopper")
+            before = ex.kernel_launches
+            got = res.run(env, "hopper", device=DEVICE)
+            torch.cuda.synchronize()
+            launched = ex.kernel_launches - before
+            if label == "log_neg":
+                e = "nan on both" if all(
+                    bool(torch.isnan(v).all()) for v in
+                    (*got.values(), *plain.values())) else "not nan"
+                ok = launched == 1 and e == "nan on both"
+            else:
+                e = rel_err(got, plain)
+                ok = launched == 1 and e <= tol
+                e = f"{e:.2e} (<= {tol:.0e})"
+            line = (f"constants {label} float64: launches {launched} "
+                    f"hopper-vs-torch {e} {'ok' if ok else 'FAIL'}")
+        print(line, flush=True)
+        if not ok:
+            failures.append(line)
+    return failures
 
 
 def full_size_cells():
@@ -2591,14 +2690,98 @@ def sx_adjoint_library_call(adj_env, radius: int, torch):
     """``F.conv1d`` computing the mixer's ``sx`` adjoint plan: ``_adj_sx[q]
     = sum_k w[R + 2 - k] g[q + k]`` over the output gradient ``_g_sy``
     (padded by R + 2 at each end), ``w`` the forward's filter reversed.
-    The tap adjoints have no such call: each is a product of two streams
-    (a box sum of ``sx`` times ``_g_sy``), not a filter."""
+    The tap adjoints have theirs in :func:`tap_adjoint_library_call`."""
     import torch.nn.functional as F
 
     g = adj_env["_g_sy"]
     w = _mixer_filter(adj_env, radius, g.device, torch).flip(0)[None, None]
     x = g.t()[:, None, :]
     return lambda: {"_adj_sx": F.conv1d(x, w)[:, 0].t()}
+
+
+def tap_adjoint_library_call(adj_env, radius: int, torch,
+                             how: str = "conv1d"):
+    """One library call computing the mixer's tap adjoints, ``d(loss)/d
+    sw_d = sum_{s,c} g[s, c] b(s + R - d, c)`` with ``g`` the output
+    gradient ``_g_sy`` (S, C) and ``b(t) = sx[t] + sx[t + 1] + sx[t + 2]``:
+    a cross-correlation of two streams summed over the channels, whose
+    R + 3 lags ``r[j] = sum_{s,c} g[s, c] sx[s + j, c]`` give every tap,
+    tap ``d`` being ``r[R - d] + r[R - d + 1] + r[R - d + 2]``.
+    ``how="conv1d"``: one ``F.conv1d`` of ``sx`` (its C channels by S + R
+    + 2) with ``g`` as a single filter across every channel.
+    ``how="mv"``: one ``torch.mv`` of the (R + 3, S C) matrix whose row
+    ``j`` is ``sx``'s rows ``j .. j + S - 1`` (an overlapping strided view,
+    which the call copies) with ``g`` flattened.  Returns the taps,
+    (R + 1,) float32 (TF32 is off: ``main`` clears it).  ``adj_env`` is a
+    tap spec's adjoint env (``sx`` and ``_g_sy``)."""
+    import torch.nn.functional as F
+
+    g, sx = adj_env["_g_sy"], adj_env["sx"]
+    lags = (torch.arange(radius, -1, -1)[:, None]
+            + torch.arange(3)).to(g.device)
+    if how == "mv":
+        S, C = g.shape
+        rows = sx.contiguous().as_strided((radius + 3, S * C), (C, 1))
+        flat = g.reshape(-1)
+        return lambda: torch.mv(rows, flat)[lags].sum(1)
+    x, w = sx.t()[None], g.t()[None]
+    return lambda: F.conv1d(x, w)[0, 0][lags].sum(1)
+
+
+def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
+    """The tap specs ``sw`` (``(spec, adjoint env, executor)`` of
+    ``sw0..sw<R>``) on K1 against :func:`tap_adjoint_library_call` on the
+    same inputs.  K1 writes each tap's products ``g b`` (S, C), which the
+    backward sums; here they are summed in float64.  A tap is a sum of
+    S C terms of both signs, so float32 sums in any order differ from each
+    other by their rounding times ``sum |g b|``, which exceeds the tap
+    itself by ~2e3 at these shapes: the gate is ``plan`` (float32) of
+    ``sum |g b|``, and the error relative to the largest tap is printed
+    beside it.  Returns (the library call, the three K1 launches, the
+    launches and their sums as the backward makes them); the ``torch.mv``
+    form is held the same way and printed, and returned as a fourth."""
+    from repro_torch.testing import default_tolerances
+
+    sw = sorted(sw, key=lambda t: int(t[0].input[2:]))
+    assert [t[0].input for t in sw] == [f"sw{d}" for d in range(radius + 1)]
+    lib = tap_adjoint_library_call(sw[0][1], radius, torch)
+    mv = tap_adjoint_library_call(sw[0][1], radius, torch, "mv")
+    got, got_mv = lib().double(), mv().double()
+    before = [e.kernel_launches for _, _, e in sw]
+    outs = [e(a)[spec.gu].double() for spec, a, e in sw]
+    torch.cuda.synchronize()
+    if [e.kernel_launches - n for (_, _, e), n in zip(sw, before)] != [1] * (
+            radius + 1) or any(e.backend != "hopper" for _, _, e in sw):
+        raise SystemExit(f"{label}: a tap adjoint is off K1 or did not "
+                         f"launch")
+    k1 = torch.stack([o.sum() for o in outs])
+    scale = max(float(o.abs().sum()) for o in outs)
+    diff = float((got - k1).abs().max())
+    diff_mv = float((got_mv - k1).abs().max())
+    tol = default_tolerances("float32")["plan"]
+    def fmt(v):
+        return [float(f"{x:.6e}") for x in v]
+
+    print(f"{label} tap adjoints sw0..sw{radius} sx "
+          f"{tuple(sw[0][1]['sx'].shape)}: K1 {fmt(k1)}, conv1d "
+          f"{fmt(got)}; |diff| {diff:.3e} "
+          f"= {diff / scale:.2e} of sum |g b| {scale:.4e} (<= {tol:.0e}), "
+          f"{diff / float(k1.abs().max()):.2e} of the largest tap; mv "
+          f"{fmt(got_mv)}, |diff| {diff_mv:.3e} = {diff_mv / scale:.2e}",
+          flush=True)
+    if not max(diff, diff_mv) <= tol * scale:
+        raise SystemExit(f"{label}: conv1d or mv and K1 disagree on the "
+                         f"tap adjoints")
+    del outs
+
+    def launches():
+        for spec, a, e in sw:
+            e(a)
+
+    def with_sums():
+        return [e(a)[spec.gu].sum() for spec, a, e in sw]
+
+    return lib, launches, with_sums, mv
 
 
 def lm_mixer_check(x, taps, torch) -> tuple:
@@ -3204,7 +3387,8 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     kernel-line entries, forward ms, summed adjoint ms): the forward and
     the adjoints summed, or with ``split_sx`` the ``sx`` adjoint (checked
     against and timed beside its library call,
-    :func:`sx_adjoint_library_call`) and the tap adjoints apart."""
+    :func:`sx_adjoint_library_call`) and the tap adjoints apart (theirs:
+    :func:`tap_adjoint_check`)."""
     from repro_torch import compile_plan
     from repro_torch.testing import default_tolerances, rel_err
 
@@ -3223,7 +3407,8 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     fwd_bound, fwd_by = bound_of(fb, fo, PEAK_FLOPS["float32"])
     groups = {}  # adjoint line -> ms, plain ms, bytes, ops, launches
     per_spec = []
-    sx_lib = None
+    sx_lib = sw_lib = None
+    sw = []
     for (spec, a, e), n in zip(adj, adj_launches, strict=True):
         key = "" if not split_sx else " sx" if spec.input == "sx" else " sw"
         g = groups.setdefault(key, [0.0, 0.0, 0, 0, 0])
@@ -3241,6 +3426,13 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
                 raise SystemExit(f"{label}: conv1d and K1 disagree on the "
                                  f"sx adjoint ({e_lib:.2e})")
             sx_lib = _time_ms(lib, torch)
+        elif key == " sw":
+            sw.append((spec, a, e))
+    if sw:  # the kernel line takes mv: cuDNN's conv1d is ~300x slower
+        conv, _, _, mv = tap_adjoint_check(label, sw, LM_RADIUS, torch)
+        sw_lib = _time_ms(mv, torch)
+        print(f"{label} tap adjoints' library calls: mv {sw_lib:.4f} ms, "
+              f"conv1d {_time_ms(conv, torch):.4f} ms", flush=True)
     adj_ms = sum(g[0] for g in groups.values())
     common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
                   replaces="src/repro/lowering/emit.py:273")
@@ -3251,7 +3443,7 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     parts = []
     for key, (ms, plain, b_, o_, n) in groups.items():
         bound, by = bound_of(b_, o_, PEAK_FLOPS["float32"])
-        lib = sx_lib if key == " sx" else None
+        lib = {" sx": sx_lib, " sw": sw_lib}.get(key)
         parts.append(f"adjoint{key} {ms:.4f} ms (torch {plain:.4f}, "
                      f"bound {bound:.4f} {by}, library "
                      f"{'none' if lib is None else f'{lib:.4f}'})")
@@ -3558,6 +3750,28 @@ def moe_buffer(cfg, args, mesh) -> tuple:
     return cfg.moe_experts, c1 - c0, f1 - f0
 
 
+def activation_vs_peak(label, cfg, shape, mesh, exec_cfg, base: int,
+                       peak: int) -> None:
+    """The dry run's activation term (``launch/dryrun.py:
+    activation_parts``) at this cell's shapes, a position's times the
+    mesh's positions (all on this one card), beside the measured peak less
+    the bytes allocated just before the step (the cell's arguments:
+    parameters, optimizer state, batch, and what earlier steps keep);
+    printed with their ratio, not gated: the peak also holds gradients and
+    the step's transients, which the term leaves out."""
+    from repro_torch.launch import dryrun
+
+    parts = dryrun.activation_parts(cfg, shape, mesh, exec_cfg)
+    term = sum(parts.values()) * mesh.size
+    meas = peak - base
+    print(f"{label} activation term on {_nvidia_smi()}: formula "
+          f"{term:.4e} B ({mesh.size} positions x "
+          f"{ {k: float(f'{v:.4e}') for k, v in parts.items()} }) vs "
+          f"measured peak - arguments {meas:.4e} B (peak {peak} B, "
+          f"allocated before the step {base} B); measured / formula "
+          f"{meas / term:.3f}", flush=True)
+
+
 def mesh_train(root, label, argv, torch) -> list:
     """mesh:train:<label>: ``launch.train`` with ``argv`` on the 2x2 mesh
     (``--mesh 2x2 --devices cuda:0,...``, no checkpoint), against the same
@@ -3607,7 +3821,7 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
     from repro_torch import compile_plan, obs
     from repro_torch.launch import train
     from repro_torch.launch.hlo_analysis import collective_traffic
-    from repro_torch.models import spmd
+    from repro_torch.models import ShapeSpec, spmd
     from repro_torch.models.ssm import _smooth_result, smooth_env
     from repro_torch.testing import default_tolerances
 
@@ -3669,6 +3883,7 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
         e.spec.launches = 0
     obs.reset()
     obs.configure(enabled=True)
+    base = torch.cuda.memory_allocated()
     try:
         out = trainer.run()  # the main path: K1's counts from 0
         spans = _mesh_obs_positions(obs)
@@ -3676,6 +3891,9 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
         obs.reset()
     launches = [e.kernel_launches for e in execs]
     peak = torch.cuda.max_memory_allocated()
+    activation_vs_peak(f"mesh:train:{tag}", cfg, ShapeSpec(
+        "mesh_train", args.seq, args.batch, "train"), mp.mesh, ec, base,
+        peak)
     losses = out["losses"]
     n = len(losses)
     npos = len(mp.layout.positions)
@@ -3786,7 +4004,7 @@ def mesh_prefill(label, cfg, one_ms, torch) -> None:
 
     from repro_torch import compile_plan
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import (ExecConfig, init_params,
+    from repro_torch.models import (ExecConfig, ShapeSpec, init_params,
                                     make_prefill_step, prefill_logits, spmd)
     from repro_torch.models.ssm import _smooth_result, smooth_env
 
@@ -3831,9 +4049,15 @@ def mesh_prefill(label, cfg, one_ms, torch) -> None:
     torch.cuda.empty_cache()
     step = make_prefill_step(cfg, ExecConfig(mesh=mesh))
     ex.spec.launches = 0  # the main path: one prefill on the mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = step(mp, batch)
     torch.cuda.synchronize()
     launches = ex.kernel_launches
+    activation_vs_peak(f"mesh:prefill:{label}", cfg, ShapeSpec(
+        "mesh_prefill", LM_PROMPT, LM_BATCH, "prefill"), mesh,
+        ExecConfig(mesh=mesh), base, torch.cuda.max_memory_allocated())
     scale = float(want.abs().max())
     diff = float((got - want).abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
@@ -3896,23 +4120,42 @@ def mesh_parity(label, cfg, torch) -> None:
 
 def mixer_vs_conv1d(torch) -> None:
     """K1 against ``F.conv1d`` at mesh positions' mixer shapes (``sx``
-    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), the forward and the ``sx``
-    adjoint (:func:`sx_adjoint_library_call`), checked first, then timed
-    in turns: per round MIXER_CONV_CALLS calls of each, shape by shape, K1
-    then conv1d, after a warm-up; the median of every call per shape and
-    side, and each round's."""
+    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), the forward, the ``sx``
+    adjoint (:func:`sx_adjoint_library_call`) and the tap adjoints
+    (:func:`tap_adjoint_library_call`: one conv1d for sw0..sw2 against
+    K1's three launches, alone and with the sums the backward takes of
+    them), and the tap adjoints again at the full-width mixer (phase 16's
+    one-device step: its batch x qwen2-7b's d_model channels), checked
+    first, then timed in turns: per round MIXER_CONV_CALLS calls of each,
+    shape by shape, K1 then conv1d, after a warm-up; the median of every
+    call per shape and side, and each round's."""
     from repro_torch import compile_plan
+    from repro_torch.configs import get_config
     from repro_torch.models.ssm import _smooth_result, smooth_env
     from repro_torch.testing import default_tolerances, rel_err
 
     g = torch.Generator(DEVICE).manual_seed(5)
     g_sy = torch.Generator(DEVICE).manual_seed(6)
     taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
+    full = _train_arg("--batch") * get_config(LM_ARCH).d_model
     sides = {}
-    for C in MIXER_CONV_CHANNELS:
+    for C in MIXER_CONV_CHANNELS + (full,):
         x = torch.randn((2, LM_PROMPT, C // 2), generator=g, device=DEVICE,
                         dtype=torch.bfloat16)
         env = smooth_env(x, taps, LM_RADIUS)
+        gy = {"sy": torch.randn(env["sy"].shape, generator=g_sy,
+                                device=DEVICE)}
+        adj = adjoint_executors(_smooth_result(LM_PROMPT, C, LM_RADIUS)
+                                .program, env, gy)
+        lib, k1, k1_sums, mv = tap_adjoint_check(
+            f"mixer vs conv1d C={C}", [t for t in adj
+                                       if t[0].input != "sx"],
+            LM_RADIUS, torch)
+        sides[C] = {"K1 sw adjoints (3 launches)": k1,
+                    "K1 sw adjoints and their sums": k1_sums,
+                    "conv1d sw adjoints": lib, "mv sw adjoints": mv}
+        if C == full:
+            continue
         ex = compile_plan(_smooth_result(LM_PROMPT, C, LM_RADIUS).plan, env,
                           "hopper")
         lib = mixer_library_call(env, LM_RADIUS, torch)
@@ -3924,11 +4167,8 @@ def mixer_vs_conv1d(torch) -> None:
             raise SystemExit(f"mixer vs conv1d: K1 at sx "
                              f"{tuple(env['sx'].shape)} did not launch or "
                              f"disagrees with conv1d ({e:.2e})")
-        gy = {"sy": torch.randn(env["sy"].shape, generator=g_sy,
-                                device=DEVICE)}
-        (adj_env, adj_ex), = [(a, e) for spec, a, e in adjoint_executors(
-            _smooth_result(LM_PROMPT, C, LM_RADIUS).program, env, gy)
-            if spec.input == "sx"]
+        (adj_env, adj_ex), = [(a, e) for spec, a, e in adj
+                              if spec.input == "sx"]
         adj_lib = sx_adjoint_library_call(adj_env, LM_RADIUS, torch)
         before = adj_ex.kernel_launches
         e_adj = rel_err(adj_lib(), adj_ex(adj_env))
@@ -3942,18 +4182,24 @@ def mixer_vs_conv1d(torch) -> None:
                              f"({e_adj:.2e})")
         sides[C] = {"K1": lambda ex=ex, env=env: ex(env), "conv1d": lib,
                     "K1 sx adjoint": lambda e=adj_ex, a=adj_env: e(a),
-                    "conv1d sx adjoint": adj_lib}
-    for fns in sides.values():
-        for fn in fns.values():
+                    "conv1d sx adjoint": adj_lib, **sides[C]}
+    calls = {}  # a side slower than MIXER_CONV_SLOW_MS: one call a round
+    for C, fns in sides.items():
+        for k, fn in fns.items():
             fn()
-    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            calls[C, k] = (1 if (time.perf_counter() - t) * 1e3
+                           > MIXER_CONV_SLOW_MS else MIXER_CONV_CALLS)
     times = {(C, k): [] for C in sides for k in sides[C]}
     rounds = {k: [] for k in times}
     for _ in range(MIXER_CONV_ROUNDS):
         for C, fns in sides.items():
             for k, fn in fns.items():
                 ts = []
-                for _ in range(MIXER_CONV_CALLS):
+                for _ in range(calls[C, k]):
                     a = torch.cuda.Event(enable_timing=True)
                     b = torch.cuda.Event(enable_timing=True)
                     a.record()
@@ -4202,6 +4448,7 @@ def main() -> int:
     sources += shard_sources(mesh)
     # phases 15-16: the LM mixers' plans, and the training mixers' adjoints
     sources += lm_sources() + train_sources() + mesh_sources()
+    sources += constant_sources()
     sources.append(csrc_source("fused_ce.cu"))
     t0 = time.time()
     compile_sources(sources)
@@ -4243,6 +4490,7 @@ def main() -> int:
         print(line, flush=True)
         if not ok:
             failures.append(line)
+    failures += constant_check(torch)
     if failures:
         raise SystemExit("phase 3 failed:\n" + "\n".join(failures))
 

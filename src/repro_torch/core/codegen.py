@@ -119,7 +119,15 @@ def _eval_expr(e: Expr, bufs: dict, domain_levels: tuple, ranges: dict,
         if isinstance(x, FuncName):  # only under 'call'
             raise ValueError("bare function name")
         if x.op == "call":
-            return FUNCS[x.kids[0].name](torch.as_tensor(ev(x.kids[1])))
+            f, arg = FUNCS[x.kids[0].name], ev(x.kids[1])
+            if isinstance(arg, torch.Tensor):
+                return f(arg)
+            # a constant argument: at float64, as the reference's jnp.<f>
+            # of a Python float under x64 (and nan where jnp gives nan,
+            # which math.log(-1.0) would not); the Python float it gives
+            # back is a weak scalar to torch, as to jnp, so it never
+            # changes the dtype of the array it meets
+            return f(torch.tensor(arg, dtype=torch.float64)).item()
         if x.op == "neg":
             return -ev(x.kids[0])
         if x.op == "inv":
@@ -142,6 +150,23 @@ def _box(domain_levels: tuple, ranges: dict) -> tuple:
     return tuple(ranges[l][1] - ranges[l][0] + 1 for l in domain_levels)
 
 
+def _const_canvas(env: dict) -> tuple:
+    """``(dtype, device)`` of a statement's value that holds no array
+    (``o[i] = 0.1``): float64 when the env holds a float64 tensor, else
+    float32, on the env's device.  Those are the dtypes the reference's
+    Python-float value takes under x64 and in its default mode.  A half
+    env gives float32 too, as the reference's default mode does (the mode
+    its half-precision runs take): the constant is not rounded to half
+    before anything reads it."""
+    dtype, device = torch.float32, None
+    for v in env.values():
+        if isinstance(v, torch.Tensor):
+            device = v.device if device is None else device
+            if v.dtype == torch.float64:
+                dtype = torch.float64
+    return dtype, device
+
+
 def _write_stmt(st: Stmt, value, out: dict, env: dict, ranges: dict,
                 domain_levels: tuple) -> None:
     """Scatter the computed box into the lhs array region.
@@ -150,8 +175,6 @@ def _write_stmt(st: Stmt, value, out: dict, env: dict, ranges: dict,
     ``env`` is cloned first, and later statements write into that clone."""
     lhs_levels = [s.s for s in st.lhs.subs]
     perm = [domain_levels.index(l) for l in lhs_levels]
-    value = torch.as_tensor(value).expand(
-        _box(domain_levels, ranges)).permute(perm)
     name = st.lhs.name
     region = []
     for s in st.lhs.subs:
@@ -161,7 +184,15 @@ def _write_stmt(st: Stmt, value, out: dict, env: dict, ranges: dict,
         base = out[name]
     elif name in env:
         base = torch.as_tensor(env[name]).clone()
-    else:  # new_zeros: under vmap a batched value makes a batched canvas
+    else:
+        base = None
+    if not isinstance(value, torch.Tensor):  # a constant right-hand side
+        dtype, device = (_const_canvas(env) if base is None
+                         else (base.dtype, base.device))
+        value = torch.tensor(value, dtype=dtype, device=device)
+    value = value.expand(_box(domain_levels, ranges)).permute(perm)
+    if base is None:  # new_zeros: under vmap a batched value makes a
+        # batched canvas
         base = value.new_zeros(tuple(r.stop for r in region))
     base[tuple(region)] = value.to(base.dtype)
     out[name] = base
@@ -178,7 +209,11 @@ def build_plan_evaluator(plan: Plan):
             rng = plan.ranges[aux.name]
             levels = tuple(sorted(aux.levels))
             val = _eval_expr(plan.aux_exprs[aux.name], bufs, levels, rng, {})
-            val = torch.as_tensor(val).expand(_box(levels, rng))
+            if isinstance(val, torch.Tensor):
+                val = val.expand(_box(levels, rng))
+            # else a constant aux (its levels are those of no array: a
+            # scalar), kept a Python float: a weak scalar to every reader,
+            # as the reference's weakly typed constant is
             bufs[aux.name] = _Buf(val, tuple(rng[l][0] for l in levels))
         out: dict = {}
         for st in plan.body:

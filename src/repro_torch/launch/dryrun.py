@@ -16,8 +16,9 @@ says so).  A cell's record holds:
 * **per-device bytes**, exact: the shard shapes of ``launch/specs.py``'s
   parameters, optimizer state, batch and caches at one position
   (``full.memory.argument_size_in_bytes``), with an analytic activation
-  term (``temp_size_in_bytes``, labelled analytic) and a verdict against
-  one H100's 80 GB;
+  term (``temp_size_in_bytes``, labelled analytic: each family's unit
+  term fitted to what one unit saves for backward,
+  :func:`measured_unit_bytes`) and a verdict against one H100's 80 GB;
 * **FLOPs per device** from ``torch.utils.flop_counter.FlopCounterMode``
   over probes of one and two layer units with every loop unrolled (the
   reference's probes), extrapolated to ``f1 + (L - 1)(f2 - f1)``; the RACE
@@ -117,39 +118,210 @@ def activation_bytes(cfg, shape, mesh, exec_cfg=None) -> float:
 
 
 def activation_parts(cfg, shape, mesh, exec_cfg=None) -> dict:
-    """Analytic per-device activation memory (bf16), not measured: train
+    """Analytic per-device activation memory (the model at bf16), fitted
+    to a measurement (:func:`measured_unit_bytes`), not derived.  Train
     keeps each unit's input under remat (L x tokens x D x 2, a member's
     S / M tokens where :func:`~repro_torch.models.spmd.seq_layout` holds)
-    plus one layer's working set, Korthikanti et al.'s at tensor parallel
-    degree M and the member's H heads: ``t (34 D / M + 5 H S)`` bytes with
-    sequence parallelism, ``t (10 D + 24 D / M + 5 H S)`` without (the
-    norms' and residual's tensors whole on every member), plus two float32
-    logit chunks of the member's vocab; prefill one layer's working set;
+    plus the working set of the one unit the backward recomputes: what
+    that unit saves for backward (:func:`unit_parts`), plus two float32
+    logit chunks of the member's vocab; prefill a unit's working set
+    (its scan one chunk at a time: nothing is saved under no_grad);
     decode a few token-wide vectors.  ``exec_cfg`` defaults to
     ``ExecConfig()`` (``seq_parallel`` on, as the reference's).  Bytes by
-    part: ``saved``, ``layer``, ``logits`` (train), ``layer`` (prefill),
-    ``tokens`` (decode)."""
+    part: ``saved``, ``layer`` (the unit's norms, projections' inputs,
+    attention, MLPs and recurrent blocks' channel tensors), ``moe_buffers``
+    (moe: routing, dispatch and combine), ``scan`` (ssm, hybrid: the
+    chunked scan's float32 tensors), ``logits`` (train); ``tokens``
+    (decode)."""
     from ..models import ExecConfig
     from ..models.sharding import batch_axes
     from ..models.spmd import seq_layout
 
     rows = prod(mesh.shape[a] for a in batch_axes(mesh))
     M = mesh.shape.get("model", 1)
-    B_r = (shape.global_batch // rows if shape.global_batch % rows == 0
-           else shape.global_batch)
-    t = B_r * shape.seq_len
-    D, H = cfg.d_model, max(1, cfg.n_heads // M)
-    seq = seq_layout(cfg, exec_cfg or ExecConfig(), M, shape.seq_len)
-    attn = 5 * H * shape.seq_len
-    layer = t * (34 * D / M + attn if seq else 10 * D + 24 * D / M + attn)
-    if shape.mode == "train":
-        chunk = min(512, shape.seq_len)
-        logits = 2 * B_r * chunk * -(-cfg.vocab // M) * 4
-        saved = cfg.num_layers * t * D * 2 / (M if seq else 1)
-        return {"saved": saved, "layer": layer, "logits": logits}
-    if shape.mode == "prefill":
-        return {"layer": layer}
-    return {"tokens": B_r * D * 2 * 16}
+    split = shape.global_batch % rows == 0
+    B_r = shape.global_batch // rows if split else shape.global_batch
+    ec = exec_cfg or ExecConfig()
+    if shape.mode == "decode":
+        return {"tokens": B_r * cfg.d_model * 2 * 16}
+    seq = seq_layout(cfg, ec, M, shape.seq_len)
+    train = shape.mode == "train"
+    parts = unit_parts(cfg, B_r, shape.seq_len, M, rows, seq, ec, train,
+                       split)
+    if not train:
+        return parts
+    t, D = B_r * shape.seq_len, cfg.d_model
+    chunk = min(512, shape.seq_len)
+    return {"saved": cfg.num_layers * t * D * 2 / (M if seq else 1),
+            **parts,
+            "logits": 2 * B_r * chunk * -(-cfg.vocab // M) * 4}
+
+
+def unit_parts(cfg, B_r: int, S: int, M: int, R: int, seq: bool, exec_cfg,
+               train: bool = True, split: bool = True) -> dict:
+    """Bytes one layer unit of ``cfg`` holds for backward at one mesh
+    position (``train``), or its working set (prefill): ``B_r`` examples of
+    ``S`` tokens a row, ``M`` members, ``R`` rows, ``split`` whether the
+    batch splits over them (else every row holds all of it), ``seq``
+    whether the stream is sequence-split.  The terms are the
+    tensors :func:`measured_unit_bytes` finds, with the widths they are
+    saved at, each fitted exactly at two reduced shapes
+    (``tests/test_torch_dryrun.py``), per block of the unit:
+
+    * a norm: its float32 input and output and float32 rstd over the
+      member's tokens (``tm``: S / M of a row's where ``seq``), and the
+      bf16 normed input the block's projections read: the row's t tokens
+      (gathered over ``model`` where ``seq``);
+    * attention: q and out over the member's query heads, k and v over
+      its KV heads (bf16), log-sum-exp (float32); flash attention saves
+      no S x S scores, so neither S nor a local window enters;
+    * an MLP: seven bf16 (t, F / M) tensors;
+    * MoE: the router's float32 input, gates, int64 expert ranks and the
+      (token, k) entries over every row's tokens (routing is global);
+      per dispatch chunk the row's (E, C / R) slots: the bf16 buffer
+      (E, C / R, D) and seven (E, C / R, F / M), the slot index and
+      mask; the combine's gathered (t K, D) rows;
+    * Mamba: 56 bytes a token and channel of the member's d_inner / M
+      (bf16 and float32 channel tensors), the padded conv input, B and C
+      at float32, ``x_proj``'s product; the scan (``_assoc``): per chunk
+      its 2 k + 1 float32 (B_r, chunk, d_inner / M, N) tensors, k =
+      ceil(log2 chunk) Hillis-Steele steps each saving its a and b, and
+      hs; h0's fold;
+    * RG-LRU: thirteen float32 (t, W / M) gate and branch tensors, the
+      padded conv input, the gathered (t, W) conv output, the scan as
+      Mamba's at N = 1.
+
+    Keys: ``layer``, and ``moe_buffers`` / ``scan`` where the unit has
+    them."""
+    import dataclasses
+    from math import ceil, log2
+
+    from ..models.model import unit_kinds
+    from ..models.spmd import _even, _head_split, _moe_chunks, _split
+    from ..models.ssm import _n_chunks
+
+    D, F = cfg.d_model, cfg.d_ff
+    t = B_r * S
+    tm = t // M if seq else t
+    ec = dataclasses.replace(exec_cfg, unroll_scans=False)
+    n = _n_chunks(S, ec)  # the scans' time chunks
+    steps = ceil(log2(S // n)) if S // n > 1 else 0
+    out = {"layer": 0.0}
+
+    def add(key, v):
+        out[key] = out.get(key, 0.0) + v
+
+    def width(w):
+        lo, hi = _even(w, M, 0)
+        return hi - lo
+
+    def norms(k):
+        add("layer", k * (8 * tm * D + 4 * tm + 2 * t * D))
+
+    def mlp(f):
+        lo, hi = _split(f, M, 0)
+        add("layer", 14 * t * (hi - lo))
+
+    def attention():
+        sp = _head_split(cfg, M, 0) if M > 1 else None
+        kv, g = ((sp[1] - sp[0], sp[3] - sp[2]) if sp is not None else
+                 (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads))
+        add("layer", 4 * t * (kv * g + kv) * cfg.d_head + 4 * t * kv * g)
+
+    def scan(w, per):
+        if train:
+            add("scan", (2 * steps + 1) * 4 * t * w * per
+                + 4 * n * B_r * w * per)
+        else:  # one chunk's dA, dBx and the scan's two pairs at a time
+            add("scan", 6 * 4 * B_r * (S // n) * w * per)
+
+    def moe():
+        E, K = cfg.moe_experts, cfg.moe_top_k
+        T = B_r * S * (R if split else 1)
+        nc = _moe_chunks(T, ec)
+        Tc = T // nc
+        C = max(8, int(Tc * K * cfg.moe_capacity) // E)
+        lo, hi = _even(C, R, 0)
+        f = width(F)
+        routed = T if train else Tc
+        chunks = nc if train else 1
+        add("moe_buffers",
+            routed * (4 * D + 13 * K + 8 * E)
+            + chunks * E * (hi - lo) * (9 + 2 * D + 14 * f)
+            + t * K * (4 * D + 34))
+
+    for kind in unit_kinds(cfg):
+        if kind == "mamba":
+            di, N, K = width(cfg.d_inner), cfg.ssm_state, cfg.ssm_conv
+            norms(1)
+            add("layer", 2 * (t + B_r * (K - 1)) * di + 56 * t * di
+                + 8 * t * N + 2 * t * (cfg.dt_rank + 2 * N))
+            scan(di, N)
+            continue
+        norms(2)
+        if kind == "rglru":
+            W = cfg.lru_width or D
+            w = width(W)
+            add("layer", 13 * 4 * t * w + 2 * (t + B_r * (cfg.ssm_conv - 1))
+                * w + 2 * t * w + 2 * t * W)
+            scan(w, 1)
+        else:  # attn, cross, moe
+            attention()
+        if kind == "moe":
+            moe()
+            if cfg.moe_shared:
+                mlp(cfg.moe_shared * F)
+        else:
+            mlp(F)
+    return out
+
+
+def measured_unit_bytes(cfg, shape, mesh_shape=(2, 2), exec_cfg=None) -> int:
+    """Measured: the activation bytes one layer unit of ``cfg`` saves for
+    backward at the first position of a ``mesh_shape`` meta mesh, remat
+    off, at ``shape``'s batch.  Each count is a train step's saved tensors
+    under ``torch.autograd.graph.saved_tensors_hooks``, a storage counted
+    once however many operations save it; one unit is the step of two
+    units less the step of one, and its activations that unit at twice
+    the batch less it at the batch (the unit's weights do not grow with
+    the batch)."""
+    import dataclasses
+
+    import torch
+
+    from ..models import ExecConfig, spmd
+    from ..models.model import LM
+    from . import specs as S
+
+    mesh = meta_mesh(False, mesh_shape)
+    meta = torch.device("meta")
+    ec = dataclasses.replace(exec_cfg or ExecConfig(), remat=False,
+                             mesh=mesh)
+    opt = _opt_cfg(cfg)
+
+    def saved(n_units, batch) -> int:
+        mp = spmd.place_model(LM(cfg, None, meta, n_units), mesh,
+                              trainable=True)
+        step = spmd.make_train_step(cfg, opt, ec,
+                                    positions=[mp.layout.positions[0]])
+        state = spmd.adamw_init(mp, opt)
+        sh = dataclasses.replace(shape, global_batch=batch)
+        inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=meta)
+                  for k, v in S.batch_struct(cfg, sh).items()}
+        seen = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            step(mp, state, inputs)
+        return sum(seen.values())
+
+    B = shape.global_batch
+    return ((saved(2, 2 * B) - saved(1, 2 * B))
+            - (saved(2, B) - saved(1, B)))
 
 
 #: aten ops that move no data of their own (views, metadata, allocation)

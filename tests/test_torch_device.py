@@ -234,6 +234,38 @@ def test_smoke_library_call_computes_j3d27pt(dt):
     assert smoke.library_call(get_case("poisson", 10), env) is None
 
 
+@pytest.mark.parametrize("how", ["conv1d", "mv"])
+@pytest.mark.parametrize("S,C", [(64, 12), (200, 40)])
+def test_smoke_tap_adjoint_library_call_computes_the_taps(S, C, how):
+    """The smoke run's tap-adjoint yardsticks (one conv1d of ``sx`` with
+    the output gradient as a single filter, or one matrix-vector product
+    over ``sx``'s shifted rows, then 3-wide sums of the lags) give the
+    mixer's tap gradients: each ``"torch"`` adjoint plan's products
+    summed, at float32 within ``plan``."""
+    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+
+    smoke = _chip_smoke()
+    R = 2
+    g = torch.Generator().manual_seed(S)
+    env = smooth_env(torch.randn((2, S, C // 2), generator=g),
+                     torch.randn(R + 1, generator=g), R)
+    gy = {"sy": torch.randn(env["sy"].shape, generator=g)}
+    res = _smooth_result(S, C, R)
+    want, adj = [], None
+    for spec in adjoint_build(res.program).specs:
+        if spec.input.startswith("sw"):
+            adj = assemble_adjoint_env(spec, env, gy)
+            ex = repro_torch.compile_plan(spec.result().plan, adj, "torch")
+            want.append((int(spec.input[2:]), ex(adj)[spec.gu].sum()))
+    assert [d for d, _ in sorted(want)] == list(range(R + 1))
+    got = smoke.tap_adjoint_library_call(adj, R, torch, how)()
+    assert got.shape == (R + 1,) and got.dtype == torch.float32
+    assert rel_err({"sw": got}, {"sw": torch.stack(
+        [v for _, v in sorted(want)])}) <= default_tolerances(
+            np.float32)["plan"]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

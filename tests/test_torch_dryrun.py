@@ -261,23 +261,33 @@ def test_moe_train_flops_match_the_splits_closed_form(tmp_path):
 
 def test_activation_term_of_the_pod_train_cell_by_hand():
     """qwen2-7b ``train_4k`` (256 x 4,096 tokens) on the 16x16 pod: 16 rows
-    of B_r = 16, t = 65,536 tokens a row, M = 16, D = 3,584, 28 layers,
-    one head a member.  Each unit's saved input is 28 t D 2 B = 13.15 GB a
-    device replicated, 0.82 GB sequence-split; the layer's working set is
-    Korthikanti's ``t (10 D + 24 D / M + 5 H S)`` = 4.04 GB replicated and
-    ``t (34 D / M + 5 H S)`` = 1.84 GB split; two float32 logit chunks of
-    512 tokens over the member's 9,504 vocab columns either way."""
+    of B_r = 16, t = 65,536 tokens a row, M = 16, D = 3,584, 28 layers.
+    Each unit's saved input is 28 t D 2 B = 13.15 GB a device replicated,
+    0.82 GB sequence-split.  The layer's working set is what one unit saves
+    for backward (``unit_parts``, fitted to ``measured_unit_bytes``): per
+    norm (two) its float32 input, output and rstd over the member's
+    t / 16 = 4,096 tokens sequence-split (the row's t replicated), 8 D + 4
+    bytes a token, and its bf16 normed input over the row's t, gathered,
+    2 D; attention at the member's 2 query heads (7 a KV group split over
+    4 members) and 1 KV head of d_head 128: q, out, k and v at bf16,
+    4 (2 + 1) 128, and the float32 log-sum-exp, 4 x 2; the MLP's seven
+    bf16 (t, 1,184) tensors, 14 x 1,184 (18,944 / 16).  Flash attention
+    saves no S x S scores, so Korthikanti's 5 H S term is gone.  That is
+    2.36 GB split and 5.89 GB replicated (Korthikanti's formula gave 1.84
+    and 4.04).  Two float32 logit chunks of 512 tokens over the member's
+    9,504 vocab columns either way."""
     from repro_torch.models import SHAPES, ExecConfig
 
     cfg, shape = get_config("qwen2_7b"), SHAPES["train_4k"]
     mesh = dryrun.meta_mesh(False)
     t, D = 16 * 4096, 3584
     logits = 2 * 16 * 512 * 9504 * 4
+    rest = 4 * 3 * 128 + 4 * 2 + 14 * 1184
     want = {True: {"saved": 28 * t * D * 2 / 16,
-                   "layer": t * (34 * D / 16 + 5 * 4096),
+                   "layer": t * (2 * ((8 * D + 4) / 16 + 2 * D) + rest),
                    "logits": logits},
             False: {"saved": 28 * t * D * 2,
-                    "layer": t * (10 * D + 24 * D / 16 + 5 * 4096),
+                    "layer": t * (2 * (8 * D + 4 + 2 * D) + rest),
                     "logits": logits}}
     for seq, parts in want.items():
         got = dryrun.activation_parts(cfg, shape, mesh,
@@ -288,8 +298,8 @@ def test_activation_term_of_the_pod_train_cell_by_hand():
             pytest.approx(sum(parts.values()), rel=1e-12)
     assert round(want[False]["saved"] / 1e9, 2) == 13.15
     assert round(want[True]["saved"] / 1e9, 2) == 0.82
-    assert round(want[False]["layer"] / 1e9, 2) == 4.04
-    assert round(want[True]["layer"] / 1e9, 2) == 1.84
+    assert round(want[False]["layer"] / 1e9, 2) == 5.89
+    assert round(want[True]["layer"] / 1e9, 2) == 2.36
     # the default is the reference's (seq_parallel on); a recurrent family
     # keeps its stream whole
     assert dryrun.activation_parts(cfg, shape, mesh) == pytest.approx(
@@ -297,6 +307,53 @@ def test_activation_term_of_the_pod_train_cell_by_hand():
     ssm = get_config("falcon_mamba_7b")
     assert dryrun.activation_parts(ssm, shape, mesh)["saved"] == \
         ssm.num_layers * t * ssm.d_model * 2
+
+
+#: one architecture per family of the activation term, and two reduced
+#: shapes that differ in S and in D (B = 4 on the 2x2 meta mesh: B_r = 2,
+#: M = 2)
+FAMILIES = {"dense": "qwen2_7b", "moe": "deepseek_moe_16b",
+            "ssm": "falcon_mamba_7b", "hybrid": "recurrentgemma_9b"}
+UNIT_SHAPES = [(40, 96), (64, 128)]
+#: the parts a family's unit adds to ``layer``
+OWN_PARTS = {"moe": {"moe_buffers"}, "ssm": {"scan"}, "hybrid": {"scan"}}
+
+
+@pytest.mark.parametrize("S,D", UNIT_SHAPES)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_unit_term_is_what_one_unit_saves_for_backward(family, S, D):
+    """The train term's unit parts (``layer`` and the family's own) lie
+    within 15% of what one reduced unit saves for backward, measured under
+    ``saved_tensors_hooks`` with remat off (``measured_unit_bytes``)."""
+    from repro_torch.models import ExecConfig
+    from repro_torch.models.spmd import seq_layout
+
+    cfg = dataclasses.replace(get_config(FAMILIES[family]).reduced(),
+                              d_model=D)
+    shape = ShapeSpec("unit_t", S, 4, "train")
+    got = dryrun.measured_unit_bytes(cfg, shape, (2, 2))
+    ec = ExecConfig()
+    parts = dryrun.unit_parts(cfg, 2, S, 2, 2, seq_layout(cfg, ec, 2, S),
+                              ec)
+    assert set(parts) == {"layer"} | OWN_PARTS.get(family, set())
+    assert sum(parts.values()) == pytest.approx(got, rel=0.15)
+    full = dryrun.activation_parts(cfg, shape, dryrun.meta_mesh(False,
+                                                                (2, 2)))
+    assert {k: full[k] for k in parts} == parts
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_pod_train_records_list_the_familys_parts(family):
+    """At ``train_4k`` on the pod each family's record names its own
+    terms: a MoE's routing and buffers, a recurrent family's scan."""
+    from repro_torch.models import SHAPES
+
+    parts = dryrun.activation_parts(get_config(FAMILIES[family]),
+                                    SHAPES["train_4k"],
+                                    dryrun.meta_mesh(False))
+    assert set(parts) == ({"saved", "layer", "logits"}
+                          | OWN_PARTS.get(family, set()))
+    assert all(v > 0 for v in parts.values())
 
 
 def test_records_carry_the_layouts_activation_parts(records):

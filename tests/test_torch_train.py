@@ -242,6 +242,35 @@ def test_chunked_ce_loss_matches_reference(masked, chunk, unroll):
     assert _rel(dh.numpy(), gh) <= 1e-5 and _rel(dw.numpy(), gw) <= 1e-5
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("chunk", [4, 12])
+def test_chunked_ce_loss_at_bfloat16_logits_matches_reference(masked, chunk):
+    """``logits_dtype="bfloat16"``: each chunk's logits rounded to bfloat16
+    (the reference's ``preferred_element_type``), the reductions in
+    float32.  The loss within 5e-7 of the reference's, relative (the
+    sums' order); the gradients within 8e-3 of the largest, two units in
+    the last place of bfloat16 (2 x 2^-8): both round each logit's
+    cotangent to bfloat16, and a logit within rounding of a tie may round
+    the other way."""
+    rng = np.random.default_rng(1)
+    h = rng.standard_normal((2, 12, 16)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((16, 40))).astype(np.float32)
+    labels = rng.integers(0, 40, (2, 12)).astype(np.int32)
+    mask = (rng.random((2, 12)) < 0.7).astype(np.float32) if masked else None
+    rec = R.ExecConfig(loss_chunk=chunk, logits_dtype="bfloat16")
+    pec = P.ExecConfig(loss_chunk=chunk, logits_dtype="bfloat16")
+    rm = None if mask is None else jnp.asarray(mask)
+    want, (gh, gw) = jax.value_and_grad(
+        lambda h, w: ref_ce(h, w, jnp.asarray(labels), rec, mask=rm),
+        argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+    th, tw = (torch.from_numpy(a).requires_grad_() for a in (h, w))
+    got = chunked_ce_loss(th, tw, labels, pec, mask=mask)
+    dh, dw = torch.autograd.grad(got, (th, tw))
+    assert got.dtype == dh.dtype == dw.dtype == torch.float32
+    assert _rel(got.item(), float(want)) <= 5e-7
+    assert _rel(dh.numpy(), gh) <= 8e-3 and _rel(dw.numpy(), gw) <= 8e-3
+
+
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
