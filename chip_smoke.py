@@ -90,7 +90,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      batched kernel, a loop of B ``run`` calls, the ``"torch"`` batched
      evaluator and (j3d27pt) ``F.conv3d`` with N = B are timed (CUDA
      events, median of 10 after a warm-up) beside the bytes bound, and
-     each schedule is printed.  Then ``torch.autograd.grad`` through
+     each schedule is printed; the chooser's geometry for the batch is
+     timed in turns against the long segments' (:func:`long_blocks`) or,
+     where it is that, against the one it gives a single example
+     (:func:`geometry_turns`).  Then ``torch.autograd.grad`` through
      ``run_batch`` for j3d27pt_b8: each adjoint spec's kernel launches
      once for the batch, each example's gradient is held against ``run``'s
      within ``grad``, and the batched backward, a loop of B backwards and
@@ -153,7 +156,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      runtime resolves for it, split into host stack, host-to-device copy,
      K1 (CUDA events), device-to-host copy and fan-out, held against its
      plain version within ``plan``, and its K1 timed beside that plain
-     version, the library call and the bound.  Last, fresh
+     version, the library call and the bound, and its geometry at 8 and
+     32 examples in turns as in phase 9.  Last, fresh
      processes run ``python -m repro_torch.serve.warm`` on phase 12's
      store under ``PYTHONHASHSEED=4`` (a seed under which the reference
      derives another j3d27pt plan, ROADMAP F7; every record warmed, none
@@ -277,10 +281,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``mesh:parity``: phase 15's parity model and both recurrent
      families (float32, full width, :data:`MESH_PARITY_UNITS` layer
      units) on the mesh, decode against prefill within 1e-3.  K1 against
-     ``F.conv1d`` at mesh positions' mixer shapes, timed in turns
-     (:data:`MIXER_CONV_CHANNELS`), the tap adjoints also at the
-     full-width mixer.  The ``launch.train --mesh ... --devices`` CLI on
-     the reduced config with the mixer; one ``launch.dryrun`` record
+     ``F.conv1d`` and ``torch.mv`` at mesh positions' mixer shapes
+     (:data:`MIXER_CONV_CHANNELS`) and the full-width mixer, the forward,
+     the ``sx`` adjoint and the summed tap adjoints, each also at long
+     segments (:func:`long_blocks`), every geometry printed, timed in
+     turns one call at a time and queued behind a spin
+     (:func:`mixer_vs_conv1d`).  The ``launch.train --mesh ...
+     --devices`` CLI on the reduced config with the mixer; one
+     ``launch.dryrun`` record
      (qwen2_7b x train_4k on the 16x16 pod, meta devices).  Its mixers'
      K1 sources are built in phase 2.  Every mesh step runs the
      sequence-parallel residual (the default: a member holds its S / M
@@ -311,6 +319,16 @@ times the stencil kernel instead at forced plane tiles (and, for the 2-D
 cell, segment lengths) on the full-size cells of
 phase 4, each checked against ``"torch"`` first: the sweep the tile chooser
 (``lowering/blocks.py``) is set from.
+
+    python3 chip_smoke.py --mixer-sweep
+
+times K1 instead on the LM mixer (the forward, the ``sx`` adjoint and the
+summed ``sw0`` adjoint at ``sx`` 516 x 2,048, 3,584 and 14,336) at every
+(segment, plane width) of :data:`MIXER_SWEEP_SEGMENTS` x
+:data:`MIXER_SWEEP_WIDTHS` and at the chooser's own, each checked against
+``"torch"`` first, one call at a time and queued, beside ``F.conv1d`` /
+``torch.mv``: the sweep the chooser's short-stream segments
+(``SHORT_SEGMENT``) are set from.
 
     python3 chip_smoke.py --lm
 
@@ -401,6 +419,17 @@ TILE_SWEEP = {
     "hdifft_gm": [(256, 0, 0), (512, 0, 0), (1024, 0, 0), (2048, 0, 0),
                   (1024, 0, 32)],
 }
+#: ``--mixer-sweep``: K1 on the mixer's forward, ``sx`` adjoint and summed
+#: ``sw0`` adjoint at every (segment, plane width) of these, plus the
+#: chooser's own, at ``sx`` 516 x each of MIXER_CONV_CHANNELS and the
+#: full-width mixer's channels
+MIXER_SWEEP_SEGMENTS = (2, 3, 4, 5, 6, 8, 16, 32)
+MIXER_SWEEP_WIDTHS = (32, 64, 128, 256, 1024)
+#: rounds of (other, new, new, other) turns of :func:`geometry_turns`
+GEOMETRY_ROUNDS = 3
+#: calls enqueued back to back behind a spin kernel per queued timing
+#: (:func:`_queued_ms`)
+QUEUE_CALLS = 50
 #: ``--tf32-sweep``: (FLUSH, STAGES) of the 3xTF32 kernel; a FLUSH past the
 #: 224 slabs of D = 3584 flushes once, at each tile's end
 TF32_SWEEP = [(8, 4), (16, 4), (32, 4), (1 << 20, 4), (8, 3), (8, 5)]
@@ -540,6 +569,145 @@ def _time_ms(fn, torch, reps: int = 0) -> float:
     return statistics.median(times)
 
 
+def _queued_ms(fn, torch) -> tuple:
+    """``(ms, ahead)``: the card's time per call of QUEUE_CALLS calls
+    enqueued back to back behind ``torch.cuda._sleep``,
+    timed with CUDA events around them.  The spin is sized from the host's
+    enqueue time of one call so the host is ahead when the card starts:
+    ``ahead`` says the start event had not completed once every call was
+    enqueued.  Unlike :func:`_time_ms`, the host's time per call is not in
+    the figure."""
+    calls = QUEUE_CALLS
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * max(host_s, 2e-5) * (calls + 2)))
+    start.record()
+    for _ in range(calls):
+        fn()
+    ahead = not start.query()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, ahead
+
+
+def tile_blocks(tile: tuple):
+    """The ``(block_rows, block_cols, block_inner)`` overrides that name
+    every level of ``tile``, or None where they cannot (levels 2..m-1 of
+    unequal width)."""
+    if len(set(tile[1:-1])) > 1:
+        return None
+    if len(tile) == 1:
+        return (0, 0, tile[0])
+    return (tile[0], tile[1] if len(tile) > 2 else 0, tile[-1])
+
+
+def long_blocks(geo):
+    """The overrides (:func:`tile_blocks`) that give ``geo``'s plane tile
+    with long segments: never under ``SEG_PER_WARMUP`` warm-ups, the
+    chooser's rule for a grid that is not short, so that a short grid's
+    geometry can be timed in turns against it; None where ``geo``'s
+    segment is that one."""
+    from repro_torch.lowering.blocks import SEG_PER_WARMUP, TARGET_BLOCKS
+
+    s = geo.s_level
+    if not s:
+        return None
+    extent = geo.extents[s - 1]
+    want = -(-TARGET_BLOCKS // (geo.n_tiles // geo.nb[s - 1]))
+    n_seg = max(1, min(want, extent // max(1, SEG_PER_WARMUP * -geo.k0)))
+    tile = list(geo.tile)
+    tile[s - 1] = -(-extent // n_seg)
+    return None if tile[s - 1] == geo.seg else tile_blocks(tuple(tile))
+
+
+def other_geometry(spec, batch: int) -> tuple:
+    """``(name, overrides)`` of the geometry :func:`geometry_turns` times
+    the chooser's for a launch of ``batch`` examples against: long
+    segments' (:func:`long_blocks`) or, where the chooser's are those (a
+    batch that fills the grid), the one the chooser gives one example;
+    overrides None where both are the chooser's."""
+    geo = spec.program(batch).geometry
+    blocks = long_blocks(geo)
+    if blocks is None and spec.tp.geometry != geo:
+        return "one example's", tile_blocks(spec.tp.geometry.tile)
+    return "long segments'", blocks
+
+
+def geometry_sources(plan, shapes, dname: str, batch: int) -> list:
+    """The sources a launch of ``batch`` examples and its
+    :func:`geometry_turns` run: the chooser's for one example and for the
+    batch, and the other geometry's."""
+    from repro_torch.lowering.emit import specialize_stencil
+
+    dtypes = {k: dname for k in shapes}
+    spec = specialize_stencil(plan, shapes, dtypes)
+    blocks = other_geometry(spec, batch)[1]
+    return [spec.source, spec.source_for(batch)] + (
+        [] if blocks is None else
+        [specialize_stencil(plan, shapes, dtypes, *blocks).source])
+
+
+def geometry_turns(label, plan, sig, batch: int, run, want, tol,
+                   torch) -> None:
+    """The chooser's geometry of ``plan`` for a launch of ``batch``
+    examples against long segments' (:func:`long_blocks`) or, where the
+    chooser's are those (a batch that fills the grid), against the
+    geometry the chooser gives one example, on ``run(executor)``,
+    all on K1: checked against ``want`` within ``tol``, then timed in
+    turns (other, new, new, other per round, GEOMETRY_ROUNDS rounds, each
+    turn :func:`_time_ms`); prints both geometries, the median of each
+    side's turns and every turn."""
+    from repro_torch import compile_plan
+    from repro_torch.testing import rel_err
+
+    new = compile_plan(plan, sig, "hopper", device=DEVICE)
+    geo = new.spec.program(batch).geometry
+    other, blocks = other_geometry(new.spec, batch)
+    if blocks is None:
+        print(f"geometry {label}: long segments, as before "
+              f"({geometry_text(geo)})",
+              flush=True)
+        return
+    old = compile_plan(plan, sig, "hopper", device=DEVICE,
+                       block_rows=blocks[0], block_cols=blocks[1],
+                       block_inner=blocks[2])
+    errs = [rel_err(run(ex), want) for ex in (old, new)]
+    torch.cuda.synchronize()
+    if max(errs) > tol:
+        raise SystemExit(f"geometry {label}: K1 at the {other} or the new "
+                         f"geometry is {max(errs):.2e} off")
+    turns = {other: [], "new": []}
+    for _ in range(GEOMETRY_ROUNDS):
+        for side in (other, "new", "new", other):
+            ex = old if side == other else new
+            turns[side].append(_time_ms(lambda: run(ex), torch))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"geometry {label} on {_nvidia_smi()}: new "
+          f"({geometry_text(geo)}) {med['new']:.4f} ms, {other} "
+          f"({geometry_text(old.spec.program(batch).geometry)}) "
+          f"{med[other]:.4f} ms, new / {other} "
+          f"{med['new'] / med[other]:.3f}; turns new "
+          f"{[round(t, 4) for t in turns['new']]}, {other} "
+          f"{[round(t, 4) for t in turns[other]]}; vs want "
+          f"{errs[1]:.2e} / {errs[0]:.2e}", flush=True)
+
+
+def geometry_text(geo) -> str:
+    """Blocks, plane tile, segment, threads and prefetch depth of a
+    geometry (the kernel keeps one plane in flight: ``cp.async`` for step
+    k + 1 is issued at step k)."""
+    return (f"blocks {geo.n_tiles}, plane {geo.plane_points} "
+            f"{tuple(geo.tile[l - 1] for l in geo.order)}, segment "
+            f"{geo.seg} (warm-up {-geo.k0}), threads {geo.threads}, "
+            f"prefetch 1 plane")
+
+
 def library_call(case, env):
     """One PyTorch call that computes the case's outputs from ``env``, as a
     thunk, or None where no single call does.
@@ -579,17 +747,18 @@ def library_call(case, env):
     return lambda: {"j27": F.conv3d(x, w)[0, 0]}
 
 
-def plan_work(plan, env, itemsize: int) -> tuple:
+def plan_work(plan, env, itemsize: int, summed: bool = False) -> tuple:
     """``(bytes, operations)`` one run of ``plan`` must do: every kernel
-    operand read once, every output written once; every body and aux
-    operation once per point of its box."""
+    operand read once, every output written once (``summed``: one value
+    per output, a scalar's adjoint); every body and aux operation once per
+    point of its box."""
     from repro_torch.core.ir import count_ops
     from repro_torch.lowering.geometry import kernel_analysis
 
     arrays = kernel_analysis(plan).arrays
     n_in = sum(env[k].numel() for k in arrays) * itemsize
     vol = plan.program.volume()
-    n_out = vol * len(plan.body) * itemsize
+    n_out = (1 if summed else vol) * len(plan.body) * itemsize
     ops = sum(sum(count_ops(st.rhs).values()) for st in plan.body) * vol
     for a in plan.aux_order:
         avol = 1
@@ -615,9 +784,11 @@ def cos_weights(outs: dict, torch) -> dict:
             .reshape(v.shape) for k, v in outs.items()}
 
 
-def adjoint_sources(case, res, dt) -> list:
+def adjoint_sources(case, res, dt, batch: int = 1) -> list:
     """Kernel sources of the case's adjoint plans that ``"auto"`` sends to
-    the kernel at the case's full shapes, built ahead of the backward."""
+    the kernel at the case's full shapes, built ahead of the backward (a
+    scalar's: the summed kernel, which the backward runs), for launches of
+    ``batch`` examples."""
     import numpy as np
 
     from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
@@ -632,9 +803,18 @@ def adjoint_sources(case, res, dt) -> list:
         plan = spec.result().plan
         adj = adjoint_env_shapes(spec, case.program, shapes)
         if select_backend(plan, "auto", [dname]).backend == "hopper":
-            out.append(specialize_stencil(
-                plan, adj, {k: dname for k in adj}).source)
+            sp = specialize_stencil(plan, adj, {k: dname for k in adj})
+            out.append(sp.source_for(batch, spec.scalar))
     return out
+
+
+def adjoint_call(spec, ex, a, batched: bool = False):
+    """A thunk of the call the backward makes of one adjoint plan's
+    executor: a scalar's :meth:`run_sum` (on K1 the summed kernel's
+    partials), else ``run`` / ``run_batch``."""
+    if spec.scalar:
+        return lambda: ex.run_sum(a, batched)
+    return (lambda: ex.run_batch(a)) if batched else (lambda: ex(a))
 
 
 def adjoint_executors(program, env, g) -> list:
@@ -765,12 +945,12 @@ def grad_full_size(case, dt, res, torch) -> dict:
     itemsize = ITEMSIZE[dname]
     per_spec = []
     for spec, a, ex in kern:
-        ms = _time_ms(lambda: ex(a), torch)
+        ms = _time_ms(adjoint_call(spec, ex, a), torch)
         kernel_ms += ms
         per_spec.append(f"{spec.input} {ms:.4f}")
         ex_t = compile_plan(spec.result().plan, a, "torch")
         torch_ms += _time_ms(lambda: ex_t(a), torch)
-        b, o = plan_work(spec.result().plan, a, itemsize)
+        b, o = plan_work(spec.result().plan, a, itemsize, spec.scalar)
         nbytes, ops = nbytes + b, ops + o
     bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
     on_torch = [f"{spec.input}[{','.join(r.code for r in ex.selection.capability.reasons)}]"
@@ -1184,6 +1364,8 @@ def batch_main(label, case, dt, B, res, torch) -> dict:
         if e_lib > lib_tol:
             raise SystemExit(f"{label}: library call vs hopper {e_lib:.2e} "
                              f"> {lib_tol:.0e}")
+    geometry_turns(f"batch {label} B={B}", res.plan, sig, B,
+                   lambda e: e.run_batch(stacked), got, tol, torch)
     del got
     kernel_ms = _time_ms(lambda: ex.run_batch(stacked), torch)
     loop_ms = _time_ms(lambda: [ex(env) for env in examples], torch)
@@ -1278,16 +1460,21 @@ def batch_grad(label, case, dt, B, res, torch) -> dict:
     max_abs = 0.0
     itemsize = np.dtype(dt).itemsize
     for spec, a, ex in adj:
-        kernel_ms += _time_ms(lambda: ex.run_batch(a), torch)
+        kernel_ms += _time_ms(adjoint_call(spec, ex, a, True), torch)
         ex_t = compile_plan(spec.result().plan, stacked_signature(a),
                             "torch", device=DEVICE)
         torch_ms += _time_ms(lambda: ex_t.run_batch(a), torch)
-        k_out, t_out = ex.run_batch(a), ex_t.run_batch(a)
+        k_out = adjoint_call(spec, ex, a, True)()
+        t_out = ex_t.run_batch(a)
+        if spec.scalar:  # each example's sum: of the partials, the box
+            k_out, t_out = ({k: v.double().flatten(1).sum(1)
+                             for k, v in o.items()} for o in (k_out, t_out))
         max_abs = max(max_abs, max(float((k_out[k].double()
                                           - t_out[k].double()).abs().max())
                                    for k in t_out))
         b_, o_ = plan_work(spec.result().plan,
-                           {k: v[0] for k, v in a.items()}, itemsize)
+                           {k: v[0] for k, v in a.items()}, itemsize,
+                           spec.scalar)
         nbytes, ops = nbytes + b_ * B, ops + o_ * B
     bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
     print(f"batch-grad {label} {dname} B={B}: adjoint specs {len(adj)}, all "
@@ -1551,6 +1738,94 @@ def tile_sweep(torch) -> None:
         torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"tile sweep: {failures} runs disagree with torch")
+
+
+def mixer_sweep(torch) -> None:
+    """``--mixer-sweep``: K1 on the mixer at ``sx`` 516 x C for C in
+    MIXER_CONV_CHANNELS and the full width (the forward, the ``sx``
+    adjoint and ``sw0``'s summed adjoint) at every (segment, plane width)
+    of MIXER_SWEEP_SEGMENTS x MIXER_SWEEP_WIDTHS and at the chooser's own
+    geometry: each checked against ``"torch"`` (``sw0``: its sum, within
+    ``plan`` of ``sum |g b|``), then timed one call at a time
+    (:func:`_time_ms`) and queued (:func:`_queued_ms`), beside
+    ``F.conv1d`` / ``torch.mv`` queued the same way."""
+    from repro_torch import compile_plan
+    from repro_torch.configs import get_config
+    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
+    from repro_torch.kernels.build import compile_sources
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances, rel_err
+
+    g = torch.Generator(DEVICE).manual_seed(5)
+    taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
+    full = _train_arg("--batch") * get_config(LM_ARCH).d_model
+    configs = [(0, 0)] + [(seg, w) for seg in MIXER_SWEEP_SEGMENTS
+                          for w in MIXER_SWEEP_WIDTHS]
+    cells = []  # (C, kind, plan, env, [(config, spec)], library thunk)
+    for C in MIXER_CONV_CHANNELS + (full,):
+        res = _smooth_result(LM_PROMPT, C, LM_RADIUS)
+        x = torch.randn((2, LM_PROMPT, C // 2), generator=g, device=DEVICE,
+                        dtype=torch.bfloat16)
+        env = smooth_env(x, taps, LM_RADIUS)
+        gy = {"sy": torch.randn(env["sy"].shape, generator=g,
+                                device=DEVICE)}
+        specs = {s.input: s for s in adjoint_build(res.program).specs}
+        runs = [("forward", res.plan, env,
+                 mixer_library_call(env, LM_RADIUS, torch))]
+        for name in ("sx", "sw0"):
+            a = assemble_adjoint_env(specs[name], env, gy)
+            lib = (sx_adjoint_library_call(a, LM_RADIUS, torch)
+                   if name == "sx" else
+                   tap_adjoint_library_call(a, LM_RADIUS, torch, "mv"))
+            runs.append((name, specs[name].result().plan, a, lib))
+        for kind, plan, e, lib in runs:
+            shapes = {k: tuple(v.shape) for k, v in e.items()}
+            dtypes = {k: "float32" for k in e}
+            cells.append((C, kind, plan, e, [
+                (cfg, specialize_stencil(plan, shapes, dtypes, cfg[0], 0,
+                                         cfg[1])) for cfg in configs], lib))
+    t0 = time.time()
+    compile_sources([sp.source_for(1, kind == "sw0")
+                     for _, kind, _, _, specs, _ in cells
+                     for _, sp in specs])
+    print(f"mixer-sweep build: {sum(len(c[4]) for c in cells)} sources in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    tol = default_tolerances("float32")["plan"]
+    failures = 0
+    for C, kind, plan, e, specs, lib in cells:
+        want = compile_plan(plan, e, "torch")(e)
+        lib_ms = _time_ms(lib, torch)
+        lib_q, ahead = _queued_ms(lib, torch)
+        print(f"mixer-sweep C={C} {kind}: library "
+              f"{'mv' if kind == 'sw0' else 'conv1d'} {lib_ms:.4f} ms a "
+              f"call, queued {lib_q:.4f} (ahead {ahead})", flush=True)
+        for cfg, sp in specs:
+            if kind == "sw0":
+                (gu,) = want
+                fn = (lambda sp=sp, e=e: sp.apply_sum(e))
+                got = float(fn()[gu].double().sum())
+                scale = float(want[gu].double().abs().sum())
+                err = abs(got - float(want[gu].double().sum())) / scale
+            else:
+                fn = (lambda sp=sp, e=e: sp(e))
+                err = rel_err(fn(), want)
+            torch.cuda.synchronize()
+            ms = _time_ms(fn, torch)
+            q, ahead = _queued_ms(fn, torch)
+            geo = sp.tp.geometry
+            ok = err <= tol
+            failures += not ok
+            name = "chooser" if cfg == (0, 0) else cfg
+            print(f"mixer-sweep C={C} {kind} {name}: segment {geo.seg}, "
+                  f"plane {geo.plane_points}, blocks "
+                  f"{geo.n_tiles}, threads {geo.threads}, k0 {geo.k0}, "
+                  f"{ms:.4f} ms a call, queued {q:.4f} (ahead {ahead}), "
+                  f"err {err:.2e} {'ok' if ok else 'FAIL'}", flush=True)
+        del want
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"mixer sweep: {failures} runs disagree with torch")
 
 
 def tf32_sweep(torch) -> None:
@@ -2172,6 +2447,12 @@ def batch_split(label, case, dt, res, pool, torch) -> dict:
     e_plan = rel_err(got, plain)
     max_abs = max(float((got[k].double() - plain[k].double()).abs().max())
                   for k in plain)
+    for b in SERVE_MAX_BATCH:  # the runtime's batch limits
+        part = {k: v[:b] for k, v in dev.items()}
+        geometry_turns(f"serve:{label} B={b}", res.plan, sig, b,
+                       lambda e: e.run_batch(part),
+                       {k: v[:b] for k, v in got.items()},
+                       default_tolerances(dt)["plan"], torch)
     del got, plain
     lib = library_call(case, dev)
     ms = _time_ms(lambda: ex.run_batch(dev), torch)
@@ -2731,15 +3012,17 @@ def tap_adjoint_library_call(adj_env, radius: int, torch,
 def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
     """The tap specs ``sw`` (``(spec, adjoint env, executor)`` of
     ``sw0..sw<R>``) on K1 against :func:`tap_adjoint_library_call` on the
-    same inputs.  K1 writes each tap's products ``g b`` (S, C), which the
-    backward sums; here they are summed in float64.  A tap is a sum of
-    S C terms of both signs, so float32 sums in any order differ from each
-    other by their rounding times ``sum |g b|``, which exceeds the tap
-    itself by ~2e3 at these shapes: the gate is ``plan`` (float32) of
-    ``sum |g b|``, and the error relative to the largest tap is printed
-    beside it.  Returns (the library call, the three K1 launches, the
-    launches and their sums as the backward makes them); the ``torch.mv``
-    form is held the same way and printed, and returned as a fourth."""
+    same inputs.  K1 runs each tap as the backward does (``run_sum``: the
+    summed kernel's partials, one per block), summed here in float64.  A
+    tap is a sum of S C terms of both signs, so float32 sums in any order
+    differ from each other by their rounding times ``sum |g b|`` (from the
+    ``"torch"`` plan's products), which exceeds the tap itself by ~2e3 at
+    these shapes: the gate is ``plan`` (float32) of ``sum |g b|``, and the
+    error relative to the largest tap is printed beside it.  Returns (the
+    library call, the three K1 launches, the launches and their sums as the
+    backward makes them); the ``torch.mv`` form is held the same way and
+    printed, and returned as a fourth."""
+    from repro_torch import compile_plan
     from repro_torch.testing import default_tolerances
 
     sw = sorted(sw, key=lambda t: int(t[0].input[2:]))
@@ -2748,14 +3031,19 @@ def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
     mv = tap_adjoint_library_call(sw[0][1], radius, torch, "mv")
     got, got_mv = lib().double(), mv().double()
     before = [e.kernel_launches for _, _, e in sw]
-    outs = [e(a)[spec.gu].double() for spec, a, e in sw]
+    parts = [e.run_sum(a)[spec.gu] for spec, a, e in sw]
     torch.cuda.synchronize()
     if [e.kernel_launches - n for (_, _, e), n in zip(sw, before)] != [1] * (
             radius + 1) or any(e.backend != "hopper" for _, _, e in sw):
         raise SystemExit(f"{label}: a tap adjoint is off K1 or did not "
                          f"launch")
-    k1 = torch.stack([o.sum() for o in outs])
-    scale = max(float(o.abs().sum()) for o in outs)
+    n_tiles = sw[0][2].spec.tp.geometry.n_tiles
+    if any(tuple(p.shape) != (n_tiles,) for p in parts):
+        raise SystemExit(f"{label}: the tap adjoints' partials are not one "
+                         f"per block ({n_tiles})")
+    k1 = torch.stack([p.double().sum() for p in parts])
+    scale = max(float(compile_plan(spec.result().plan, a, "torch")(a)[
+        spec.gu].double().abs().sum()) for spec, a, _ in sw)
     diff = float((got - k1).abs().max())
     diff_mv = float((got_mv - k1).abs().max())
     tol = default_tolerances("float32")["plan"]
@@ -2763,8 +3051,8 @@ def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
         return [float(f"{x:.6e}") for x in v]
 
     print(f"{label} tap adjoints sw0..sw{radius} sx "
-          f"{tuple(sw[0][1]['sx'].shape)}: K1 {fmt(k1)}, conv1d "
-          f"{fmt(got)}; |diff| {diff:.3e} "
+          f"{tuple(sw[0][1]['sx'].shape)}: K1 ({n_tiles} partials each) "
+          f"{fmt(k1)}, conv1d {fmt(got)}; |diff| {diff:.3e} "
           f"= {diff / scale:.2e} of sum |g b| {scale:.4e} (<= {tol:.0e}), "
           f"{diff / float(k1.abs().max()):.2e} of the largest tap; mv "
           f"{fmt(got_mv)}, |diff| {diff_mv:.3e} = {diff_mv / scale:.2e}",
@@ -2772,14 +3060,14 @@ def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
     if not max(diff, diff_mv) <= tol * scale:
         raise SystemExit(f"{label}: conv1d or mv and K1 disagree on the "
                          f"tap adjoints")
-    del outs
+    del parts
 
     def launches():
         for spec, a, e in sw:
-            e(a)
+            e.run_sum(a)
 
     def with_sums():
-        return [e(a)[spec.gu].sum() for spec, a, e in sw]
+        return [e.run_sum(a)[spec.gu].sum() for spec, a, e in sw]
 
     return lib, launches, with_sums, mv
 
@@ -3164,7 +3452,8 @@ def train_mixer_cells() -> list:
 
 def mixer_sources(S: int, C: int, adjoints: bool) -> list:
     """The K1 sources of one mixer shape (float32 streams): its forward
-    and, with ``adjoints``, every adjoint plan the probe admits."""
+    and, with ``adjoints``, every adjoint plan the probe admits (the taps':
+    the summed kernel)."""
     from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
@@ -3179,8 +3468,8 @@ def mixer_sources(S: int, C: int, adjoints: bool) -> list:
         plan = spec.result().plan
         if select_backend(plan, "auto", ["float32"]).backend == "hopper":
             adj = adjoint_env_shapes(spec, res.program, shapes)
-            out.append(specialize_stencil(plan, adj, {
-                k: "float32" for k in adj}).source)
+            sp = specialize_stencil(plan, adj, {k: "float32" for k in adj})
+            out.append(sp.source_for(1, spec.scalar))
     return out
 
 
@@ -3412,10 +3701,10 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     for (spec, a, e), n in zip(adj, adj_launches, strict=True):
         key = "" if not split_sx else " sx" if spec.input == "sx" else " sw"
         g = groups.setdefault(key, [0.0, 0.0, 0, 0, 0])
-        ms = _time_ms(lambda: e(a), torch)
+        ms = _time_ms(adjoint_call(spec, e, a), torch)
         per_spec.append(f"{spec.input} {ms:.4f}")
         e_t = compile_plan(spec.result().plan, a, "torch")
-        b_, o_ = plan_work(spec.result().plan, a, 4)
+        b_, o_ = plan_work(spec.result().plan, a, 4, spec.scalar)
         g[0] += ms
         g[1] += _time_ms(lambda: e_t(a), torch)
         g[2], g[3], g[4] = g[2] + b_, g[3] + o_, g[4] + n
@@ -4119,18 +4408,26 @@ def mesh_parity(label, cfg, torch) -> None:
 
 
 def mixer_vs_conv1d(torch) -> None:
-    """K1 against ``F.conv1d`` at mesh positions' mixer shapes (``sx``
-    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS), the forward, the ``sx``
-    adjoint (:func:`sx_adjoint_library_call`) and the tap adjoints
-    (:func:`tap_adjoint_library_call`: one conv1d for sw0..sw2 against
-    K1's three launches, alone and with the sums the backward takes of
-    them), and the tap adjoints again at the full-width mixer (phase 16's
-    one-device step: its batch x qwen2-7b's d_model channels), checked
-    first, then timed in turns: per round MIXER_CONV_CALLS calls of each,
-    shape by shape, K1 then conv1d, after a warm-up; the median of every
-    call per shape and side, and each round's."""
+    """K1 against the library calls at mesh positions' mixer shapes (``sx``
+    (LM_PROMPT + R + 2) x MIXER_CONV_CHANNELS) and at the full-width mixer
+    (phase 16's one-device step: its batch x qwen2-7b's d_model channels):
+    the forward and the ``sx`` adjoint against ``F.conv1d``
+    (:func:`mixer_library_call`, :func:`sx_adjoint_library_call`), the tap
+    adjoints (K1's three launches, alone and with the sums the backward
+    takes of them) against one ``torch.mv`` and one conv1d
+    (:func:`tap_adjoint_library_call`); each K1 side also at long
+    segments (:func:`long_blocks`: the same plane tile, segments of
+    ``SEG_PER_WARMUP`` warm-ups), the taps then writing their products for
+    the backward to sum, as before the summed kernel.  Each
+    shape's geometries are printed, every side checked first, then timed
+    in turns: per round, shape by shape and side by side,
+    MIXER_CONV_CALLS calls one at a time (CUDA events around each: the
+    host's time per call is in it) and QUEUE_CALLS queued behind a spin
+    (:func:`_queued_ms`: the card's time alone), after a warm-up; the
+    median of every call per shape and side, and each round's."""
     from repro_torch import compile_plan
     from repro_torch.configs import get_config
+    from repro_torch.kernels.build import compile_sources
     from repro_torch.models.ssm import _smooth_result, smooth_env
     from repro_torch.testing import default_tolerances, rel_err
 
@@ -4138,51 +4435,76 @@ def mixer_vs_conv1d(torch) -> None:
     g_sy = torch.Generator(DEVICE).manual_seed(6)
     taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=g, device=DEVICE)
     full = _train_arg("--batch") * get_config(LM_ARCH).d_model
-    sides = {}
+    tol = default_tolerances("float32")["baseline"]
+    cells = []  # (C, env, forward executor, adjoint triples)
     for C in MIXER_CONV_CHANNELS + (full,):
         x = torch.randn((2, LM_PROMPT, C // 2), generator=g, device=DEVICE,
                         dtype=torch.bfloat16)
         env = smooth_env(x, taps, LM_RADIUS)
         gy = {"sy": torch.randn(env["sy"].shape, generator=g_sy,
                                 device=DEVICE)}
-        adj = adjoint_executors(_smooth_result(LM_PROMPT, C, LM_RADIUS)
-                                .program, env, gy)
+        res = _smooth_result(LM_PROMPT, C, LM_RADIUS)
+        cells.append((C, env, compile_plan(res.plan, env, "hopper"),
+                      adjoint_executors(res.program, env, gy)))
+
+    def long(ex, e):
+        """The executor of ``ex``'s plan at long segments (``ex`` where
+        those are the chooser's)."""
+        blocks = long_blocks(ex.spec.tp.geometry)
+        return ex if blocks is None else compile_plan(
+            ex.plan, e, "hopper", block_rows=blocks[0], block_cols=blocks[1],
+            block_inner=blocks[2])
+
+    # the long segments' sources, all at once (the taps': the products)
+    compile_sources([long(ex, e).spec.source for _, env, fwd, adj in cells
+                     for ex, e in [(fwd, env)] + [(x, a) for _, a, x in adj]])
+    sides = {}
+    for C, env, ex, adj in cells:
+        sw = [t for t in adj if t[0].input != "sx"]
         lib, k1, k1_sums, mv = tap_adjoint_check(
-            f"mixer vs conv1d C={C}", [t for t in adj
-                                       if t[0].input != "sx"],
-            LM_RADIUS, torch)
-        sides[C] = {"K1 sw adjoints (3 launches)": k1,
-                    "K1 sw adjoints and their sums": k1_sums,
-                    "conv1d sw adjoints": lib, "mv sw adjoints": mv}
-        if C == full:
-            continue
-        ex = compile_plan(_smooth_result(LM_PROMPT, C, LM_RADIUS).plan, env,
-                          "hopper")
-        lib = mixer_library_call(env, LM_RADIUS, torch)
-        before = ex.kernel_launches
-        e = rel_err(lib(), ex(env))
-        torch.cuda.synchronize()
-        if ex.kernel_launches != before + 1 or e > default_tolerances(
-                "float32")["baseline"]:
-            raise SystemExit(f"mixer vs conv1d: K1 at sx "
-                             f"{tuple(env['sx'].shape)} did not launch or "
-                             f"disagrees with conv1d ({e:.2e})")
+            f"mixer vs conv1d C={C}", sw, LM_RADIUS, torch)
+        old_sw = [(spec, a, long(e, a)) for spec, a, e in sw]
         (adj_env, adj_ex), = [(a, e) for spec, a, e in adj
                               if spec.input == "sx"]
-        adj_lib = sx_adjoint_library_call(adj_env, LM_RADIUS, torch)
-        before = adj_ex.kernel_launches
-        e_adj = rel_err(adj_lib(), adj_ex(adj_env))
-        torch.cuda.synchronize()
-        if (adj_ex.backend != "hopper"
-                or adj_ex.kernel_launches != before + 1
-                or e_adj > default_tolerances("float32")["baseline"]):
-            raise SystemExit(f"mixer vs conv1d: K1's sx adjoint at "
-                             f"{tuple(adj_env['_g_sy'].shape)} is off K1, "
-                             f"did not launch or disagrees with conv1d "
-                             f"({e_adj:.2e})")
-        sides[C] = {"K1": lambda ex=ex, env=env: ex(env), "conv1d": lib,
-                    "K1 sx adjoint": lambda e=adj_ex, a=adj_env: e(a),
-                    "conv1d sx adjoint": adj_lib, **sides[C]}
+        lib_f = mixer_library_call(env, LM_RADIUS, torch)
+        lib_sx = sx_adjoint_library_call(adj_env, LM_RADIUS, torch)
+        old_f, old_sx = long(ex, env), long(adj_ex, adj_env)
+        for name, e, a, want in (("forward", ex, env, lib_f),
+                                 ("forward, long segments", old_f, env,
+                                  lib_f),
+                                 ("sx adjoint", adj_ex, adj_env, lib_sx),
+                                 ("sx adjoint, long segments", old_sx,
+                                  adj_env, lib_sx)):
+            before = e.kernel_launches
+            err = rel_err(want(), e(a))
+            torch.cuda.synchronize()
+            if (e.backend != "hopper" or e.kernel_launches != before + 1
+                    or err > tol):
+                raise SystemExit(f"mixer vs conv1d C={C}: K1's {name} is "
+                                 f"off K1, did not launch or disagrees "
+                                 f"with conv1d ({err:.2e})")
+        for name, e, a in (("forward", ex, env),
+                           ("sx adjoint", adj_ex, adj_env),
+                           ("sw adjoints", sw[0][2], sw[0][1])):
+            print(f"mixer geometry C={C} {name}: "
+                  f"{geometry_text(e.spec.tp.geometry)}; long segments "
+                  f"{geometry_text(long(e, a).spec.tp.geometry)}",
+                  flush=True)
+        sides[C] = {
+            "K1 forward": lambda ex=ex, env=env: ex(env),
+            "K1 forward, long segments": lambda e=old_f, a=env: e(a),
+            "conv1d forward": lib_f,
+            "K1 sx adjoint": lambda e=adj_ex, a=adj_env: e(a),
+            "K1 sx adjoint, long segments": lambda e=old_sx, a=adj_env:
+                e(a),
+            "conv1d sx adjoint": lib_sx,
+            "K1 sw adjoints (3 launches)": k1,
+            "K1 sw products (3 launches), long segments":
+                lambda t=old_sw: [e(a) for _, a, e in t],
+            "K1 sw adjoints and their sums": k1_sums,
+            "K1 sw products and their sums, long segments":
+                lambda t=old_sw: [e(a)[s.gu].sum() for s, a, e in t],
+            "mv sw adjoints": mv, "conv1d sw adjoints": lib}
     calls = {}  # a side slower than MIXER_CONV_SLOW_MS: one call a round
     for C, fns in sides.items():
         for k, fn in fns.items():
@@ -4195,6 +4517,7 @@ def mixer_vs_conv1d(torch) -> None:
                            > MIXER_CONV_SLOW_MS else MIXER_CONV_CALLS)
     times = {(C, k): [] for C in sides for k in sides[C]}
     rounds = {k: [] for k in times}
+    queued = {k: [] for k in times}
     for _ in range(MIXER_CONV_ROUNDS):
         for C, fns in sides.items():
             for k, fn in fns.items():
@@ -4209,11 +4532,17 @@ def mixer_vs_conv1d(torch) -> None:
                     ts.append(a.elapsed_time(b))
                 times[C, k] += ts
                 rounds[C, k].append(statistics.median(ts))
+                if calls[C, k] > 1:
+                    queued[C, k].append(_queued_ms(fn, torch)[0])
+    smi = _nvidia_smi()
     for (C, k), ts in times.items():
-        print(f"mixer vs conv1d on {_nvidia_smi()}: sx "
+        q = queued[C, k]
+        print(f"mixer vs conv1d on {smi}: sx "
               f"({LM_PROMPT + LM_RADIUS + 2}, {C}) {k} median "
-              f"{statistics.median(ts):.4f} ms over {len(ts)} calls; per "
-              f"round {[round(r, 4) for r in rounds[C, k]]}", flush=True)
+              f"{statistics.median(ts):.4f} ms over {len(ts)} calls, queued "
+              f"{f'{statistics.median(q):.4f}' if q else 'not measured'}; "
+              f"per round {[round(r, 4) for r in rounds[C, k]]}, queued "
+              f"{[round(r, 4) for r in q]}", flush=True)
 
 
 def mesh_cli(root, torch) -> None:
@@ -4339,7 +4668,8 @@ def main() -> int:
     smi = _nvidia_smi()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
-    sweeps = {"--tile-sweep": tile_sweep, "--tf32-sweep": tf32_sweep}
+    sweeps = {"--tile-sweep": tile_sweep, "--tf32-sweep": tf32_sweep,
+              "--mixer-sweep": mixer_sweep}
     if len(sys.argv) == 2 and sys.argv[1] in sweeps:
         sweeps[sys.argv[1]](torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
@@ -4421,13 +4751,13 @@ def main() -> int:
     batch_runs = [(label, case, dt, B, race(case.program,
                                             reassociate=case.reassociate))
                   for label, case, dt, B in batch_cells()]
-    for _, case, dt, _, res in batch_runs:
-        shapes = required_shapes(case.program)
-        sources.append(specialize_stencil(
-            res.plan, shapes, {k: np.dtype(dt).name for k in shapes}).source)
+    for _, case, dt, B, res in batch_runs:  # phase 13's cells' too
+        sources += geometry_sources(res.plan, required_shapes(case.program),
+                                    np.dtype(dt).name, B)
     # the batched gradient and the HVP (phases 9-10): j3d27pt n=256 f32
-    sources += adjoint_sources(batch_runs[0][1], batch_runs[0][4],
-                               np.float32)
+    for b in (1, batch_runs[0][3]):
+        sources += adjoint_sources(batch_runs[0][1], batch_runs[0][4],
+                                   np.float32, b)
     # phase 11: the twins' plans (the same as their DSL cases')
     twin_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
                  for case, dt in twin_cells()]

@@ -271,6 +271,12 @@ class InputSpec:
     feeds: tuple
     _race: dict = field(default_factory=dict, repr=False)
 
+    @property
+    def scalar(self) -> bool:
+        """A scalar's spec: its ``sum_axes`` cover every level, so only the
+        sum of ``gu`` is wanted (:meth:`CompiledRace.run_sum`)."""
+        return len(self.sum_axes) == len(self.program.loops)
+
     def result(self, reassociate: Optional[int] = None):
         """RACE result for the adjoint program (memoized per level)."""
         lvl = adjoint_reassociate() if reassociate is None else reassociate
@@ -658,11 +664,16 @@ def finalize_adjoint(spec: InputSpec, env: Mapping, val):
     sum away broadcast levels, match the primal dtype (``None`` for an
     integer input), and embed the access hull into input-shaped zeros.
     Leading (batch) dimensions of ``val`` and the primal are kept: a
-    batched scalar's gradient is ``(B,)``."""
+    batched scalar's gradient is ``(B,)``.  A scalar's ``val`` may be the
+    summed kernel's partials, one axis behind the primal's (batch) ones
+    (:meth:`CompiledRace.run_sum`): they are summed, then rounded once to
+    the primal's dtype."""
     primal = env[spec.input]
     if not primal.is_floating_point():
         return None
-    if spec.sum_axes:
+    if spec.scalar and val.dim() == primal.dim() + 1:
+        val = val.sum(-1)  # the partials (or a depth-1 box)
+    elif spec.sum_axes:
         lead = val.dim() - len(spec.program.loops)
         val = val.sum(dim=tuple(lead + a for a in spec.sum_axes))
     val = val.to(primal.dtype)
@@ -687,9 +698,13 @@ def _run_spec(spec: InputSpec, env: Mapping, g: Mapping,
         dev = next(iter(adj_env.values())).device
         ex = compile_plan(res.plan, stacked_signature(adj_env), backend,
                           device=dev)
-        val = ex.run_batch(adj_env)[spec.gu]
     else:
         ex = compile_plan(res.plan, adj_env, backend)
+    if spec.scalar:  # K1 sums the products in the kernel
+        val = ex.run_sum(adj_env, batched)[spec.gu]
+    elif batched:
+        val = ex.run_batch(adj_env)[spec.gu]
+    else:
         val = ex(adj_env)[spec.gu]
     return finalize_adjoint(spec, env, val)
 

@@ -359,31 +359,24 @@ class CompiledRace:
     def kernel_launches(self) -> int:
         return self.spec.launches if self.spec is not None else 0
 
-    def _call(self, env: Mapping, batched: bool) -> dict:
+    def _call(self, env: Mapping, batched: bool, summed: bool) -> dict:
         """The core, through :class:`_RaceFunction` when autograd records
         and some input requires grad; the primal values are the bare
-        core's either way."""
+        core's either way.  ``summed`` (:meth:`run_sum`) takes the summed
+        kernel where no graph is recorded."""
         if torch.is_grad_enabled() and any(v.requires_grad
                                            for v in env.values()):
             names = tuple(nm for nm, _, _ in self.env_sig)
             outs = _RaceFunction.apply(self, names, batched,
                                        *(env[nm] for nm in names))
             return dict(zip(self.out_names, outs))
+        if summed and self.spec is not None:
+            return self.spec.apply_sum(env, batched)
         return self._batch_core(env) if batched else self._core(env)
 
     def run(self, env: Mapping) -> dict:
         """Execute; returns interior-convention outputs."""
-        self.calls += 1
-        if not _obs.enabled():  # the RACE_OBS=0 fast path: one flag read
-            return self._call(env, False)
-        # the first call pays the kernel's build (nvcc, when its library is
-        # not on disk yet) and load: that is the "compile" span
-        phase = "compile" if self.calls == 1 else "run"
-        with _obs.span(phase, plan=self._plan_h, backend=self.backend):
-            out = self._call(env, False)
-        _obs.counter("race_executor_runs_total", plan=self._plan_h,
-                     backend=self.backend).inc()
-        return out
+        return self._run(env, False, False)
 
     __call__ = run
 
@@ -396,15 +389,38 @@ class CompiledRace:
         (B, ...) tensor}`` with ``out[name][b] == run(envs[b])[name]``: on
         ``"hopper"`` one kernel launch (per 65,535 examples), on
         ``"torch"`` the vmapped evaluator."""
-        stacked = stack_envs(envs, self.device)
-        self.batch_calls += 1
-        if not _obs.enabled():
-            return self._call(stacked, True)
-        phase = "compile" if self.batch_calls == 1 else "run"
-        with _obs.span(phase, plan=self._plan_h, backend=self.backend,
-                       batch="1"):
-            out = self._call(stacked, True)
-        _obs.counter("race_executor_batch_runs_total", plan=self._plan_h,
+        return self._run(stack_envs(envs, self.device), True, False)
+
+    def run_sum(self, env: Mapping, batched: bool = False) -> dict:
+        """What a caller that sums each output over its every point (a
+        scalar's adjoint, :func:`~.adjoint.finalize_adjoint`) needs, counted
+        as a :meth:`run` (``batched``: a :meth:`run_batch` of a stacked
+        env): on ``"hopper"`` the summed kernel's partials, ``(n_tiles,)``
+        (``(B, n_tiles)``) in float64
+        (:meth:`~repro_torch.lowering.emit.LoweredStencil.apply_sum`); on
+        ``"torch"``, and where autograd records a graph, the outputs
+        themselves.  Either sums to the same value over its trailing
+        axes."""
+        return self._run(stack_envs(env, self.device) if batched else env,
+                         batched, True)
+
+    def _run(self, env: Mapping, batched: bool, summed: bool) -> dict:
+        """Count the call and, with obs on, span and count it: the first
+        call pays the kernel's build (nvcc, when its library is not on disk
+        yet) and load, its "compile" span; every later one is a "run"."""
+        if batched:
+            self.batch_calls += 1
+        else:
+            self.calls += 1
+        if not _obs.enabled():  # the RACE_OBS=0 fast path: one flag read
+            return self._call(env, batched, summed)
+        n = self.batch_calls if batched else self.calls
+        labels = {"batch": "1"} if batched else {}
+        with _obs.span("compile" if n == 1 else "run", plan=self._plan_h,
+                       backend=self.backend, **labels):
+            out = self._call(env, batched, summed)
+        _obs.counter("race_executor_batch_runs_total" if batched
+                     else "race_executor_runs_total", plan=self._plan_h,
                      backend=self.backend).inc()
         return out
 

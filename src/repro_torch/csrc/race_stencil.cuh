@@ -105,6 +105,34 @@ __device__ __forceinline__ void race_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A summed kernel's running sum, in double whatever acc_t is: v widened
+// exactly, one rounded addition, never contracted into an FMA with the
+// product that made v (the emulator adds the same way).  In float a thread's
+// few hundred additions drift further from a pairwise sum of the same
+// products than the float32 plan tolerance allows.
+__device__ __forceinline__ double race_add(double a, double v) {
+  return __dadd_rn(a, v);
+}
+
+// The sum of v over the block (blockDim.x a multiple of 32, at most 1024),
+// valid in thread 0: a shuffle tree in each warp, each warp's sum through
+// shared memory, then the same tree in the first warp over those sums
+// (zero past the last warp).  Every thread of the block must call it.
+__device__ __forceinline__ double race_block_sum(double v) {
+  __shared__ double warp_sums[32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // an earlier call's warp_sums are read
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>(blockDim.x >> 5) ? warp_sums[lane] : 0.0;
+    for (int o = 16; o > 0; o >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
 extern "C" const char* race_stencil_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

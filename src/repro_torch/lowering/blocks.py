@@ -34,7 +34,10 @@ exceeds a block.  None of that carries over.  The kernel streams (2.5-D):
     a step, and is first written at the step its first needed plane leads;
   * a segment starts with a warm-up of ``-k0`` steps that fills the rings;
     its length is chosen so that the grid holds at least
-    ``TARGET_BLOCKS`` blocks where the extent allows;
+    ``TARGET_BLOCKS`` blocks where the extent allows, at no fewer than
+    ``SEG_PER_WARMUP`` warm-ups or, where those leave a launch (its batch
+    included) under ``SHORT_GRID`` blocks (the LM mixer's 516 planes),
+    ``SHORT_SEGMENT`` planes;
   * the plane tile is the power-of-two shape (up to ``MAX_PLANE_POINTS``
     points, each level an array or output is contiguous in spanning a
     128-byte line where the extent allows)
@@ -78,6 +81,15 @@ THREADS = 256
 TARGET_BLOCKS = 8 * 132
 #: shortest segment the chooser makes, in multiples of the warm-up
 SEG_PER_WARMUP = 8
+#: a launch's grid is short under this many blocks at SEG_PER_WARMUP
+#: warm-ups (two per SM): then the march's latency bounds a block, not the
+#: warm-ups' extra work (``PERF.md``, on an H100: a batch of 32 j3d27pt
+#: n=64 examples, 384 blocks, lost 1.17-1.24x at short segments; the
+#: mixer's plans, 32-224 blocks, won 1.16-2.4x)
+SHORT_GRID = 2 * 132
+#: shortest segment (planes, and at least one warm-up) of a short grid
+#: (``PERF.md``'s mixer sweep: 4 to 8 planes were fastest at 516 planes)
+SHORT_SEGMENT = 4
 #: context key of the body in :attr:`Schedule.reads`
 BODY = -1
 
@@ -358,9 +370,10 @@ def _refuse(sched: Schedule, tile: dict, itemsize: int) -> LoweringError:
 
 def choose_tile(plan, itemsize: int, block_rows: int = 0,
                 block_cols: int = 0, block_inner: int = 0,
-                budget: int = SMEM_BUDGET) -> tuple:
+                budget: int = SMEM_BUDGET, batch: int = 1) -> tuple:
     """``(tile, schedule)``: the per-level block extent (the segment length
-    on the stream level) and the schedule it was sized for.
+    on the stream level, :func:`segment_length` for a launch of ``batch``
+    examples) and the schedule it was sized for.
 
     The plane tile is, among power-of-two shapes of at most
     ``MAX_PLANE_POINTS`` points whose rings fit ``budget``, the one with the
@@ -373,15 +386,16 @@ def choose_tile(plan, itemsize: int, block_rows: int = 0,
     ``SMEM_LIMIT`` and refused beyond it.  Memoized in
     :func:`~.geometry.kernel_memo`."""
     memo = kernel_memo(plan)
-    key = ("tile", itemsize, block_rows, block_cols, block_inner, budget)
+    key = ("tile", itemsize, block_rows, block_cols, block_inner, budget,
+           batch)
     if key not in memo:
         memo[key] = _choose_tile(plan, itemsize, block_rows, block_cols,
-                                 block_inner, budget)
+                                 block_inner, budget, batch)
     return memo[key]
 
 
 def _choose_tile(plan, itemsize, block_rows, block_cols, block_inner,
-                 budget) -> tuple:
+                 budget, batch) -> tuple:
     m = plan.program.depth
     ranges = plan.program.ranges()
     extent = {l: ranges[l][1] - ranges[l][0] + 1 for l in range(1, m + 1)}
@@ -421,29 +435,39 @@ def _choose_tile(plan, itemsize, block_rows, block_cols, block_inner,
     if s:
         tile[s] = fixed.get(s) or segment_length(
             extent[s], prod(-(-extent[l] // tile[l]) for l in plane),
-            -sched.k0)
+            -sched.k0, batch)
     return tuple(tile[l] for l in range(1, m + 1)), sched
 
 
-def segment_length(extent: int, plane_tiles: int, warmup: int) -> int:
+def segment_length(extent: int, plane_tiles: int, warmup: int,
+                   batch: int = 1) -> int:
     """Planes per segment: the whole extent, cut into as many equal
-    segments as bring the grid to ``TARGET_BLOCKS`` blocks, none shorter
-    than ``SEG_PER_WARMUP`` warm-ups (the warm-up's share of a segment's
-    steps stays under 1/9)."""
-    shortest = max(1, SEG_PER_WARMUP * warmup)
-    n_seg = max(1, min(-(-TARGET_BLOCKS // plane_tiles), extent // shortest))
+    segments as bring one example's grid to ``TARGET_BLOCKS`` blocks, none
+    shorter than ``SEG_PER_WARMUP`` warm-ups (the warm-up's share of a
+    segment's steps stays under 1/9) or, where that leaves the grid of a
+    launch of ``batch`` examples under ``SHORT_GRID`` blocks (a short
+    stream, run alone: the march, not the bytes, bounds a block), than
+    ``SHORT_SEGMENT`` planes and one warm-up.  A batch that fills the card
+    keeps the long segments: short ones cost the batched cells
+    1.16-1.24x on an H100 (``PERF.md``)."""
+    want = -(-TARGET_BLOCKS // plane_tiles)
+    n_seg = max(1, min(want, extent // max(1, SEG_PER_WARMUP * warmup)))
+    if n_seg < want and n_seg * plane_tiles * batch < SHORT_GRID:
+        n_seg = max(1, min(want, extent // max(SHORT_SEGMENT, warmup)))
     return -(-extent // n_seg)
 
 
 def build_geometry(plan, itemsize: int, block_rows: int = 0,
-                   block_cols: int = 0, block_inner: int = 0
-                   ) -> LaunchGeometry:
+                   block_cols: int = 0, block_inner: int = 0,
+                   batch: int = 1) -> LaunchGeometry:
+    """The launch geometry of ``plan`` for launches of ``batch`` examples
+    (the grid's second axis)."""
     m = plan.program.depth
     ranges = plan.program.ranges()
     lo = tuple(ranges[l][0] for l in range(1, m + 1))
     hi = tuple(ranges[l][1] for l in range(1, m + 1))
     tile, sched = choose_tile(plan, itemsize, block_rows, block_cols,
-                              block_inner)
+                              block_inner, batch=batch)
     xl, s = sched.x_level, sched.s_level
     # the level the outputs are contiguous in runs fastest in every box, so
     # that stores coalesce and shared memory is read along rows; operand

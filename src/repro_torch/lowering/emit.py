@@ -56,9 +56,17 @@ streaming kernel):
     ``pallas_call``) is the grid's second axis: ``blockIdx.y`` is the
     example, each pointer moves by its per-example count, and the rank-0
     aux, evaluated from that example's scalars, are per example.  The
-    schedule is the per-example one at every batch size;
+    schedule is the chooser's for the launch's batch: short segments only
+    where the batch does not fill the grid (:func:`~.blocks.
+    segment_length`), so a source serves every batch size on one side of
+    that line;
   * constants are emitted at full double precision as ``acc_t(<repr>)``
-    (the reference Pallas kernel rounds every constant to float32).
+    (the reference Pallas kernel rounds every constant to float32);
+  * a caller that wants only each output's sum (a scalar's adjoint: the
+    S x C products ``g b`` of the LM mixer's taps) runs the summed kernel
+    (``render_cuda(tp, summed=True)``): no output point is stored, each
+    thread adds its points over its march in double, the block reduces
+    them, and one partial per block is written, ``(batch, n_tiles)``.
 
 nvcc contracts ``a*b + c`` into FMA by default, which rounds differently
 from torch's eager ops; the differences sit far inside the ``plan``
@@ -224,8 +232,9 @@ def _contiguous_strides(shape: tuple) -> tuple:
 
 def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
                  block_rows: int = 0, block_cols: int = 0,
-                 block_inner: int = 0) -> TileProgram:
-    """Specialize a plan for one environment signature.
+                 block_inner: int = 0, batch: int = 1) -> TileProgram:
+    """Specialize a plan for one environment signature, for launches of
+    ``batch`` examples.
 
     ``shapes`` maps env names to shapes (``()`` for scalars) and ``dtypes``
     to dtype names.  Raises :class:`LoweringError` with the probe's structured
@@ -243,7 +252,7 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
         raise LoweringError(reasons)
     dtype = str(dtypes[names[0]])
     geo = build_geometry(plan, KERNEL_DTYPES[dtype].shared, block_rows,
-                         block_cols, block_inner)
+                         block_cols, block_inner, batch)
     staged = {r.name: k for k, r in enumerate(geo.rings) if r.operand}
     operands = []
     for nm in names:
@@ -447,7 +456,7 @@ def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
     return lines
 
 
-def render_cuda(tp: TileProgram) -> str:
+def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     """CUDA C++ source of the plan's kernel and its ``extern "C"`` launcher.
 
     The launcher is ``int race_stencil_launch(int dtype, const void* const*
@@ -460,7 +469,15 @@ def render_cuda(tp: TileProgram) -> str:
     is the example, and every operand, output and scalar pointer moves by
     its per-example count (:attr:`TileProgram.example_elems`, constants of
     the signature) times ``blockIdx.y``, in 64 bits.  A single run passes
-    ``batch`` 1, so one source serves every batch size."""
+    ``batch`` 1, so one source serves every batch size.
+
+    ``summed``: the kernel stores no output point.  Each thread adds its
+    points of each output over its march (``race_add``, in double), the
+    block sums the threads' sums (``race_block_sum``: warp shuffles, then
+    shared memory) and thread 0 writes one partial per output at
+    ``blockIdx.x``: output ``k``'s pointer is a double buffer of ``(batch,
+    n_tiles)``.  A scalar's adjoint wants only the sum of its
+    output (:meth:`LoweredStencil.apply_sum`)."""
     g = tp.geometry
     kd = KERNEL_DTYPES[tp.dtype]
     m, s = g.m, g.s_level
@@ -472,7 +489,9 @@ def render_cuda(tp: TileProgram) -> str:
         "// Generated by repro_torch.lowering.emit.render_cuda: the RACE "
         "stencil kernel",
         f"// of one plan, depth {m}, block {g.tile}, stream level {s}, "
-        f"{n_aux} aux and {len(staged)} staged operands in shared memory.",
+        f"{n_aux} aux and {len(staged)} staged operands in shared memory"
+        + ("; each output summed, one partial per block." if summed
+           else "."),
         f'#include "{kd.header}"',
         "",
         "namespace {",
@@ -492,8 +511,14 @@ def render_cuda(tp: TileProgram) -> str:
         lines.append(f"  const store_t* const __restrict__ in{k} = "
                      f"args.in[{k}] + bz * {in_elems[k]}LL;")
     for k in range(n_out):
-        lines.append(f"  store_t* const __restrict__ out{k} = args.out[{k}] "
-                     f"+ bz * {out_elems[k]}LL;")
+        if summed:
+            lines += [f"  double* const __restrict__ part{k} = "
+                      f"reinterpret_cast<double*>(args.out[{k}]) + bz * "
+                      f"{g.n_tiles}LL;",
+                      f"  double sum{k} = 0.0;"]
+        else:
+            lines.append(f"  store_t* const __restrict__ out{k} = "
+                         f"args.out[{k}] + bz * {out_elems[k]}LL;")
     for k in range(n_sc):
         lines.append(f"  const acc_t sc{k} = args.scalars[bz * {n_sc}LL + "
                      f"{k}];")
@@ -583,6 +608,9 @@ def render_cuda(tp: TileProgram) -> str:
     vals = [box.expr(e) for e in tp.body]
     lines += box.lines
     for k, (out, val) in enumerate(zip(tp.outputs, vals)):
+        if summed:
+            lines.append(f"      sum{k} = race_add(sum{k}, {val});")
+            continue
         strides = _contiguous_strides(out.shape)
         inner = [d for d, l in enumerate(out.levels) if l != s]
         off = _offset([(f"i{out.levels[d]} - {g.lo[out.levels[d] - 1]}",
@@ -597,7 +625,13 @@ def render_cuda(tp: TileProgram) -> str:
     for k in streamed:
         lines.append(f"    r{k} = r{k} + 1 == {g.rings[k].depth} ? 0 : "
                      f"r{k} + 1;")
-    lines += ["  }", "}", ""]
+    lines.append("  }")
+    for k in range(n_out) if summed else ():
+        lines += ["  {",
+                  f"    const double v = race_block_sum(sum{k});",
+                  f"    if (threadIdx.x == 0) part{k}[blockIdx.x] = v;",
+                  "  }"]
+    lines += ["}", ""]
 
     smem = f"{tp.smem_elems} * sizeof(acc_t)"
     lines += [
@@ -649,7 +683,24 @@ def render_cuda(tp: TileProgram) -> str:
 # ---------------------------------------------------------------------------
 
 
-def emulate(tp: TileProgram, env: Mapping) -> dict:
+def _warp_tree(v):
+    """``__shfl_down_sync``'s tree over the last axis (32 lanes): lane 0's
+    sum, each step adding lane ``i + o`` to lane ``i``."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def block_sum(v):
+    """``race_block_sum`` of every block at once: ``v`` is ``(blocks,
+    threads)`` (threads a multiple of 32), each warp's tree, then the tree
+    over the warps' sums padded with zeros to 32."""
+    warps = _warp_tree(v.reshape(v.shape[0], -1, 32))
+    pad = v.new_zeros((v.shape[0], 32 - warps.shape[1]))
+    return _warp_tree(torch.cat([warps, pad], dim=1))
+
+
+def emulate(tp: TileProgram, env: Mapping, summed: bool = False) -> dict:
     """Run the tile program's march with torch, as the kernel does, every
     block at once (one leading axis per block).
 
@@ -659,7 +710,9 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
     :func:`render_cuda` and read the schedule from ``tp.geometry``.  As in
     the kernel, the march runs in the operand dtype's compute type (float32
     for both half types) and each output is rounded once to the operand
-    dtype."""
+    dtype.  ``summed``: as ``render_cuda(tp, summed=True)``, each output's
+    partial sums, ``(n_tiles,)`` in float64, added in the kernel's order:
+    each thread's points over the march, then :func:`block_sum`."""
     g = tp.geometry
     m, s, B = g.m, g.s_level, g.n_tiles
     dt = _torch_dtype(KERNEL_DTYPES[tp.dtype].compute)
@@ -755,6 +808,11 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
     body_widths = tuple(g.tile[l - 1] if l in g.order else 1
                         for l in range(1, m + 1))
     outs = [torch.zeros(o.shape, dtype=dt, device=dev) for o in tp.outputs]
+    # summed: each thread's running sums; a box flattens with the first
+    # level of ``order`` fastest, the header's ``e``, thread ``e % threads``
+    sums = [torch.zeros((B, g.threads), dtype=torch.float64, device=dev)
+            for _ in tp.outputs]
+    perm = [0] + ([s] if s else []) + list(reversed(g.order))
     for step in range(g.k0, g.seg):
         for o in tp.operands:
             r = g.rings[o.ring] if o.ring >= 0 else None
@@ -779,14 +837,26 @@ def emulate(tp: TileProgram, env: Mapping) -> dict:
             keep = keep & (ix <= g.hi[l - 1])
         keep = keep.expand([B] + list(body_widths))
         box = {"widths": body_widths, "coords": c}
-        for out, o, rhs in zip(outs, tp.outputs, tp.body):
+        for k, (out, o, rhs) in enumerate(zip(outs, tp.outputs, tp.body)):
             val = evaluate(rhs, BODY, box, step).expand(
                 [B] + list(body_widths))
+            if summed:
+                v = val.permute(perm).reshape(B, -1)
+                ok = keep.permute(perm).reshape(B, -1)
+                for e in range(0, v.shape[1], g.threads):
+                    n = min(g.threads, v.shape[1] - e)
+                    sums[k][:, :n] = torch.where(
+                        ok[:, e:e + n],
+                        sums[k][:, :n] + v[:, e:e + n].double(),
+                        sums[k][:, :n])
+                continue
             strides = _contiguous_strides(o.shape)
             flat = sum((c[l] - g.lo[l - 1]) * st
                        for l, st in zip(o.levels, strides))
             flat = flat.expand([B] + list(body_widths))
             out.view(-1)[flat[keep]] = val[keep]
+    if summed:
+        return {o.name: block_sum(t) for o, t in zip(tp.outputs, sums)}
     return {o.name: out.to(_torch_dtype(tp.dtype)).to(_torch_dtype(o.dtype))
             for o, out in zip(tp.outputs, outs)}
 
@@ -830,14 +900,44 @@ class LoweredStencil:
     Both run :func:`emulate` (per example) when the operands lie on the CPU,
     and launch the compiled kernel when they lie on a CUDA device — or
     raise: there is no fallback from the card to the emulator.  A batch is
-    one launch per :data:`MAX_GRID_Y` examples.  ``launches`` counts this
-    wrapper's kernel launches."""
+    one launch per :data:`MAX_GRID_Y` examples, of the tile program the
+    chooser gives that batch (:meth:`program`: ``tp``, or the long
+    segments of a batch that fills the grid).  :meth:`apply_sum` runs the
+    summed kernel for a caller that wants only each output's sum.  Each
+    (program, summed) source is built at its first launch
+    (:meth:`source_for`); ``launches`` counts this wrapper's kernel
+    launches, of any source."""
 
-    def __init__(self, tp: TileProgram):
-        self.tp = tp
-        self.source = render_cuda(tp)
+    def __init__(self, programs):
+        # ``programs(batch)``: the TileProgram of a launch of that many
+        self._make = programs
+        self.tp = programs(1)
+        self.source = render_cuda(self.tp)
         self.launches = 0
-        self._lib = None
+        self._programs = {1: self.tp}
+        self._sources: dict = {(id(self.tp), False): self.source}
+        self._libs: dict = {}
+
+    def program(self, batch: int = 1) -> TileProgram:
+        """The tile program of a launch of ``batch`` examples: ``tp``
+        unless the chooser gives that batch another geometry (one programs
+        share while their geometries are equal)."""
+        tp = self._programs.get(batch)
+        if tp is None:
+            tp = self._make(batch)
+            tp = next((p for p in self._programs.values()
+                       if p.geometry == tp.geometry), tp)
+            self._programs[batch] = tp
+        return tp
+
+    def source_for(self, batch: int = 1, summed: bool = False) -> str:
+        """The source a launch of ``batch`` examples (``summed``: of
+        :meth:`apply_sum`) runs."""
+        tp = self.program(batch)
+        src = self._sources.get((id(tp), summed))
+        if src is None:
+            src = self._sources[id(tp), summed] = render_cuda(tp, summed)
+        return src
 
     def apply(self, env: Mapping) -> dict:
         ins = [env[o.name] for o in self.tp.operands]
@@ -848,19 +948,38 @@ class LoweredStencil:
     __call__ = apply
 
     def apply_batch(self, env: Mapping) -> dict:
-        tp = self.tp
-        ins = [env[o.name] for o in tp.operands]
+        ins = [env[o.name] for o in self.tp.operands]
         batch = ins[0].shape[0]
         if all(t.device.type == "cpu" for t in ins):
-            outs = [emulate(tp, {k: v[b] for k, v in env.items()})
-                    for b in range(batch)]
-            return {o.name: torch.stack([out[o.name] for out in outs])
-                    for o in tp.outputs}
+            return self._emulate_batch(env, batch, False)
         return self._launch(env, ins, batch)
 
-    def _launch(self, env: Mapping, ins: list, batch) -> dict:
+    def apply_sum(self, env: Mapping, batched: bool = False) -> dict:
+        """Each output's partial sums, one per block of the grid: ``{name:
+        (n_tiles,)}`` (``(B, n_tiles)`` when ``batched``: every env entry
+        carries a leading batch axis) in float64, whose sum is the
+        output's: the emulator's summed march on the CPU, else the summed
+        kernel."""
+        ins = [env[o.name] for o in self.tp.operands]
+        batch = ins[0].shape[0] if batched else None
+        if all(t.device.type == "cpu" for t in ins):
+            if batch is None:
+                return emulate(self.tp, env, summed=True)
+            return self._emulate_batch(env, batch, True)
+        return self._launch(env, ins, batch, summed=True)
+
+    def _emulate_batch(self, env: Mapping, batch: int, summed: bool) -> dict:
+        """The emulator per example, at the batch's tile program."""
+        tp = self.program(batch)
+        outs = [emulate(tp, {k: v[b] for k, v in env.items()}, summed)
+                for b in range(batch)]
+        return {o.name: torch.stack([out[o.name] for out in outs])
+                for o in tp.outputs}
+
+    def _launch(self, env: Mapping, ins: list, batch,
+                summed: bool = False) -> dict:
         """Launch on the operands' card; ``batch`` None for one example."""
-        tp = self.tp
+        tp = self.program(batch or 1)
         lead = () if batch is None else (batch,)
         dev = ins[0].device
         kd = KERNEL_DTYPES[tp.dtype]
@@ -883,19 +1002,26 @@ class LoweredStencil:
             if tuple(env[nm].shape) != lead:
                 raise ValueError(f"scalar {nm} has shape "
                                  f"{tuple(env[nm].shape)}, want {lead}")
-        if self._lib is None:
+        src = self.source_for(batch or 1, summed)
+        lib = self._libs.get(src)
+        if lib is None:
             from ..kernels.build import load
 
-            self._lib = load(self.source, _SYMBOLS)
+            lib = self._libs[src] = load(src, _SYMBOLS)
         in_elems, out_elems, n_sc = tp.example_elems
+        out_dt, out_width = dt, kd.width
+        if summed:  # (batch, n_tiles) partials in float64
+            out_elems = (tp.geometry.n_tiles,) * len(tp.outputs)
+            out_dt, out_width = torch.float64, 8
         # the launcher's runtime calls act on the thread's current device
         with torch.cuda.device(dev):
             scal = None
             if n_sc:  # (B, n_scalars), or (n_scalars,) for one example
                 scal = torch.stack([env[nm].to(device=dev, dtype=acc)
                                     for nm in tp.scalars], dim=-1)
-            outs = [torch.empty(lead + o.shape, dtype=dt, device=dev)
-                    for o in tp.outputs]
+            outs = [torch.empty(lead + ((n,) if summed else o.shape),
+                                dtype=out_dt, device=dev)
+                    for o, n in zip(tp.outputs, out_elems)]
             in_base = [t.data_ptr() for t in ins]
             out_base = [t.data_ptr() for t in outs]
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -903,17 +1029,19 @@ class LoweredStencil:
                 in_ptrs = (ctypes.c_void_p * len(ins))(
                     *chunk_pointers(in_base, in_elems, kd.width, first))
                 out_ptrs = (ctypes.c_void_p * len(outs))(
-                    *chunk_pointers(out_base, out_elems, kd.width, first))
+                    *chunk_pointers(out_base, out_elems, out_width, first))
                 sc_ptr = None if scal is None else chunk_pointers(
                     [scal.data_ptr()], [n_sc], scal.element_size(), first)[0]
-                rc = self._lib.race_stencil_launch(
+                rc = lib.race_stencil_launch(
                     list(KERNEL_DTYPES).index(tp.dtype), in_ptrs, out_ptrs,
                     sc_ptr, count, stream)
                 if rc != 0:
-                    msg = self._lib.race_stencil_error(rc).decode()
+                    msg = lib.race_stencil_error(rc).decode()
                     raise RuntimeError(f"race stencil kernel launch failed: "
                                        f"CUDA error {rc} ({msg})")
                 self.launches += 1
+        if summed:
+            return {o.name: t for o, t in zip(tp.outputs, outs)}
         return {o.name: t.to(_torch_dtype(o.dtype))
                 for o, t in zip(tp.outputs, outs)}
 
@@ -923,5 +1051,5 @@ def specialize_stencil(plan: Plan, shapes: Mapping, dtypes: Mapping,
                        block_inner: int = 0) -> LoweredStencil:
     """Build the kernel's wrapper for one environment signature (the CUDA
     source is rendered here and compiled at the first launch on a card)."""
-    return LoweredStencil(tile_program(plan, shapes, dtypes, block_rows,
-                                       block_cols, block_inner))
+    return LoweredStencil(lambda batch: tile_program(
+        plan, shapes, dtypes, block_rows, block_cols, block_inner, batch))

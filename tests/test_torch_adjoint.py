@@ -201,3 +201,82 @@ def test_assemble_adjoint_env_matches_reference(name):
         for k in want:
             assert got[k].is_contiguous()
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# ---------------------------------------------------------------------------
+# scalar adjoints summed in the kernel
+# ---------------------------------------------------------------------------
+
+#: the registry's cases with a scalar-coefficient adjoint spec
+SCALAR_CASES = ["calc_tpoints", "ocn_export", "rhs_ph1", "rhs_ph2",
+                "diffusion1", "diffusion2", "diffusion3", "psinv", "resid",
+                "gaussian", "j3d27pt", "poisson", "derivative", "smooth1d",
+                "blocked4d", "mirror_deriv"]
+
+
+def _scalar_program(name):
+    """The program and its float64 env: the mixer's at S = 40 over 96
+    channels, or a registry case's at its sweep size."""
+    if name == "mixer":
+        from repro_torch.models import ssm
+
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((2, 40, 48)))
+        taps = torch.from_numpy(rng.standard_normal(3))
+        env = {k: v.double() for k, v in ssm.smooth_env(x, taps, 2).items()}
+        return ssm._smooth_result(40, 96, 2).program, env
+    case = get_case(name, SWEEP_SIZES[name])
+    return case.program, env_to_torch(build_env(case, np.float64, seed=7),
+                                      "cpu")
+
+
+@pytest.mark.parametrize("name", ["mixer"] + SCALAR_CASES)
+def test_scalar_spec_partials_sum_to_the_products(name):
+    """Every scalar spec the probe admits, on ``"hopper"`` (the emulator's
+    summed march): ``run_sum`` gives one partial per block of the grid,
+    ``(n_tiles,)`` and batched ``(B, n_tiles)``, in float64, whose sum is
+    the sum of the full products ``g b`` that ``run`` writes within
+    ``grad`` at float32 and 1e-10 at float64, both relative to ``sum
+    |g b|``; ``finalize_adjoint`` takes either."""
+    program, env64 = _scalar_program(name)
+    build = adjoint.adjoint_build(program)
+    specs = [s for s in build.specs if s.scalar]
+    assert specs
+    res = repro_torch.race(program)
+    outs = interior(res.plan, res.baseline_evaluator()(env64))
+    rng = np.random.default_rng(3)
+    g64 = {k: torch.from_numpy(rng.uniform(-1, 1, tuple(v.shape)))
+           for k, v in outs.items()}
+    ran = 0
+    for dt, tol in ((torch.float32, default_tolerances("float32")["grad"]),
+                    (torch.float64, 1e-10)):
+        env = {k: v.to(dt) if v.is_floating_point() else v
+               for k, v in env64.items()}
+        g = {k: v.to(dt) for k, v in g64.items()}
+        for spec in specs:
+            plan = spec.result().plan
+            if not repro_torch.probe_hopper(plan, [str(dt)[6:]]).eligible:
+                continue
+            a = adjoint.assemble_adjoint_env(spec, env, g)
+            ex = repro_torch.compile_plan(plan, a, "hopper")
+            n_tiles = ex.spec.tp.geometry.n_tiles
+            full = ex(a)[spec.gu].double()
+            parts = ex.run_sum(a)[spec.gu]
+            assert parts.shape == (n_tiles,) and parts.dtype == torch.float64
+            scale = float(full.abs().sum())
+            assert abs(float(parts.double().sum() - full.sum())) <= (
+                tol * scale)
+            assert torch.equal(adjoint.finalize_adjoint(spec, env, parts),
+                               parts.sum().to(dt))
+            # a batch of two: the example, then its cotangents doubled
+            # (a scalar's adjoint is linear in them)
+            stacked = {k: torch.stack([v, 2 * v if k.startswith(
+                adjoint.COTANGENT_PREFIX) else v]) for k, v in a.items()}
+            batch = ex.run_sum(stacked, batched=True)[spec.gu]
+            assert batch.shape == (2, ex.spec.program(2).geometry.n_tiles)
+            assert batch.dtype == torch.float64
+            sums = batch.double().sum(1)
+            assert abs(float(sums[0] - full.sum())) <= tol * scale
+            assert abs(float(sums[1] - 2 * full.sum())) <= 2 * tol * scale
+            ran += 1
+    assert ran

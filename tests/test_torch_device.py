@@ -663,6 +663,45 @@ def test_race_smooth_on_card_is_k1_within_plan_of_torch(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_summed_tap_adjoints_on_card(cuda_device, dt):
+    """The mixer's tap adjoints through ``run_sum`` on a CUDA stream: the
+    summed kernel launches once, writes one partial per block (and
+    ``(2, n_tiles)`` for a batch of two), and their sums agree with the
+    ``"torch"`` plan's products within ``plan`` of ``sum |g b|``."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn(2, 48, 96, generator=g, device=cuda_device, dtype=dt)
+    env = ssm.smooth_env(x, torch.randn(3, generator=g, device=cuda_device),
+                         2)
+    env = {k: v.to(dt) for k, v in env.items()}
+    gy = {"sy": torch.randn(env["sy"].shape, generator=g,
+                            device=cuda_device, dtype=dt)}
+    res = ssm._smooth_result(48, 2 * 96, 2)
+    tol = default_tolerances(dt)["plan"]
+    for spec in adjoint.adjoint_build(res.program).specs:
+        if not spec.scalar:
+            continue
+        a = adjoint.assemble_adjoint_env(spec, env, gy)
+        ex = repro_torch.compile_plan(spec.result().plan, a, "hopper")
+        full = repro_torch.compile_plan(spec.result().plan, a, "torch")(a)[
+            spec.gu].double()
+        before = ex.kernel_launches
+        parts = ex.run_sum(a)[spec.gu]
+        assert ex.kernel_launches == before + 1
+        assert parts.shape == (ex.spec.tp.geometry.n_tiles,)
+        batch = ex.run_sum({k: torch.stack([v, v]) for k, v in a.items()},
+                           batched=True)[spec.gu]
+        assert batch.shape == (2, ex.spec.program(2).geometry.n_tiles)
+        torch.cuda.synchronize()
+        scale = float(full.abs().sum())
+        for got in (parts, batch[0], batch[1]):
+            assert abs(float(got.double().sum() - full.sum())) <= (
+                tol * scale)
+
+
+@pytest.mark.cuda
 def test_reduced_lm_prefill_and_decode_on_card(cuda_device):
     """qwen2's reduced config with the mixer, float32 on the card: the
     prefill launches K1 once and matches the same model on the CPU; a

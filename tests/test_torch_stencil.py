@@ -4,7 +4,7 @@ kernel in interpret mode), its CUDA rendering, its tile chooser and its
 refusals."""
 import numpy as np
 import pytest
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro.apps.paper_kernels import CASES
 from repro.apps.paper_kernels import get_case as ref_case
@@ -219,3 +219,140 @@ def test_emulator_reads_outside_the_array_as_zero():
     out = emulate(tp, env)
     want = res.run(env, "torch", device="cpu")
     assert rel_err(out, want) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the chooser's grid: unchanged where it reaches the target, short streams
+# ---------------------------------------------------------------------------
+
+#: (case, n, dtype, tile, nb, threads, k0, shared-memory elements, (depth,
+#: lead, first step) of each ring), as the chooser gave them before short
+#: streams took shorter segments: phase 4's cells at float32 and float64
+#: (896 to 1,536 blocks, none a short grid) and j3d27pt at half precision
+FULL_SIZE_GEOMETRY = [
+    ("j3d27pt", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+     ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
+      (3, 2, -2), (3, 1, -2))),
+    ("j3d27pt", 512, "float64", (16, 32, 170), (32, 16, 3), 256, -2, 8540,
+     ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
+      (3, 2, -2), (3, 1, -2))),
+    ("j3d27pt", 512, "float16", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+     ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
+      (3, 2, -2), (3, 1, -2))),
+    ("j3d27pt", 512, "bfloat16", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+     ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
+      (3, 2, -2), (3, 1, -2))),
+    ("poisson", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 16344,
+     ((2, 1, -2), (1, 1, -2), (2, 1, -2), (2, 2, -2), (3, 2, -2), (2, 0, 0),
+      (3, 1, -2))),
+    ("poisson", 512, "float64", (32, 16, 170), (16, 32, 3), 256, -2, 8408,
+     ((2, 1, -2), (1, 1, -2), (2, 1, -2), (2, 2, -2), (3, 2, -2), (2, 0, 0),
+      (3, 1, -2))),
+    ("derivative", 256, "float32", (32, 16, 36), (8, 16, 7), 256, -4, 24948,
+     ((2, 2, -4), (2, 2, -4), (2, 2, -4), (3, 1, -2), (5, 2, -4), (3, 1, -2),
+      (5, 2, -4), (3, 1, -2), (5, 2, -4), (2, 2, -4), (2, 2, -4),
+      (2, 2, -4))),
+    ("derivative", 256, "float64", (16, 16, 51), (16, 16, 5), 256, -4, 13716,
+     ((2, 2, -4), (2, 2, -4), (2, 2, -4), (3, 1, -2), (5, 2, -4), (3, 1, -2),
+      (5, 2, -4), (3, 1, -2), (5, 2, -4), (2, 2, -4), (2, 2, -4),
+      (2, 2, -4))),
+    ("hdifft_gm", 8192, "float32", (1024, 63), (8, 130), 256, -1, 8205,
+     ((1, 1, -1), (2, 1, -1), (1, 0, 0), (2, 1, -1), (2, 1, -1))),
+    ("hdifft_gm", 8192, "float64", (1024, 63), (8, 130), 256, -1, 8205,
+     ((1, 1, -1), (2, 1, -1), (1, 0, 0), (2, 1, -1), (2, 1, -1))),
+]
+
+
+@pytest.mark.parametrize("name,n,dtype,tile,nb,threads,k0,smem,rings",
+                         FULL_SIZE_GEOMETRY)
+def test_full_size_geometry_is_kept(name, n, dtype, tile, nb, threads, k0,
+                                    smem, rings):
+    from repro_torch.apps.paper_kernels import pop_hdifft_gm
+
+    case = pop_hdifft_gm(n, n) if name == "hdifft_gm" else get_case(name, n)
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    shapes = required_shapes(case.program)
+    g = tile_program(res.plan, shapes, {k: dtype for k in shapes}).geometry
+    assert (g.tile, g.nb, g.threads, g.k0, g.smem_elems) == (
+        tile, nb, threads, k0, smem)
+    assert tuple((r.depth, r.lead, r.start) for r in g.rings) == rings
+
+
+#: the mixer's grid at S = 512 (``sx`` 516 x C) per plan: (segment,
+#: blocks).  At SEG_PER_WARMUP warm-ups the segments are 32 (forward), 33
+#: (``sx``) and 16 (taps): 32 to 448 blocks, all short grids but the
+#: full-width taps' 448
+MIXER_GRID = {
+    2048: {"forward": (4, 256), "sx": (4, 258), "sw": (4, 256)},
+    3584: {"forward": (4, 512), "sx": (4, 516), "sw": (4, 512)},
+    14336: {"forward": (7, 1036), "sx": (7, 1036), "sw": (16, 448)},
+}
+
+
+@pytest.mark.parametrize("C", sorted(MIXER_GRID))
+def test_mixer_plans_take_short_segments(C):
+    """The LM mixer's forward, ``sx`` and tap adjoint plans at 512 tokens:
+    a grid under SHORT_GRID at SEG_PER_WARMUP warm-ups shortens its
+    segments toward SHORT_SEGMENT planes, the others keep them; the plane
+    tile stays the widest (1,024 points, a 128-byte line and more on the
+    contiguous level: narrower planes lost on the card)."""
+    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.lowering.blocks import (SEG_PER_WARMUP, SHORT_GRID,
+                                             SHORT_SEGMENT)
+    from repro_torch.models.ssm import _smooth_result
+
+    res = _smooth_result(512, C, 2)
+    shapes = required_shapes(res.program)
+    plans = [("forward", res.plan, shapes)] + [
+        ("sx" if s.input == "sx" else "sw", s.result().plan,
+         adjoint_env_shapes(s, res.program, shapes))
+        for s in adjoint_build(res.program).specs]
+    assert len(plans) == 5
+    for kind, plan, shp in plans:
+        g = tile_program(plan, shp, {k: "float32" for k in shp}).geometry
+        assert (g.seg, g.n_tiles) == MIXER_GRID[C][kind]
+        assert g.seg >= max(SHORT_SEGMENT, -g.k0)
+        assert g.plane_points == 1024 and g.threads == 256
+        assert g.tile[g.x_level - 1] >= LINE_BYTES // 4
+        plane_tiles = g.n_tiles // g.nb[g.s_level - 1]
+        extent = g.extents[g.s_level - 1]
+        long = plane_tiles * (extent // (SEG_PER_WARMUP * -g.k0))
+        assert (long < SHORT_GRID) == (g.seg < SEG_PER_WARMUP * -g.k0)
+
+
+def test_batch_that_fills_the_grid_keeps_long_segments(monkeypatch):
+    """j3d27pt at n = 64 is 12 blocks an example at SEG_PER_WARMUP
+    warm-ups: alone, or in a batch whose grid stays under SHORT_GRID, it
+    takes short segments; a batch of 22 (264 blocks) or more keeps the
+    long ones.  The wrapper runs each batch at its own tile program, the
+    emulator too (here at n = 20 with SHORT_GRID cut to 8 blocks, so that
+    a batch of 8 reaches it), and both geometries give the same
+    outputs."""
+    from repro_torch.lowering import blocks
+
+    res, shapes = _specs("j3d27pt", "default", 64)
+    spec = specialize_stencil(res.plan, shapes,
+                              {k: "float32" for k in shapes})
+    segs = {B: spec.program(B).geometry.seg for B in (1, 8, 21, 22, 256)}
+    assert segs == {1: 5, 8: 5, 21: 5, 22: 21, 256: 21}
+    assert spec.program(22) is spec.program(256)
+    assert spec.program(21) is spec.tp
+    assert spec.source_for(256) != spec.source
+
+    monkeypatch.setattr(blocks, "SHORT_GRID", 8)
+    res, shapes = _specs("j3d27pt", "default", 20)
+    spec = specialize_stencil(res.plan, shapes,
+                              {k: "float64" for k in shapes})
+    assert (spec.tp.geometry.seg, spec.program(8).geometry.seg) == (5, 18)
+    case = get_case("j3d27pt", 20)
+    envs = [env_to_torch(build_env(case, np.float64, seed=b), "cpu")
+            for b in range(8)]
+    stacked = {k: torch.stack([e[k] for e in envs])
+               for k in spec.tp.scalars + tuple(
+                   o.name for o in spec.tp.operands)}
+    got = spec.apply_batch(stacked)
+    for b, e in enumerate(envs):
+        long = emulate(spec.program(8), e)
+        assert all(torch.equal(got[k][b], long[k]) for k in long)
+        short = spec.apply(e)
+        assert all(torch.equal(short[k], long[k]) for k in long)
