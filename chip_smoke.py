@@ -34,11 +34,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
      computes the same function where there is one (:func:`library_call`).
      The kernel's schedule is printed: stream level, plane tile, segment
      length, ring depths, shared memory per block and aux evaluations per
-     output point (worked out from the tile program, not measured).  Then
+     output point (worked out from the tile program, not measured), and
+     its registers, stack and spills (``cuobjdump``).  Then
      the half cells (:data:`HALF_CELLS`: j3d27pt and poisson n=512,
      hdifft_gm 8192x8192, each at float16 and bfloat16) the same way, each
      beside the bound of its 2-byte elements and, for j3d27pt, ``F.conv3d``
-     at the same dtype;
+     at the same dtype, and timed in turns with the float32 kernel of the
+     same case and plan (:func:`half_turns`: the half / float32 ratio);
   5. gradient sweep: the 19 cases at three times the test sizes, float32,
      ``torch.autograd.grad`` of a cosine-projection loss through
      ``res.run(env)`` against autograd of the float64 baseline program
@@ -52,6 +54,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      adjoint plans on ``"torch"`` within ``plan`` (float16: ``grad``, as K1
      computes in float32 and ``"torch"`` op by op in float16), and the
      adjoint kernels timed beside their bound and their ``"torch"`` time;
+     last, the float16 backward's and adjoint kernels' times beside the
+     float32 ones of the same cell (this run);
   7. fused cross-entropy (K4) at the reference's test shapes and at four
      whose T, D and V are no multiple of the tensor-core kernels' tiles (D
      = 37 no multiple of 4), float32 and bfloat16, each with one label out
@@ -698,6 +702,31 @@ def geometry_turns(label, plan, sig, batch: int, run, want, tol,
           f"{errs[1]:.2e} / {errs[0]:.2e}", flush=True)
 
 
+def half_turns(label, ex, env, bound_ms, twin, torch) -> None:
+    """Phase 4: a half cell's kernel (``ex`` on ``env``) timed in turns
+    with the float32 kernel of the same case and plan (``twin``: its env
+    and executor; the same geometry and arithmetic at twice the bytes):
+    half, float32, float32, half per round, GEOMETRY_ROUNDS rounds, each
+    turn :func:`_time_ms`.  Prints the median of each side's turns, the
+    half / float32 ratio, the half kernel's share of its bound and every
+    turn."""
+    env32, ex32 = twin
+    assert ex32.spec.tp.geometry == ex.spec.tp.geometry
+    turns = {"half": [], "float32": []}
+    for _ in range(GEOMETRY_ROUNDS):
+        for side in ("half", "float32", "float32", "half"):
+            turns[side].append(_time_ms(
+                (lambda: ex(env)) if side == "half" else
+                (lambda: ex32(env32)), torch))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"turns {label} beside float32 on {_nvidia_smi()}: half "
+          f"{med['half']:.4f} ms, float32 {med['float32']:.4f} ms, half / "
+          f"float32 {med['half'] / med['float32']:.3f}, share of bound "
+          f"{bound_ms / med['half']:.3f} (bound {bound_ms:.4f}); turns "
+          f"half {[round(t, 4) for t in turns['half']]}, float32 "
+          f"{[round(t, 4) for t in turns['float32']]}", flush=True)
+
+
 def geometry_text(geo) -> str:
     """Blocks, plane tile, segment, threads and prefetch depth of a
     geometry (the kernel keeps one plane in flight: ``cp.async`` for step
@@ -889,9 +918,10 @@ def grad_sweep(sweep_cases, torch) -> list:
     return failures
 
 
-def grad_full_size(case, dt, res, torch) -> dict:
+def grad_full_size(case, dt, res, torch) -> tuple:
     """Phase 6 for one cell; returns its kernel line (the adjoint plans'
-    kernels) and prints the backward's time and launches."""
+    kernels) and the backward's ms, and prints the backward's time and
+    launches."""
     import numpy as np
 
     from repro_torch import compile_plan
@@ -969,7 +999,7 @@ def grad_full_size(case, dt, res, torch) -> dict:
                 source="src/repro_torch/lowering/emit.py",
                 replaces="src/repro/lowering/emit.py:273", launches=launches,
                 max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None)
+                bound_ms=bound_ms, bound_by=by, library_ms=None), backward_ms
 
 
 def ce_sweep(torch) -> list:
@@ -1069,6 +1099,21 @@ def sass_counts() -> dict:
             if k in usage[i - 1]:
                 out[k]["resources"] = ln.strip()
     return out
+
+
+def k1_resources(source: str) -> str:
+    """The resource line (``cuobjdump --dump-resource-usage``: registers,
+    stack, shared, local) of the stencil kernel in the built library of a
+    K1 source."""
+    from repro_torch.kernels import build
+
+    so = build.library_path(source)
+    tool = str(Path(build._nvcc()).parent / "cuobjdump")
+    usage = subprocess.run([tool, "--dump-resource-usage", str(so)],
+                           capture_output=True, text=True, timeout=120,
+                           check=True).stdout.splitlines()
+    return next((ln.strip() for prev, ln in zip(usage, usage[1:])
+                 if "race_stencil_kernel" in prev), "not found")
 
 
 def sustained(fn, torch, ms_each: float) -> dict:
@@ -4827,6 +4872,7 @@ def main() -> int:
     # ---- phase 4: main path at full size ----------------------------------
     marks.append((4, time.time()))
     kernels, schedules = [], []
+    f32_twin = {}  # case name -> (env, executor) of its float32 cell
     for case, dt, res in main_runs + half_runs:
         dname = dtype_name(dt)
         label = case.name if dname not in HALF_DTYPES else (
@@ -4876,6 +4922,10 @@ def main() -> int:
         bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
         tp = ex.spec.tp
         geo = tp.geometry
+        if dname in HALF_DTYPES:
+            half_turns(label, ex, env, bound_ms, f32_twin[case.name], torch)
+        elif dname == "float32" and case.name in dict(HALF_CELLS):
+            f32_twin[case.name] = (env, ex)
         print(f"main {case.name} {dname} {tuple(env[next(iter(arrays))].shape)}"
               f": selection hopper, launches {launches}, stream level "
               f"{geo.s_level}, plane tile "
@@ -4888,7 +4938,8 @@ def main() -> int:
               f"torch_ms {torch_ms:.4f}, library_ms {library_ms}, "
               f"bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
               f"share of bound {bound_ms / kernel_ms:.3f}, max_abs_err "
-              f"{max_abs:.3e}, rel_err {e_plan:.2e}", flush=True)
+              f"{max_abs:.3e}, rel_err {e_plan:.2e}, resources "
+              f"{k1_resources(ex.spec.source)}", flush=True)
         kernels.append(dict(
             name=f"race_stencil[{label}]", route="cuda",
             source="src/repro_torch/lowering/emit.py",
@@ -4905,6 +4956,8 @@ def main() -> int:
             aux_evals_per_point=tp.aux_evals_per_point))
         del env, ex, ex_t, lib
         torch.cuda.empty_cache()
+    del f32_twin
+    torch.cuda.empty_cache()
 
     # ---- phase 5: gradient sweep -------------------------------------------
     marks.append((5, time.time()))
@@ -4914,9 +4967,18 @@ def main() -> int:
 
     # ---- phase 6: gradient at full size ------------------------------------
     marks.append((6, time.time()))
+    backward = {}  # (case name, dtype name) -> (backward ms, adjoints ms)
     for case, dt, res in main_runs + half_runs[:1]:  # + j3d27pt float16
-        kernels.append(grad_full_size(case, dt, res, torch))
+        kernel, backward_ms = grad_full_size(case, dt, res, torch)
+        kernels.append(kernel)
+        backward[case.name, dtype_name(dt)] = (backward_ms, kernel["ms"])
         torch.cuda.empty_cache()
+    (h_ms, h_adj), (f_ms, f_adj) = (backward["j3d27pt", d]
+                                    for d in ("float16", "float32"))
+    print(f"grad-main j3d27pt float16 beside float32 (this run, "
+          f"{_nvidia_smi()}): backward_ms {h_ms:.4f} / {f_ms:.4f} "
+          f"({h_ms / f_ms:.3f}), adjoint kernels {h_adj:.4f} / "
+          f"{f_adj:.4f} ({h_adj / f_adj:.3f})", flush=True)
 
     # ---- phase 7: fused cross-entropy sweep --------------------------------
     marks.append((7, time.time()))

@@ -26,9 +26,9 @@ __device__ __forceinline__ void race_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// PTX's cp.async copies 4, 8 or 16 bytes, never 2, so a half element is
-// staged by a guarded ordinary load, converted to float on its way into
-// shared memory (the schedule of slots and steps is cp.async's).
+// PTX's cp.async copies 4, 8 or 16 bytes, never 2.  A half kernel stages
+// the first plane of its march by a guarded ordinary load, converted to
+// float on its way into shared memory: each thread waits for its loads.
 __device__ __forceinline__ void race_stage(float* dst, const __half* src,
                                            bool ok) {
   *dst = ok ? __half2float(*src) : 0.0f;
@@ -36,4 +36,17 @@ __device__ __forceinline__ void race_stage(float* dst, const __half* src,
 __device__ __forceinline__ void race_stage(float* dst,
                                            const __nv_bfloat16* src, bool ok) {
   *dst = ok ? __bfloat162float(*src) : 0.0f;
+}
+
+// Every later plane is loaded one step ahead into registers, raw, and
+// written to shared memory (through race_acc) only after the step's body
+// (emit.py:_next_plane): no instruction reads the loaded register before
+// then, so the loads stay in flight while the step computes.  Zero when ok
+// is false, and then nothing is read.
+__device__ __forceinline__ __half race_fetch(const __half* src, bool ok) {
+  return ok ? *src : __ushort_as_half(0);
+}
+__device__ __forceinline__ __nv_bfloat16 race_fetch(const __nv_bfloat16* src,
+                                                    bool ok) {
+  return ok ? *src : __ushort_as_bfloat16(0);
 }

@@ -26,7 +26,7 @@
 //   * each operand read at unit positive coefficients is staged one plane
 //     window per step with cp.async (zero-filled outside the array), the
 //     next steps' planes in flight while this step computes (a 2-byte
-//     operand with converting loads, see race_half.cuh); other operands
+//     operand's through registers, see race_half.cuh); other operands
 //     (strided, mirrored, gathered) are read in place through affine
 //     indices with guarded loads;
 //   * outputs are written in their own dimension order: no transpose, flip,

@@ -41,8 +41,10 @@ streaming kernel):
   * operands read at unit positive coefficients are staged one plane
     window per step with ``cp.async`` (zero-filled outside the array),
     one step ahead (double buffering); PTX has no 2-byte ``cp.async``, so
-    a half operand's plane is staged on the same schedule by guarded
-    loads that convert to float on the way into shared memory.  The rest
+    a half operand's next plane is loaded into registers at the head of
+    a step, in flight while the step computes, and converted into the
+    ring after its body (:func:`_next_plane`; its first plane by guarded
+    converting loads).  The rest
     (strided, mirrored, gathered) are read in place through their affine
     indices with guarded 64-bit loads, converted as they are read.
     Outputs are written straight into their own dimension order.  The
@@ -408,12 +410,20 @@ class _Box:
         return var
 
 
-def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
-    """Copy one operand plane window into its ring slot with ``race_stage``
-    (``cp.async`` at 4 and 8 bytes, a converting load at 2; reads 0
-    outside the array): the plane of step ``step``.  Threads run the
-    operand's own contiguous level fastest, so that a warp's loads coalesce
-    whatever the ring's element order."""
+class _Window(NamedTuple):
+    """Code for one staged operand's plane window at one step: threads run
+    the operand's own contiguous level fastest, so that a warp's loads
+    coalesce whatever the ring's element order."""
+
+    ix: int  # the operand's position: ``in<ix>``
+    head: list  # the plane's row ``zz``, ``zok`` and its base ``src``
+    elem: list  # element ``e``'s indices ``p<l>`` (in the slot), ``j<l>``
+    guard: list  # conditions of a read inside the array
+    off: str  # the element's offset from ``src``
+    pos: str  # its offset in the ring's slot
+
+
+def _window(tp: TileProgram, k: int, step: str) -> _Window:
     g = tp.geometry
     r = g.rings[k]
     ix = next(i for i, o in enumerate(tp.operands) if o.ring == k)
@@ -421,39 +431,90 @@ def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
     ds = op.dims.index(g.s_level)
     plane = [l for l in reversed(op.dims) if l in g.order]
     inner = [d for d in range(len(op.dims)) if d != ds]
-    lines = [
-        "    {",
+    head = [
         f"      const int zz = z0 + ({step}) + {r.lead};",
         f"      const bool zok = zz >= 0 && zz < {op.shape[ds]};",
         f"      const store_t* const src = zok ? in{ix} + (long long)zz * "
         f"{op.strides[ds]}LL : in{ix};",
-        f"      acc_t* const dst = smem + {r.offset} + ({slot}) * "
-        f"{r.plane};",
-        f"      for (int e = threadIdx.x; e < {r.plane}; "
-        f"e += {g.threads}) {{",
-        "        int q = e;",
     ]
+    elem = ["        int q = e;"]
     for n, l in enumerate(plane):
         if n == len(plane) - 1:
-            lines.append(f"        const int p{l} = q;")
+            elem.append(f"        const int p{l} = q;")
         else:
-            lines.append(f"        const int p{l} = q % {r.widths[l - 1]}; "
-                         f"q /= {r.widths[l - 1]};")
-        lines.append(f"        const int j{l} = t{l} + ({r.lo[l - 1]} + "
-                     f"p{l});")
+            elem.append(f"        const int p{l} = q % {r.widths[l - 1]}; "
+                        f"q /= {r.widths[l - 1]};")
+        elem.append(f"        const int j{l} = t{l} + ({r.lo[l - 1]} + "
+                    f"p{l});")
+    elem.append("        (void)q;")
     guard = ["zok"] + [f"j{op.dims[d]} >= 0 && j{op.dims[d]} < {op.shape[d]}"
                        for d in inner]
     off = _offset([(f"j{op.dims[d]}", op.strides[d]) for d in inner],
                   _fits32(op.shape, op.strides, inner))
     pos = _offset([(f"p{l}", r.strides[l - 1]) for l in plane], True)
-    lines += [
-        "        (void)q;",
-        f"        const bool ok = {' && '.join(guard)};",
-        f"        race_stage(dst + {pos}, ok ? src + {off} : in{ix}, ok);",
+    return _Window(ix, head, elem, guard, off, pos)
+
+
+def _slot_base(tp: TileProgram, k: int, slot: str) -> str:
+    r = tp.geometry.rings[k]
+    return (f"      acc_t* const dst = smem + {r.offset} + ({slot}) * "
+            f"{r.plane};")
+
+
+def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
+    """Copy one operand plane window into its ring slot with ``race_stage``
+    (``cp.async`` at 4 and 8 bytes, a converting load at 2; reads 0
+    outside the array): the plane of step ``step``."""
+    w = _window(tp, k, step)
+    return (["    {"] + w.head + [
+        _slot_base(tp, k, slot),
+        f"      for (int e = threadIdx.x; e < {tp.geometry.rings[k].plane}; "
+        f"e += {tp.geometry.threads}) {{"] + w.elem + [
+        f"        const bool ok = {' && '.join(w.guard)};",
+        f"        race_stage(dst + {w.pos}, ok ? src + {w.off} : in{w.ix}, "
+        "ok);",
+        "      }",
+        "    }",
+    ])
+
+
+def _next_plane(tp: TileProgram, k: int) -> tuple:
+    """A 2-byte operand's plane of step ``k + 1``, staged in two halves
+    (PTX has no 2-byte ``cp.async``): ``(declarations, load, store)``.
+    The load, at the head of step ``k``, issues every element a thread
+    owns into ``store_t`` registers (``race_fetch``: raw, zero outside the
+    array) in a fully unrolled loop, and keeps each one's place in the
+    slot; nothing uses those registers until the store, after the body,
+    converts them (``race_acc``) into the slot after the lead, which no
+    read of step ``k`` touches.  So the loads are in flight while the step
+    computes, as ``cp.async`` keeps a wider operand's."""
+    g = tp.geometry
+    r = g.rings[k]
+    regs = -(-r.plane // g.threads)
+    w = _window(tp, k, "k + 1")
+    # the last register of a thread whose share ends past the plane
+    inside = ([f"(n < {regs - 1} || e < {r.plane})"]
+              if r.plane % g.threads else [])
+    decl = [f"    store_t h{k}[{regs}];  // ring {r.name}: the next plane, "
+            "raw",
+            f"    int a{k}[{regs}];  // each element's place in its slot"]
+    loop = ["#pragma unroll", f"      for (int n = 0; n < {regs}; ++n) {{"]
+    e = [f"        const int e = threadIdx.x + n * {g.threads};"]
+    load = ["    {"] + w.head + loop + e + w.elem + [
+        f"        const bool ok = {' && '.join(inside + w.guard)};",
+        f"        h{k}[n] = race_fetch(ok ? src + {w.off} : in{w.ix}, ok);",
+        f"        a{k}[n] = {w.pos};",
         "      }",
         "    }",
     ]
-    return lines
+    slot = _slot_base(tp, k, f"r{k} + 1 == {r.depth} ? 0 : r{k} + 1")
+    guard = f"if {inside[0]} " if inside else ""
+    store = ["    {", slot] + loop + (e if inside else []) + [
+        f"        {guard}dst[a{k}[n]] = race_acc(h{k}[n]);",
+        "      }",
+        "    }",
+    ]
+    return decl, load, store
 
 
 def render_cuda(tp: TileProgram, summed: bool = False) -> str:
@@ -552,13 +613,15 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     for k in streamed:
         lines.append(f"  int r{k} = 0;  // ring {g.rings[k].name}: slot of "
                      f"its lead, (k - {g.k0}) mod {g.rings[k].depth}")
+    half = kd.width == 2  # no cp.async: the next plane through registers
     if staged:  # the planes of the first step
         for k in staged:
             if g.rings[k].start <= g.k0:
                 lines += _stage(tp, k, str(g.k0), "0")
-        lines.append("  race_cp_async_commit();")
+        if not half:
+            lines.append("  race_cp_async_commit();")
     lines.append(f"  for (int k = {g.k0}; k < {g.seg}; ++k) {{")
-    if staged:  # this step's planes have landed
+    if staged and not half:  # this step's planes have landed
         lines.append("    race_cp_async_wait<0>();")
     lines.append("    __syncthreads();")
     if s:
@@ -571,15 +634,28 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
                 f"{r.depth - back})")
         lines.append(f"    const int b{ring}_{back} = {r.offset} + {slot} * "
                      f"{r.plane};")
-    if staged:  # the planes of the next step, into the slot after the lead
-        lines.append(f"    if (k + 1 < {g.seg}) {{")
+    def next_planes(code: dict) -> list:
+        """``code[k]``, ring ``k``'s code for its plane of the next step,
+        under that plane's conditions."""
+        out = [f"    if (k + 1 < {g.seg}) {{"]
         for k in staged:
-            r = g.rings[k]
-            if r.start > g.k0 + 1:
-                lines.append(f"    if (k + 1 >= {r.start})")
-            lines += _stage(tp, k, "k + 1",
-                            f"(r{k} + 1 == {r.depth} ? 0 : r{k} + 1)")
-        lines += ["    }", "    race_cp_async_commit();"]
+            if g.rings[k].start > g.k0 + 1:
+                out.append(f"    if (k + 1 >= {g.rings[k].start})")
+            out += code[k]
+        return out + ["    }"]
+
+    nexts = {k: _next_plane(tp, k) for k in staged} if half else {}
+    if nexts:
+        lines += ["    // the next step's planes, loaded into registers now "
+                  "and stored after the",
+                  "    // body: the loads are in flight while the step "
+                  "computes"]
+        lines += [ln for k in staged for ln in nexts[k][0]]
+        lines += next_planes({k: nexts[k][1] for k in staged})
+    elif staged:  # cp.async into the slot after the lead
+        lines += next_planes({k: _stage(
+            tp, k, "k + 1", f"(r{k} + 1 == {g.rings[k].depth} ? 0 : r{k} + "
+            "1)") for k in staged}) + ["    race_cp_async_commit();"]
     phases = sorted({g.rings[k].phase for k in range(n_aux)
                      if g.rings[k].streamed})
     for ph in phases:
@@ -622,6 +698,10 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
                    f"{off}")
         lines.append(f"      race_store(out{k} + ({off}), {val});")
     lines += ["    }", "    }"]
+    if nexts:
+        lines.append("    // the next step's planes, converted into the "
+                     "slot after the lead")
+        lines += next_planes({k: nexts[k][2] for k in staged})
     for k in streamed:
         lines.append(f"    r{k} = r{k} + 1 == {g.rings[k].depth} ? 0 : "
                      f"r{k} + 1;")

@@ -6,6 +6,7 @@ here) and float16 gradients against the reference's ``jax.grad``.
 numpy has no bfloat16, so a bfloat16 env is the float32 ``build_env``
 rounded to nearest even on both sides (``jnp.bfloat16``, ``torch.bfloat16``);
 the test checks that both packages see the same bits."""
+import hashlib
 import re
 
 import numpy as np
@@ -21,8 +22,10 @@ from repro.core.race import race as ref_race
 
 import repro_torch
 from repro_torch.apps import get_case
+from repro_torch.apps.paper_kernels import pop_hdifft_gm
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import executor
+from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
 from repro_torch.core.backend import probe_hopper
 from repro_torch.core.codegen import required_shapes
 from repro_torch.kernels.build import CSRC, included_headers
@@ -115,12 +118,38 @@ def test_mixed_and_integer_dtypes_keep_hopper_dtype(dtypes):
         dtypes[0] in KERNEL_DTYPES)
 
 
+def _without_staging(src: str) -> str:
+    """``src`` with the staging of its operands' later planes taken out:
+    at 4 and 8 bytes ``cp.async``'s commits, its wait and its next-plane
+    block; at 2 bytes the registers' comments and declarations and the
+    next-plane load and store blocks.  What stays (the first plane's
+    staging included) is what a half kernel shares with the float32
+    kernel of its plan."""
+    out, depth = [], 0
+    for line in src.split("\n"):
+        if depth:
+            depth += line.count("{") - line.count("}")
+            continue
+        if line.startswith("    if (k + 1 < ") and line.endswith(") {"):
+            depth = 1
+            continue
+        if line.strip() in ("race_cp_async_commit();",
+                            "race_cp_async_wait<0>();") or line.startswith(
+                ("    // the next step's planes", "    // body: the loads",
+                 "    store_t h", "    int a")):
+            continue
+        out.append(line)
+    return "\n".join(out)
+
+
 @pytest.mark.parametrize("which", ["r0", "default"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_half_geometry_is_the_float32_geometry(name, which):
     """Shared memory holds float for both half types, so a half plan's
     geometry and shared bytes equal the float32 plan's; its source differs
-    only in the types the kernel is instantiated for."""
+    only in the types the kernel is instantiated for and in how the
+    operands' later planes are staged (through registers across the step
+    at 2 bytes, by ``cp.async`` at 4)."""
     case = get_case(name, SWEEP_SIZES[name])
     lvl = 0 if which == "r0" else case.reassociate
     res = repro_torch.race(case.program, reassociate=lvl,
@@ -134,15 +163,128 @@ def test_half_geometry_is_the_float32_geometry(name, which):
             tps[dt].smem_elems * 4)
     srcs = {dt: specialize_stencil(res.plan, shapes, {k: dt for k in shapes})
             .source for dt in tps}
+    f32 = _without_staging(srcs["float32"]).replace(
+        "if (dtype == 0) return launch<float, float>(", "")
+    staged = any(r.operand for r in tps["float32"].geometry.rings)
     for dt, src in srcs.items():
         kd = KERNEL_DTYPES[dt]
         code = list(KERNEL_DTYPES).index(dt)
         inst = (f"if (dtype == {code}) return launch<{kd.storage}, "
                 f"{kd.acc}>(")
         assert inst in src
-        assert src.replace(inst, "") == srcs["float32"].replace(
-            "if (dtype == 0) return launch<float, float>(", "").replace(
+        assert _without_staging(src).replace(inst, "") == f32.replace(
             "race_stencil.cuh", kd.header)
+        if dt != "float32":  # the staging itself differs where there is one
+            assert (src.replace(inst, "") != srcs["float32"].replace(
+                "if (dtype == 0) return launch<float, float>(", "").replace(
+                "race_stencil.cuh", kd.header)) == staged
+
+
+#: (case, n) of phase 4's float32 and float64 cells and the sha256 of each
+#: one's rendered source (``specialize_stencil(...).source``) before 2-byte
+#: operands were staged through registers: the float32 and float64 kernels
+#: stay byte for byte what they were
+F32_F64_SOURCES = {
+    ("j3d27pt", 512, "float32"):
+        "99cd1aafaa6433f786adffb609a9dd4a8a28f7018165000948509bdd539c1f5c",
+    ("poisson", 512, "float32"):
+        "827e5a25924021c122113692a384c164e7c1e8313c277e7f6b72c01433f19ac5",
+    ("derivative", 256, "float64"):
+        "6c507965a07cd6653258a66d81843c6ddca38b3d07b3ad4fb59a16d4e8a63081",
+    ("hdifft_gm", 8192, "float32"):
+        "e7afa7024f8e81c67f52a730395f4774211817f81cc7f34ef2a50e9875c81b64",
+    # the summed kernel of j3d27pt n=64's adjoint of its scalar jc1, float32
+    ("j3d27pt:jc1", 64, "float32"):
+        "a5b57f2f5c89b648d0d33a9e5412efa19257f36df70a462239568e0b436d3928",
+}
+
+
+def _phase4_case(name: str, n: int):
+    return pop_hdifft_gm(n, n) if name == "hdifft_gm" else get_case(name, n)
+
+
+@pytest.mark.parametrize("name,n,dtype", list(F32_F64_SOURCES))
+def test_float32_and_float64_sources_are_unchanged(name, n, dtype):
+    name, _, scalar = name.partition(":")
+    case = _phase4_case(name, n)
+    shapes = required_shapes(case.program)
+    if scalar:
+        spec = next(s for s in adjoint_build(case.program).specs
+                    if s.input == scalar)
+        assert spec.scalar
+        adj = adjoint_env_shapes(spec, case.program, shapes)
+        src = specialize_stencil(spec.result().plan, adj, {
+            k: dtype for k in adj}).source_for(1, summed=True)
+        assert "race_block_sum(" in src
+    else:
+        res = repro_torch.race(case.program, reassociate=case.reassociate)
+        src = specialize_stencil(res.plan, shapes,
+                                 {k: dtype for k in shapes}).source
+    assert "race_cp_async_commit();" in src
+    assert hashlib.sha256(src.encode()).hexdigest() == F32_F64_SOURCES[
+        name + (":" + scalar if scalar else ""), n, dtype]
+
+
+#: phase 4's half cells: (case, n) -> the next-plane registers of each
+#: staged ring, ceil(plane / threads) (256 threads)
+HALF_REGISTERS = {("j3d27pt", 512): {"u": 5},
+                  ("poisson", 512): {"fp": 4, "u": 5},
+                  ("hdifft_gm", 8192): {"S": 5, "T": 5}}
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("name,n", list(HALF_REGISTERS))
+def test_half_source_loads_the_next_plane_across_the_step(name, n, dtype):
+    """Phase 4's half kernels: at the head of each step, before the first
+    aux phase and with no barrier between, every thread issues its share
+    of each staged ring's next plane into ``store_t`` registers
+    (``race_fetch``, in a fully unrolled loop); after the body it converts
+    them into the slot after the lead, ``(r + 1) mod depth``, which no read
+    of the step touches; no ``cp.async`` is issued, and the first plane is
+    staged before the march as the float32 kernel stages it."""
+    case = _phase4_case(name, n)
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    shapes = required_shapes(case.program)
+    spec = specialize_stencil(res.plan, shapes, {k: dtype for k in shapes})
+    f32 = specialize_stencil(res.plan, shapes, {k: "float32" for k in shapes})
+    g = spec.tp.geometry
+    src = spec.source
+    assert "cp_async" not in src and "cp.async" not in src
+    head, march = src.split(f"  for (int k = {g.k0}; k < {g.seg}; ++k) {{\n")
+    # the first plane: race_stage's converting loads, as float32's
+    first = f32.source.split("  race_cp_async_commit();")[0]
+    first = first[first.index("  int r"):]
+    assert head.endswith(first)
+    assert "race_stage(" in first and "race_fetch" not in head
+    step = march.split("\n    // body: one output plane")
+    loads, rest = step[0], step[1]
+    assert loads.startswith("    __syncthreads();\n")
+    first_aux = loads.index("    // aux ")
+    assert "__syncthreads" not in loads[len("    __syncthreads();"):first_aux]
+    staged = {r.name: k for k, r in enumerate(g.rings) if r.operand}
+    assert {nm: -(-g.rings[k].plane // g.threads) for nm, k in staged.items()
+            } == HALF_REGISTERS[name, n]
+    stores = rest[:rest.index("    r0 = r0 + 1")]
+    for nm, k in staged.items():
+        r, regs = g.rings[k], HALF_REGISTERS[name, n][nm]
+        reads = {rd.back for rd in g.reads.values() if rd.ring == k}
+        assert max(reads) + 2 == r.depth  # so slot r + 1 is not read
+        decl = f"    store_t h{k}[{regs}];"
+        fetch = f"        h{k}[n] = race_fetch(ok ? src + "
+        assert 0 <= loads.index(decl) < loads.index(fetch) < first_aux
+        loop = loads[loads.rindex("#pragma unroll", 0, loads.index(fetch)):]
+        assert loop.startswith(f"#pragma unroll\n      for (int n = 0; n < "
+                               f"{regs}; ++n) {{\n        const int e = "
+                               f"threadIdx.x + n * {g.threads};")
+        # the guards of race_stage's element, plus the plane's end
+        ok = loop[loop.index("const bool ok = "):].split(";")[0]
+        assert "zok && " in ok and ("e < " in ok) == (r.plane % g.threads != 0)
+        slot = (f"smem + {r.offset} + (r{k} + 1 == {r.depth} ? 0 : r{k} + 1)"
+                f" * {r.plane};")
+        assert slot in stores and "race_fetch" not in stores
+        assert f"dst[a{k}[n]] = race_acc(h{k}[n]);" in stores[
+            stores.index(slot):]
+        assert stores.count(f"h{k}[n]") == 1
 
 
 @pytest.mark.parametrize("dtype", list(HALF))
@@ -167,9 +309,11 @@ def test_half_source_converts_and_issues_no_two_byte_cp_async():
     """The rendered source instantiates the kernel for ``__half`` computed
     in float and for nothing else, includes the half header (which the
     float32 source does not), converts every operand read and output
-    store, and stages through ``race_stage``; the headers' only
-    ``cp.async`` sizes are 4 and 8 bytes, the half overloads of
-    ``race_stage`` are converting loads."""
+    store, stages its first plane through ``race_stage`` and every later
+    one through ``race_fetch`` into registers, converted by ``race_acc``
+    into shared memory; the headers' only ``cp.async`` sizes are 4 and 8
+    bytes, the half overloads of ``race_stage`` are converting loads and
+    those of ``race_fetch`` raw loads, zero where the guard fails."""
     case = get_case("j3d27pt", 64)
     res = repro_torch.race(case.program, reassociate=case.reassociate)
     shapes = required_shapes(case.program)
@@ -183,6 +327,8 @@ def test_half_source_converts_and_issues_no_two_byte_cp_async():
         assert (inst in src) == (dt == "float16")
     assert "race_store(out0 + (" in src
     assert "race_stage(" in src and "cp.async" not in src
+    assert "= race_fetch(" in src and "] = race_acc(h" in src
+    assert "race_cp_async" not in src
     md = get_case("mirror_deriv", 14)  # mirrored: read in place, converted
     res = repro_torch.race(md.program, reassociate=md.reassociate)
     shapes = required_shapes(md.program)
@@ -206,6 +352,11 @@ def test_half_source_converts_and_issues_no_two_byte_cp_async():
                          + store_t + r"\* src,\s*bool ok\) \{(.*?)\}",
                          header, re.S).group(1)
         assert conv in body and "cp_async" not in body
+        body = re.search(store_t + r" race_fetch\(const " + store_t
+                         + r"\* src,\s*bool ok\) \{(.*?)\}", header,
+                         re.S).group(1)
+        assert re.fullmatch(r"\s*return ok \? \*src : __ushort_as_\w+\(0\);"
+                            r"\s*", body) and "cp_async" not in body
         assert re.search(r"float race_acc\(" + store_t + r" x\) \{\s*return "
                          + conv, header)
     for store_t, conv in (("__half", "__float2half_rn"),
