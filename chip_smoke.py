@@ -44,18 +44,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
   5. gradient sweep: the 19 cases at three times the test sizes, float32,
      ``torch.autograd.grad`` of a cosine-projection loss through
      ``res.run(env)`` against autograd of the float64 baseline program
-     within ``grad``; every adjoint spec's backend and probe codes are
-     printed, every spec must be on the kernel and launch it once in the
-     backward (refused adjoint builds print their code and take autograd);
+     within ``grad``; the backend and probe codes of every adjoint run
+     (each array spec, and the scalars as one group where there are two or
+     more, ``adjoint_runs``) are printed, every run must be on the kernel
+     and launch it once in the backward, and each scalar of a group must
+     get, bit for bit, the gradient that group's launch gives it
+     (:func:`group_gate`; refused adjoint builds print their code and take
+     autograd);
   6. gradient at full size: the four cells of phase 4 and j3d27pt n=512 at
      float16, the backward through ``res.run`` timed (CUDA events, median
      of 10 after a warm-up), its kernel launches counted (zeroed just
-     before; every adjoint spec on K1), the gradients held against the same
-     adjoint plans on ``"torch"`` within ``plan`` (float16: ``grad``, as K1
-     computes in float32 and ``"torch"`` op by op in float16), and the
-     adjoint kernels timed beside their bound and their ``"torch"`` time;
-     last, the float16 backward's and adjoint kernels' times beside the
-     float32 ones of the same cell (this run);
+     before; every adjoint run on K1, launched once, the group gate), the
+     gradients held against the same adjoint plans on ``"torch"`` within
+     ``plan`` (float16: ``grad``, as K1 computes in float32 and
+     ``"torch"`` op by op in float16), and the adjoint kernels timed beside
+     their bound and their ``"torch"`` time; the scalars' group timed in
+     turns beside its members' own summed launches, one per scalar (as the
+     backward ran them before the group), with the byte bounds of both
+     ways, and j3d27pt's beside ``torch.nn.grad.conv3d_weight`` (its 27
+     taps folded into the 5 scalars); last, the float16 backward's and
+     adjoint kernels' times beside the float32 ones of the same cell (this
+     run);
   7. fused cross-entropy (K4) at the reference's test shapes and at four
      whose T, D and V are no multiple of the tensor-core kernels' tiles (D
      = 37 no multiple of 4), float32 and bfloat16, each with one label out
@@ -98,8 +107,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      timed in turns against the long segments' (:func:`long_blocks`) or,
      where it is that, against the one it gives a single example
      (:func:`geometry_turns`).  Then ``torch.autograd.grad`` through
-     ``run_batch`` for j3d27pt_b8: each adjoint spec's kernel launches
-     once for the batch, each example's gradient is held against ``run``'s
+     ``run_batch`` for j3d27pt_b8: each adjoint run's kernel (the ``u``
+     spec's and the scalars' group's) launches once for the batch, the
+     group gate holds, each example's gradient is held against ``run``'s
      within ``grad``, and the batched backward, a loop of B backwards and
      the adjoint kernels are timed;
  10. second order: a Hessian-vector product of ``sum(run(u)**2)`` for
@@ -224,10 +234,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      radius 2, built by ``repro_torch.launch.train``'s ``setup`` (4 x 512
      synthetic tokens, AdamW at 3e-4, its chunk defaults) and trained 6
      steps through ``Trainer``; K1's launch counts (zeroed just before) on
-     the mixer's forward and on each adjoint spec's executor must equal the
-     steps, every adjoint spec must be on K1, every loss finite; the
-     mixer's gradients with respect to ``sx`` and the taps at the step's
-     shape on K1 against ``"torch"`` within ``grad``; the step's ms
+     the mixer's forward and on each adjoint run's executor (``sx``'s, and
+     the three taps' group) must equal the steps, every adjoint run must
+     be on K1, every loss finite; the mixer's gradients with respect to
+     ``sx`` and the taps at the step's shape on K1 against ``"torch"``
+     within ``grad``, each tap's bit for bit its group's (the group
+     gate); the step's ms
      (median of steps 2-6, synchronized), tokens/s, peak memory, the bound
      (operations: 6 flop per matrix weight and token plus the causal
      attention's at 989 TFLOP/s; bytes: AdamW's reads and writes) and its
@@ -269,7 +281,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
      one-device steps run first, timed), the loss falling, K1 once a step
      on every position (an ``spmd_mixer`` span per position in
      ``repro_torch.obs``) and its launch counts (zeroed just before) on the
-     forward and every adjoint spec 4 per step; the position's mixer on
+     forward and every adjoint run (``sx``'s and the taps' group) 4 per
+     step; the position's mixer on
      K1 against ``"torch"`` (``plan``; gradients ``grad``); step ms beside
      the one-device step's, peak memory and the transfer log's bytes by
      kind, and the dry run's activation term at the cell's shapes (four
@@ -287,8 +300,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
      units) on the mesh, decode against prefill within 1e-3.  K1 against
      ``F.conv1d`` and ``torch.mv`` at mesh positions' mixer shapes
      (:data:`MIXER_CONV_CHANNELS`) and the full-width mixer, the forward,
-     the ``sx`` adjoint and the summed tap adjoints, each also at long
-     segments (:func:`long_blocks`), every geometry printed, timed in
+     the ``sx`` adjoint and the tap adjoints (their group's one summed
+     launch, and each tap's own as before the group), each but the group
+     also at long segments (:func:`long_blocks`), every geometry printed,
+     timed in
      turns one call at a time and queued behind a spin
      (:func:`mixer_vs_conv1d`).  The ``launch.train --mesh ...
      --devices`` CLI on the reduced config with the mixer; one
@@ -360,6 +375,7 @@ sweep ``Tf32x3Op``'s constants (``csrc/fused_ce.cu``) are set from.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -813,11 +829,20 @@ def cos_weights(outs: dict, torch) -> dict:
             .reshape(v.shape) for k, v in outs.items()}
 
 
-def adjoint_sources(case, res, dt, batch: int = 1) -> list:
+def unit_label(unit) -> str:
+    """An adjoint run's name: its input, or its scalar group's members
+    joined by ``+``."""
+    return "+".join(s.input for s in unit.members)
+
+
+def adjoint_sources(case, res, dt, batch: int = 1,
+                    members: bool = True) -> list:
     """Kernel sources of the case's adjoint plans that ``"auto"`` sends to
     the kernel at the case's full shapes, built ahead of the backward (a
     scalar's: the summed kernel, which the backward runs), for launches of
-    ``batch`` examples."""
+    ``batch`` examples: the scalars' group's, which a backward of every
+    input runs, and each spec's but, without ``members``, the group's
+    members' (phase 6 times them beside the group)."""
     import numpy as np
 
     from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
@@ -827,37 +852,99 @@ def adjoint_sources(case, res, dt, batch: int = 1) -> list:
 
     shapes = required_shapes(case.program)
     dname = np.dtype(dt).name
+    build = adjoint_build(case.program)
+    group = build.scalar_group([s.input for s in build.specs])
+    units = [s for s in build.specs
+             if members or group is None or s not in group.members]
     out = []
-    for spec in adjoint_build(case.program).specs:
-        plan = spec.result().plan
-        adj = adjoint_env_shapes(spec, case.program, shapes)
+    for unit in units + ([group] if group else []):
+        plan = unit.result().plan
+        adj = adjoint_env_shapes(unit, case.program, shapes)
         if select_backend(plan, "auto", [dname]).backend == "hopper":
             sp = specialize_stencil(plan, adj, {k: dname for k in adj})
-            out.append(sp.source_for(batch, spec.scalar))
+            out.append(sp.source_for(batch, unit.scalar))
     return out
 
 
-def adjoint_call(spec, ex, a, batched: bool = False):
-    """A thunk of the call the backward makes of one adjoint plan's
-    executor: a scalar's :meth:`run_sum` (on K1 the summed kernel's
-    partials), else ``run`` / ``run_batch``."""
-    if spec.scalar:
+def adjoint_call(unit, ex, a, batched: bool = False):
+    """A thunk of the call the backward makes of one adjoint program's
+    executor: a scalar's or a scalar group's :meth:`run_sum` (on K1 the
+    summed kernel's partials), else ``run`` / ``run_batch``."""
+    if unit.scalar:
         return lambda: ex.run_sum(a, batched)
     return (lambda: ex.run_batch(a)) if batched else (lambda: ex(a))
 
 
-def adjoint_executors(program, env, g) -> list:
-    """``(spec, adjoint env, executor)`` for each adjoint plan, as the
-    backward fetches them from the executor cache (default backend)."""
+def spec_executors(units, env, g, batched: bool = False) -> list:
+    """``(unit, adjoint env, executor)`` of each adjoint program of
+    ``units`` (default backend), as the backward fetches them from the
+    executor cache; ``batched``: ``env`` and ``g`` are stacked."""
     from repro_torch import compile_plan
-    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
+    from repro_torch.core.adjoint import assemble_adjoint_env
+    from repro_torch.core.executor import stacked_signature
 
     out = []
-    for spec in adjoint_build(program).specs:
-        adj_env = assemble_adjoint_env(spec, env, g)
-        out.append((spec, adj_env,
-                    compile_plan(spec.result().plan, adj_env)))
+    for unit in units:
+        a = assemble_adjoint_env(unit, env, g)
+        plan = unit.result().plan
+        out.append((unit, a, compile_plan(
+            plan, stacked_signature(a), device=DEVICE) if batched
+            else compile_plan(plan, a)))
     return out
+
+
+def adjoint_executors(program, env, g, batched: bool = False) -> list:
+    """``(unit, adjoint env, executor)`` for each adjoint program a
+    first-order backward of every input runs (``adjoint_runs``: each array
+    spec, then the scalars' group where it is admitted, else each scalar
+    spec)."""
+    from repro_torch.core.adjoint import adjoint_build, adjoint_runs
+
+    return spec_executors(adjoint_runs(adjoint_build(program), env, g,
+                                       list(env)), env, g, batched)
+
+
+@contextlib.contextmanager
+def captured_sums(adj):
+    """Records what each executor of ``adj`` returns from ``run_sum`` in
+    the block: ``{id(executor): [outputs, ...]}``."""
+    seen = {}
+    for _, _, ex in adj:
+        def record(env, batched=False, _run=ex.run_sum, _key=id(ex)):
+            out = _run(env, batched)
+            seen.setdefault(_key, []).append(out)
+            return out
+
+        ex.run_sum = record
+    try:
+        yield seen
+    finally:
+        for _, _, ex in adj:
+            ex.__dict__.pop("run_sum", None)
+
+
+def group_gate(adj, seen, env, grads: dict) -> list:
+    """The gate on each scalar group of ``adj``: its executor's
+    ``run_sum`` ran once in the backward (``seen``, from
+    :func:`captured_sums`), and each member's gradient in ``grads`` is,
+    bit for bit, what that run's partials give it.  Returns the failures."""
+    import torch
+
+    from repro_torch.core.adjoint import ScalarGroup, finalize_adjoint
+
+    bad = []
+    for unit, _, ex in adj:
+        if not isinstance(unit, ScalarGroup):
+            continue
+        runs = seen.get(id(ex), [])
+        if len(runs) != 1:
+            bad.append(f"group {unit_label(unit)} ran {len(runs)} times")
+            continue
+        for m in unit.members:
+            want = finalize_adjoint(m, env, runs[0][m.gu])
+            if not torch.equal(grads[m.input].reshape(want.shape), want):
+                bad.append(f"{m.input}'s gradient is not its group's")
+    return bad
 
 
 def grad_sweep(sweep_cases, torch) -> list:
@@ -881,10 +968,13 @@ def grad_sweep(sweep_cases, torch) -> list:
         build = adjoint_build(case.program)
         adj = adjoint_executors(case.program, env, g)
         before = [ex.kernel_launches for _, _, ex in adj]
-        grads = torch.autograd.grad([out[k] for k in g],
-                                    [p[k] for k in keys],
-                                    [g[k] for k in g], allow_unused=True)
+        with captured_sums(adj) as seen:
+            grads = torch.autograd.grad([out[k] for k in g],
+                                        [p[k] for k in keys],
+                                        [g[k] for k in g], allow_unused=True)
         torch.cuda.synchronize()
+        launches = [ex.kernel_launches - b for (_, _, ex), b in zip(
+            adj, before)]
         env64 = {k: v.double().requires_grad_() if k in keys else v
                  for k, v in env.items()}
         base = interior(res.plan, res.baseline_evaluator()(env64))
@@ -899,14 +989,18 @@ def grad_sweep(sweep_cases, torch) -> list:
                        for k, v in zip(keys, want)})
         specs = []
         ok = err <= tol
-        for (spec, _, ex), b in zip(adj, before):
-            launched = ex.kernel_launches - b
+        for (unit, _, ex), launched in zip(adj, launches):
             codes = ",".join(r.code for r in ex.selection.capability.reasons)
-            specs.append(f"{spec.input}:{ex.backend}"
+            specs.append(f"{unit_label(unit)}:{ex.backend}"
                          f"[{codes or 'eligible'}] launches {launched}")
             ok &= ex.backend == "hopper" and launched == 1
             on_kernel += ex.backend == "hopper"
-        adjoint = ("adjoint " + "; ".join(specs) if build.ok
+        # every spec in exactly one run; each group's scalars from its launch
+        covered = sorted(s.input for u, _, _ in adj for s in u.members)
+        ok &= covered == sorted(s.input for s in build.specs)
+        bad = group_gate(adj, seen, env, dict(zip(keys, grads)))
+        ok &= not bad
+        adjoint = ("adjoint " + "; ".join(specs + bad) if build.ok
                    else f"autodiff fallback: {build.reason}")
         line = (f"grad {case.name} r{case.reassociate} float32: grads vs "
                 f"float64 baseline {err:.2e} (<= {tol:.0e}); {adjoint} "
@@ -914,18 +1008,61 @@ def grad_sweep(sweep_cases, torch) -> list:
         print(line, flush=True)
         if not ok:
             failures.append(line)
-    print(f"grad sweep: {on_kernel} adjoint specs on the kernel", flush=True)
+    print(f"grad sweep: {on_kernel} adjoint runs on the kernel", flush=True)
     return failures
 
 
+def scalar_library_call(case, env, g, absolute: bool = False):
+    """j3d27pt's scalar gradients by one library call, as a thunk, or None
+    for the other cells: ``torch.nn.grad.conv3d_weight`` of ``u`` and the
+    cotangent gives the gradient ``dW`` of the 27 weights of
+    :func:`library_call`'s ``F.conv3d`` (TF32 off: ``main`` clears it),
+    then the fold of those 27 numbers into the 5 scalars: a tap's weight is
+    ``jc<c> / jnorm`` (``c`` its nonzero offsets), so ``d jc<c>`` sums
+    ``dW / jnorm`` over the taps of ``c`` and ``d jnorm`` is ``-sum dW w /
+    jnorm``.  ``absolute``: the same of ``|u|``, ``|g|`` and ``|w|``, each
+    scalar's sum of the absolute values of its terms (the scale its
+    float32 sums are rounded against)."""
+    if case.name != "j3d27pt":
+        return None
+    import torch
+
+    u, gy = env["u"][None, None], g["j27"][None, None]
+    offs = torch.tensor(list(itertools.product((-1, 0, 1), repeat=3)))
+    count = (offs != 0).sum(1).reshape(3, 3, 3).to(u.device)
+    masks = [count == c for c in range(4)]
+    jc = torch.stack([env[f"jc{c}"] for c in range(4)]).double()
+    jn = env["jnorm"].double()
+    w = jc[count] / jn
+    if absolute:  # in float32: float16 sums of 1.3e8 terms overflow
+        u, gy = u.abs().float(), gy.abs().float()
+        jn, w = jn.abs(), w.abs()
+
+    def run():
+        # cuDNN's benchmark search over its first two algorithms: at 512^3
+        # float32 the heuristic's own pick ran ~35x slower, and a full
+        # search cost more than the rest of phase 6 (PERF.md §6)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                        benchmark_limit=2,
+                                        deterministic=False,
+                                        allow_tf32=False):
+            dw = torch.nn.grad.conv3d_weight(u, (1, 1, 3, 3, 3), gy)
+        dw = dw[0, 0].double()
+        out = {f"jc{c}": dw[m].sum() / jn for c, m in enumerate(masks)}
+        out["jnorm"] = -(dw * w).sum() / jn
+        return {k: v.abs() for k, v in out.items()} if absolute else out
+
+    return run
+
+
 def grad_full_size(case, dt, res, torch) -> tuple:
-    """Phase 6 for one cell; returns its kernel line (the adjoint plans'
-    kernels) and the backward's ms, and prints the backward's time and
-    launches."""
+    """Phase 6 for one cell; returns its kernel lines (the adjoint plans'
+    kernels, and the scalars' group's alone where there is one) and the
+    backward's ms, and prints the backward's time and launches."""
     import numpy as np
 
     from repro_torch import compile_plan
-    from repro_torch.core.adjoint import backward
+    from repro_torch.core.adjoint import ScalarGroup, adjoint_build, backward
     from repro_torch.testing import default_tolerances, rel_err, torch_env
     from repro_torch.testing.differential import dtype_name
 
@@ -938,7 +1075,7 @@ def grad_full_size(case, dt, res, torch) -> tuple:
     out = res.run({**env, **p}, device=DEVICE)
     g = cos_weights(out, torch)
     adj = adjoint_executors(case.program, env, g)
-    kern = [(spec, a, ex) for spec, a, ex in adj if ex.backend == "hopper"]
+    kern = [(unit, a, ex) for unit, a, ex in adj if ex.backend == "hopper"]
     for _, _, ex in kern:
         ex.spec.launches = 0
 
@@ -948,12 +1085,18 @@ def grad_full_size(case, dt, res, torch) -> tuple:
                                    [g[k] for k in g], retain_graph=True,
                                    allow_unused=True)
 
-    grads = bwd()
+    with captured_sums(adj) as seen:
+        grads = bwd()
     torch.cuda.synchronize()
-    launches = sum(ex.kernel_launches for _, _, ex in kern)
-    if not kern or launches != len(kern):
-        raise SystemExit(f"{case.name}: the backward launched {launches} "
-                         f"kernels for {len(kern)} admitted adjoint plans")
+    per_run = [ex.kernel_launches for _, _, ex in kern]
+    launches = sum(per_run)
+    if not kern or len(kern) != len(adj) or per_run != [1] * len(kern):
+        raise SystemExit(f"{case.name}: the backward launched {per_run} "
+                         f"kernels for {len(adj)} adjoint runs, want 1 each "
+                         f"on K1")
+    bad = group_gate(adj, seen, env, dict(zip(keys, grads)))
+    if bad:
+        raise SystemExit(f"{case.name}: {'; '.join(bad)}")
     plain = backward(case.program, env, g, backend="torch")
     e_plan = rel_err({k: v for k, v in zip(keys, grads) if v is not None},
                      {k: plain[k] for k, v in zip(keys, grads)
@@ -966,40 +1109,120 @@ def grad_full_size(case, dt, res, torch) -> tuple:
     if e_plan > tol:
         raise SystemExit(f"{case.name}: backward vs torch adjoint plans "
                          f"{e_plan:.2e} > {tol:.0e}")
-    del grads, plain
+    group = next(((u, a, ex) for u, a, ex in kern
+                  if isinstance(u, ScalarGroup)), None)
+    group_abs = None if group is None else max(
+        float((v.double() - plain[k].double()).abs().max())
+        for k, v in zip(keys, grads) if k in unit_label(group[0]).split("+"))
+    grads = dict(zip(keys, grads))
+    del plain
     backward_ms = _time_ms(bwd, torch)
     plain_backward_ms = _time_ms(
         lambda: backward(case.program, env, g, backend="torch"), torch)
     kernel_ms = torch_ms = 0.0
     nbytes = ops = 0
     itemsize = ITEMSIZE[dname]
-    per_spec = []
-    for spec, a, ex in kern:
-        ms = _time_ms(adjoint_call(spec, ex, a), torch)
+    per_spec, unit_work = [], {}
+    for unit, a, ex in kern:
+        ms = _time_ms(adjoint_call(unit, ex, a), torch)
         kernel_ms += ms
-        per_spec.append(f"{spec.input} {ms:.4f}")
-        ex_t = compile_plan(spec.result().plan, a, "torch")
-        torch_ms += _time_ms(lambda: ex_t(a), torch)
-        b, o = plan_work(spec.result().plan, a, itemsize, spec.scalar)
+        per_spec.append(f"{unit_label(unit)} {ms:.4f}")
+        ex_t = compile_plan(unit.result().plan, a, "torch")
+        t_ms = _time_ms(lambda: ex_t(a), torch)
+        torch_ms += t_ms
+        b, o = plan_work(unit.result().plan, a, itemsize, unit.scalar)
         nbytes, ops = nbytes + b, ops + o
+        unit_work[id(unit)] = (ms, t_ms, b, o)
     bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
-    on_torch = [f"{spec.input}[{','.join(r.code for r in ex.selection.capability.reasons)}]"
-                for spec, _, ex in adj if ex.backend != "hopper"]
+    # the byte bound of the per-spec way: every spec its own launch
+    old_bytes = sum(unit_work[id(u)][2] for u, _, _ in kern
+                    if not isinstance(u, ScalarGroup))
+    on_torch = [f"{unit_label(u)}[{','.join(r.code for r in ex.selection.capability.reasons)}]"
+                for u, _, ex in adj if ex.backend != "hopper"]
     label = case.name if dname not in HALF_DTYPES else f"{case.name} {dname}"
-    print(f"grad-main {case.name} {dname}: adjoint specs {len(adj)}, on the "
-          f"kernel {len(kern)}, on torch {on_torch or 'none'}; backward "
-          f"launches {launches}, backward_ms {backward_ms:.4f} (torch "
-          f"adjoint plans {plain_backward_ms:.4f}); adjoint kernels "
-          f"kernel_ms {kernel_ms:.4f}, torch_ms {torch_ms:.4f}, bytes "
-          f"{nbytes}, bound_ms {bound_ms:.4f} ({by}), share of bound "
+    print(f"grad-main {case.name} {dname}: adjoint specs "
+          f"{len(adjoint_build(case.program).specs)} in {len(adj)} runs "
+          f"({', '.join(unit_label(u) for u, _, _ in adj)}), on the kernel "
+          f"{len(kern)}, on torch {on_torch or 'none'}; backward launches "
+          f"{launches}, backward_ms {backward_ms:.4f} (torch adjoint plans "
+          f"{plain_backward_ms:.4f}); adjoint kernels kernel_ms "
+          f"{kernel_ms:.4f}, torch_ms {torch_ms:.4f}, bytes {nbytes}, "
+          f"bound_ms {bound_ms:.4f} ({by}), share of bound "
           f"{bound_ms / kernel_ms:.3f}; grads vs torch {e_plan:.2e} (<= "
-          f"{tol:.0e}), max_abs_err {max_abs:.3e}; per spec ms: "
+          f"{tol:.0e}), max_abs_err {max_abs:.3e}; per run ms: "
           f"{', '.join(per_spec)}", flush=True)
-    return dict(name=f"race_stencil[{label} adjoint]", route="cuda",
-                source="src/repro_torch/lowering/emit.py",
-                replaces="src/repro/lowering/emit.py:273", launches=launches,
-                max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None), backward_ms
+    common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
+                  replaces="src/repro/lowering/emit.py:273")
+    entries = [dict(name=f"race_stencil[{label} adjoint]", launches=launches,
+                    max_abs_err=max_abs, ms=kernel_ms, plain_ms=torch_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=None,
+                    **common)]
+    if group is None:
+        old_ms = bound_of(old_bytes, 0, PEAK_FLOPS[dname])[0]
+        print(f"grad-main {case.name} {dname}: no scalar group; byte bound "
+              f"{old_ms:.4f} ms", flush=True)
+        return entries, backward_ms
+    unit, a, ex = group
+    members = spec_executors(unit.members, env, g)
+    off = [s.input for s, _, e in members if e.backend != "hopper"]
+    if off:
+        raise SystemExit(f"{case.name}: members {off} of the group are off "
+                         f"K1 alone")
+    old_bytes += sum(plan_work(s.result().plan, sa, itemsize, True)[0]
+                     for s, sa, _ in members)
+    # the group and its members' own summed launches, in turns
+    turns = []
+    for _ in range(2):
+        g_ms = _time_ms(adjoint_call(unit, ex, a), torch)
+        m_ms = [_time_ms(adjoint_call(s, e, sa), torch)
+                for s, sa, e in members]
+        turns.append((g_ms, m_ms))
+    ms, t_ms, b, o = unit_work[id(unit)]
+    g_bound, g_by = bound_of(b, o, PEAK_FLOPS[dname])
+    old_ms = bound_of(old_bytes, 0, PEAK_FLOPS[dname])[0]
+    new_ms = bound_of(nbytes, 0, PEAK_FLOPS[dname])[0]
+    tp = ex.spec.program(1)
+    geo = tp.geometry
+    lib, lib_ms, lib_txt = scalar_library_call(case, env, g), None, "none"
+    if lib is not None:
+        # each scalar sums ~1.3e8 terms of both signs: as for the taps
+        # (tap_adjoint_check), the float32 sums are held to plan of the
+        # sum of their terms' absolute values, the error relative to the
+        # scalar itself printed beside it
+        got = lib()
+        scale = scalar_library_call(case, env, g, absolute=True)()
+        torch.cuda.synchronize()
+        e_lib = max(abs(float(grads[k].double() - v)) / float(scale[k])
+                    for k, v in got.items())
+        e_rel = rel_err({k: grads[k] for k in got}, got)
+        lib_tol = default_tolerances(dt)["plan"]
+        if e_lib > lib_tol:
+            raise SystemExit(f"{case.name}: conv3d_weight and the group "
+                             f"disagree on the scalars ({e_lib:.2e} of the "
+                             f"absolute sums, {e_rel:.2e} of the scalars)")
+        lib_ms = _time_ms(lib, torch)
+        lib_txt = (f"conv3d_weight and the fold {lib_ms:.4f} ms, vs the "
+                   f"group {e_lib:.2e} of the absolute sums (<= "
+                   f"{lib_tol:.0e}), {e_rel:.2e} of the scalars")
+    print(f"grad-main {case.name} {dname} scalars {unit_label(unit)} on "
+          f"{_nvidia_smi()}: group (1 launch) {ms:.4f} ms, torch "
+          f"{t_ms:.4f}, bound {g_bound:.4f} ({g_by}), share of bound "
+          f"{g_bound / ms:.3f}; in turns group / members' {len(members)} "
+          f"launches ms "
+          f"{[(round(x, 4), round(sum(y), 4)) for x, y in turns]}, "
+          f"members each {[[round(v, 4) for v in y] for _, y in turns]}; "
+          f"backward byte bound {old_ms:.4f} ms per spec -> {new_ms:.4f} ms "
+          f"with the group; library {lib_txt}; group schedule "
+          f"{geometry_text(geo)}, smem {tp.smem_bytes} B, "
+          f"aux_evals_per_point {tp.aux_evals_per_point:.3f}, aux "
+          f"{[x.name for x in unit.result().plan.aux_order]}, resources "
+          f"{k1_resources(ex.spec.source_for(1, True))}", flush=True)
+    entries.append(dict(name=f"race_stencil[{label} adjoint scalars]",
+                        launches=1, max_abs_err=group_abs, ms=ms,
+                        plain_ms=t_ms, bound_ms=g_bound, bound_by=g_by,
+                        library_ms=lib_ms, **common))
+    del members
+    return entries, backward_ms
 
 
 def ce_sweep(torch) -> list:
@@ -1444,12 +1667,12 @@ def batch_main(label, case, dt, B, res, torch) -> dict:
 
 def batch_grad(label, case, dt, B, res, torch) -> dict:
     """Phase 9's gradient: ``torch.autograd.grad`` through ``run_batch``;
-    the adjoint kernels launch once per spec, each example's gradient is
-    held against ``run``'s; returns the adjoint kernels' line."""
+    the adjoint kernels launch once per run (each array spec, the scalars'
+    group), each example's gradient is held against ``run``'s; returns the
+    adjoint kernels' line."""
     import numpy as np
 
     from repro_torch import compile_plan
-    from repro_torch.core.adjoint import adjoint_build, assemble_adjoint_env
     from repro_torch.core.executor import stack_envs, stacked_signature
     from repro_torch.testing import default_tolerances, rel_err
 
@@ -1459,14 +1682,9 @@ def batch_grad(label, case, dt, B, res, torch) -> dict:
     p = {k: stacked[k].clone().requires_grad_() for k in keys}
     out = res.run_batch({**stacked, **p}, device=DEVICE)
     g = cos_weights(out, torch)
-    adj = []
-    for spec in adjoint_build(case.program).specs:
-        a = assemble_adjoint_env(spec, stacked, g)
-        adj.append((spec, a, compile_plan(spec.result().plan,
-                                          stacked_signature(a),
-                                          device=DEVICE)))
+    adj = adjoint_executors(case.program, stacked, g, batched=True)
     if not all(ex.backend == "hopper" for _, _, ex in adj):
-        raise SystemExit(f"{label}: an adjoint spec is not on the kernel")
+        raise SystemExit(f"{label}: an adjoint run is not on the kernel")
     for _, _, ex in adj:
         ex.spec.launches = 0
 
@@ -1474,12 +1692,14 @@ def batch_grad(label, case, dt, B, res, torch) -> dict:
         return torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
                                    [g[k] for k in g], retain_graph=True)
 
-    grads = dict(zip(keys, bwd()))
+    with captured_sums(adj) as seen:
+        grads = dict(zip(keys, bwd()))
     torch.cuda.synchronize()
     launched = [ex.kernel_launches for _, _, ex in adj]
-    if launched != [1] * len(adj):
-        raise SystemExit(f"{label}: batched backward launches per spec "
-                         f"{launched}, want 1 each")
+    bad = group_gate(adj, seen, stacked, grads)
+    if launched != [1] * len(adj) or bad:
+        raise SystemExit(f"{label}: batched backward launches per run "
+                         f"{launched}, want 1 each; {bad}")
     tol = default_tolerances(dt)["grad"]
     per_bwd, err = [], 0.0
     for b in range(B):
@@ -1504,26 +1724,27 @@ def batch_grad(label, case, dt, B, res, torch) -> dict:
     nbytes = ops = 0
     max_abs = 0.0
     itemsize = np.dtype(dt).itemsize
-    for spec, a, ex in adj:
-        kernel_ms += _time_ms(adjoint_call(spec, ex, a, True), torch)
-        ex_t = compile_plan(spec.result().plan, stacked_signature(a),
+    for unit, a, ex in adj:
+        kernel_ms += _time_ms(adjoint_call(unit, ex, a, True), torch)
+        ex_t = compile_plan(unit.result().plan, stacked_signature(a),
                             "torch", device=DEVICE)
         torch_ms += _time_ms(lambda: ex_t.run_batch(a), torch)
-        k_out = adjoint_call(spec, ex, a, True)()
+        k_out = adjoint_call(unit, ex, a, True)()
         t_out = ex_t.run_batch(a)
-        if spec.scalar:  # each example's sum: of the partials, the box
+        if unit.scalar:  # each example's sum: of the partials, the box
             k_out, t_out = ({k: v.double().flatten(1).sum(1)
                              for k, v in o.items()} for o in (k_out, t_out))
         max_abs = max(max_abs, max(float((k_out[k].double()
                                           - t_out[k].double()).abs().max())
                                    for k in t_out))
-        b_, o_ = plan_work(spec.result().plan,
+        b_, o_ = plan_work(unit.result().plan,
                            {k: v[0] for k, v in a.items()}, itemsize,
-                           spec.scalar)
+                           unit.scalar)
         nbytes, ops = nbytes + b_ * B, ops + o_ * B
     bound_ms, by = bound_of(nbytes, ops, PEAK_FLOPS[dname])
-    print(f"batch-grad {label} {dname} B={B}: adjoint specs {len(adj)}, all "
-          f"on the kernel, launches per spec {launched}; backward_ms "
+    print(f"batch-grad {label} {dname} B={B}: adjoint runs "
+          f"{[unit_label(u) for u, _, _ in adj]}, all on the kernel, "
+          f"launches per run {launched}; backward_ms "
           f"{backward_ms:.4f}, loop of {B} backwards ms {loop_ms:.4f}; "
           f"adjoint kernels kernel_ms {kernel_ms:.4f}, torch batched ms "
           f"{torch_ms:.4f}, bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
@@ -3054,67 +3275,91 @@ def tap_adjoint_library_call(adj_env, radius: int, torch,
     return lambda: F.conv1d(x, w)[0, 0][lags].sum(1)
 
 
-def tap_adjoint_check(label, sw, radius: int, torch) -> tuple:
-    """The tap specs ``sw`` (``(spec, adjoint env, executor)`` of
-    ``sw0..sw<R>``) on K1 against :func:`tap_adjoint_library_call` on the
-    same inputs.  K1 runs each tap as the backward does (``run_sum``: the
-    summed kernel's partials, one per block), summed here in float64.  A
-    tap is a sum of S C terms of both signs, so float32 sums in any order
-    differ from each other by their rounding times ``sum |g b|`` (from the
-    ``"torch"`` plan's products), which exceeds the tap itself by ~2e3 at
+def tap_adjoint_check(label, grp, sw, radius: int, torch) -> tuple:
+    """The tap adjoints ``sw0..sw<R>`` on K1 as the backward runs them:
+    ``grp``, the ``(group, adjoint env, executor)`` of their scalar group
+    (one summed launch, one partial per block for each tap, summed here in
+    float64), against :func:`tap_adjoint_library_call` on the same inputs;
+    ``sw``, each tap's own ``(spec, adjoint env, executor)`` (one summed
+    launch per tap, as before the group), held the same way.  A tap is a
+    sum of S C terms of both signs, so float32 sums in any order differ
+    from each other by their rounding times ``sum |g b|`` (from the
+    ``"torch"`` plans' products), which exceeds the tap itself by ~2e3 at
     these shapes: the gate is ``plan`` (float32) of ``sum |g b|``, and the
     error relative to the largest tap is printed beside it.  Returns (the
-    library call, the three K1 launches, the launches and their sums as the
-    backward makes them); the ``torch.mv`` form is held the same way and
-    printed, and returned as a fourth."""
+    conv1d call, the group's launch, the group's launch with the sums the
+    backward takes, the ``torch.mv`` call, the taps' own launches, with
+    their sums)."""
     from repro_torch import compile_plan
     from repro_torch.testing import default_tolerances
 
+    group, ga, ge = grp
+    names = [f"sw{d}" for d in range(radius + 1)]
     sw = sorted(sw, key=lambda t: int(t[0].input[2:]))
-    assert [t[0].input for t in sw] == [f"sw{d}" for d in range(radius + 1)]
+    if [t[0].input for t in sw] != names or [
+            m.input for m in group.members] != names:
+        raise SystemExit(f"{label}: the tap adjoints are not sw0..sw{radius}")
     lib = tap_adjoint_library_call(sw[0][1], radius, torch)
     mv = tap_adjoint_library_call(sw[0][1], radius, torch, "mv")
     got, got_mv = lib().double(), mv().double()
-    before = [e.kernel_launches for _, _, e in sw]
+    before = [e.kernel_launches for e in [ge] + [e for _, _, e in sw]]
+    gparts = ge.run_sum(ga)
     parts = [e.run_sum(a)[spec.gu] for spec, a, e in sw]
     torch.cuda.synchronize()
-    if [e.kernel_launches - n for (_, _, e), n in zip(sw, before)] != [1] * (
-            radius + 1) or any(e.backend != "hopper" for _, _, e in sw):
+    after = [e.kernel_launches for e in [ge] + [e for _, _, e in sw]]
+    if [n - b for n, b in zip(after, before)] != [1] * (radius + 2) or any(
+            e.backend != "hopper" for e in [ge] + [e for _, _, e in sw]):
         raise SystemExit(f"{label}: a tap adjoint is off K1 or did not "
                          f"launch")
+    n_grp = ge.spec.tp.geometry.n_tiles
     n_tiles = sw[0][2].spec.tp.geometry.n_tiles
-    if any(tuple(p.shape) != (n_tiles,) for p in parts):
+    if any(tuple(gparts[m.gu].shape) != (n_grp,) for m in group.members) or \
+            any(tuple(p.shape) != (n_tiles,) for p in parts):
         raise SystemExit(f"{label}: the tap adjoints' partials are not one "
-                         f"per block ({n_tiles})")
-    k1 = torch.stack([p.double().sum() for p in parts])
+                         f"per block ({n_grp}, {n_tiles})")
+    k1 = torch.stack([gparts[m.gu].double().sum() for m in group.members])
+    own = torch.stack([p.double().sum() for p in parts])
     scale = max(float(compile_plan(spec.result().plan, a, "torch")(a)[
         spec.gu].double().abs().sum()) for spec, a, _ in sw)
     diff = float((got - k1).abs().max())
     diff_mv = float((got_mv - k1).abs().max())
+    diff_own = float((own - k1).abs().max())
     tol = default_tolerances("float32")["plan"]
+
     def fmt(v):
         return [float(f"{x:.6e}") for x in v]
 
     print(f"{label} tap adjoints sw0..sw{radius} sx "
-          f"{tuple(sw[0][1]['sx'].shape)}: K1 ({n_tiles} partials each) "
-          f"{fmt(k1)}, conv1d {fmt(got)}; |diff| {diff:.3e} "
-          f"= {diff / scale:.2e} of sum |g b| {scale:.4e} (<= {tol:.0e}), "
-          f"{diff / float(k1.abs().max()):.2e} of the largest tap; mv "
-          f"{fmt(got_mv)}, |diff| {diff_mv:.3e} = {diff_mv / scale:.2e}",
-          flush=True)
-    if not max(diff, diff_mv) <= tol * scale:
+          f"{tuple(sw[0][1]['sx'].shape)}: K1 group (1 launch, {n_grp} "
+          f"partials each) {fmt(k1)}, conv1d {fmt(got)}; |diff| "
+          f"{diff:.3e} = {diff / scale:.2e} of sum |g b| {scale:.4e} (<= "
+          f"{tol:.0e}), {diff / float(k1.abs().max()):.2e} of the largest "
+          f"tap; mv {fmt(got_mv)}, |diff| {diff_mv:.3e} = "
+          f"{diff_mv / scale:.2e}; each tap's own launch ({n_tiles} "
+          f"partials) {fmt(own)}, |diff| {diff_own:.3e} = "
+          f"{diff_own / scale:.2e}; group aux "
+          f"{[x.name for x in group.result().plan.aux_order]}, schedule "
+          f"{geometry_text(ge.spec.tp.geometry)}", flush=True)
+    if not max(diff, diff_mv, diff_own) <= tol * scale:
         raise SystemExit(f"{label}: conv1d or mv and K1 disagree on the "
                          f"tap adjoints")
-    del parts
+    del parts, gparts
+
+    def launch():
+        ge.run_sum(ga)
+
+    def with_sums():
+        out = ge.run_sum(ga)
+        return [out[m.gu].sum() for m in group.members]
 
     def launches():
         for spec, a, e in sw:
             e.run_sum(a)
 
-    def with_sums():
+    def own_sums():
         return [e.run_sum(a)[spec.gu].sum() for spec, a, e in sw]
 
-    return lib, launches, with_sums, mv
+    return lib, launch, with_sums, mv, launches, own_sums
 
 
 def lm_mixer_check(x, taps, torch) -> tuple:
@@ -3497,8 +3742,9 @@ def train_mixer_cells() -> list:
 
 def mixer_sources(S: int, C: int, adjoints: bool) -> list:
     """The K1 sources of one mixer shape (float32 streams): its forward
-    and, with ``adjoints``, every adjoint plan the probe admits (the taps':
-    the summed kernel)."""
+    and, with ``adjoints``, every adjoint plan the probe admits: each
+    spec's (the taps': the summed kernel, timed beside their group) and
+    the taps' group's, which the backward runs."""
     from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
@@ -3509,12 +3755,14 @@ def mixer_sources(S: int, C: int, adjoints: bool) -> list:
     shapes = required_shapes(res.program)
     out = [specialize_stencil(res.plan, shapes, {
         k: "float32" for k in shapes}).source]
-    for spec in adjoint_build(res.program).specs if adjoints else ():
-        plan = spec.result().plan
+    build = adjoint_build(res.program)
+    group = build.scalar_group([s.input for s in build.specs])
+    for unit in build.specs + [group] if adjoints else ():
+        plan = unit.result().plan
         if select_backend(plan, "auto", ["float32"]).backend == "hopper":
-            adj = adjoint_env_shapes(spec, res.program, shapes)
+            adj = adjoint_env_shapes(unit, res.program, shapes)
             sp = specialize_stencil(plan, adj, {k: "float32" for k in adj})
-            out.append(sp.source_for(1, spec.scalar))
+            out.append(sp.source_for(1, unit.scalar))
     return out
 
 
@@ -3538,15 +3786,21 @@ def train_mixer_executors(model, cfg, tokens, torch):
             x, model.smooth_taps, cfg.race_smooth_radius).items()}
     B, S, C = x.shape
     res = _smooth_result(S, B * C, cfg.race_smooth_radius)
-    g = {"sy": torch.ones_like(env["sy"])}
     return (env, compile_plan(res.plan, env),
-            adjoint_executors(res.program, env, g))
+            adjoint_executors(res.program, env, ones_cotangent(env, torch)))
 
 
-def train_mixer_grads(x, execs, torch) -> tuple:
+def ones_cotangent(env, torch) -> dict:
+    """The mixer's output cotangent that phases 16 and 18 assemble their
+    adjoint envs with: ones."""
+    return {"sy": torch.ones_like(env["sy"])}
+
+
+def train_mixer_grads(x, ex, adj, torch) -> tuple:
     """The mixer's gradients with respect to ``sx`` (through ``x``, float32)
-    and its taps, on K1 (``"auto"``, forward and adjoints: each of
-    ``execs`` must launch once) against the whole mixer on ``"torch"``:
+    and its taps, on K1 (``"auto"``: the forward ``ex`` and each adjoint
+    run of ``adj`` must launch once, each tap's gradient bit for bit its
+    group's, :func:`group_gate`) against the whole mixer on ``"torch"``:
     (rel err, max abs err)."""
     from repro_torch.models.ssm import race_smooth
     from repro_torch.testing import rel_err
@@ -3562,13 +3816,21 @@ def train_mixer_grads(x, execs, torch) -> tuple:
         return dict(zip(("sx", "taps"), torch.autograd.grad(
             (y * w).sum(), (x, taps))))
 
+    execs = [ex] + [e for _, _, e in adj]
     before = [e.kernel_launches for e in execs]
-    k1 = grads()
+    with captured_sums(adj) as seen:
+        k1 = grads()
     torch.cuda.synchronize()
     if [e.kernel_launches - n for e, n in zip(execs, before)] != [1] * len(
             execs):
         raise SystemExit("lm:train: the mixer's forward and adjoints did not "
                          "each launch K1 once")
+    names = [f"sw{d}" for d in range(LM_RADIUS + 1)]
+    bad = group_gate(adj, seen, {k: taps[d].detach().float()
+                                 for d, k in enumerate(names)},
+                     {k: k1["taps"][d] for d, k in enumerate(names)})
+    if bad:
+        raise SystemExit(f"lm:train: {'; '.join(bad)}")
     os.environ["RACE_BACKEND"] = "torch"
     try:
         plain = grads()
@@ -3631,9 +3893,9 @@ def train_main(root, torch) -> list:
     batch0 = trainer.pipe.batch_at(0)
     tokens = torch.as_tensor(batch0["tokens"], device=DEVICE)
     env, ex, adj = train_mixer_executors(model, cfg, tokens, torch)
-    off = [f"{spec.input}: {e.backend} "
+    off = [f"{unit_label(u)}: {e.backend} "
            f"{[r.code for r in e.selection.capability.reasons]}"
-           for spec, _, e in adj if e.backend != "hopper"]
+           for u, _, e in adj if e.backend != "hopper"]
     if ex.backend != "hopper" or off or not adj:
         raise SystemExit(f"lm:train: mixer off K1: forward {ex.backend}, "
                          f"adjoints {off or len(adj)}")
@@ -3667,8 +3929,8 @@ def train_main(root, torch) -> list:
     losses = out["losses"]
     print(f"lm:train losses {[round(x, 4) for x in losses]}, restarts "
           f"{out['restarts']}; K1 launches: forward {launches[0]}, adjoints "
-          f"{dict(zip((s.input for s, _, _ in adj), launches[1:]))} over "
-          f"{len(losses)} steps; final checkpoint {ckpt_bytes} B in "
+          f"{dict(zip((unit_label(u) for u, _, _ in adj), launches[1:]))} "
+          f"over {len(losses)} steps; final checkpoint {ckpt_bytes} B in "
           f"{ckpt_s:.2f} s (snapshot, write, fsync; phase 17 re-shards it)",
           flush=True)
     if (len(losses) != args.steps or not all(math.isfinite(x)
@@ -3676,7 +3938,7 @@ def train_main(root, torch) -> list:
             or any(n != len(losses) for n in launches)):
         raise SystemExit("lm:train: a loss is not finite, or K1 did not "
                          "launch once per step on the forward and on every "
-                         "adjoint spec")
+                         "adjoint run")
     step_ms = statistics.median(times[1:])
     tok = args.batch * args.seq
     bound_ms, by, flop, nbytes, matrix = train_bound(
@@ -3691,7 +3953,7 @@ def train_main(root, torch) -> list:
 
     # the mixer's gradients on K1 against "torch" at the step's shape
     x = model.embed[tokens]
-    e_grad, grad_abs = train_mixer_grads(x, execs, torch)
+    e_grad, grad_abs = train_mixer_grads(x, ex, adj, torch)
     tol = default_tolerances("float32")["grad"]
     print(f"lm:train mixer grads (sx, taps) K1 vs torch {e_grad:.2e} (<= "
           f"{tol:.0e}), max_abs_err {grad_abs:.3e}", flush=True)
@@ -3715,14 +3977,15 @@ def train_main(root, torch) -> list:
 def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
                    grad_abs, torch, split_sx: bool = False) -> tuple:
     """The mixer's forward executor ``ex`` at ``env`` on K1 against
-    ``"torch"`` (within ``plan``), then it and every adjoint spec's
+    ``"torch"`` (within ``plan``), then it and every adjoint run's
     executor timed beside their plain versions, bounds and (forward) the
-    library call; ``adj_launches`` per spec of ``adj``.  Returns (the
+    library call; ``adj_launches`` per run of ``adj``.  Returns (the
     kernel-line entries, forward ms, summed adjoint ms): the forward and
     the adjoints summed, or with ``split_sx`` the ``sx`` adjoint (checked
     against and timed beside its library call,
-    :func:`sx_adjoint_library_call`) and the tap adjoints apart (theirs:
-    :func:`tap_adjoint_check`)."""
+    :func:`sx_adjoint_library_call`) and the tap adjoints' group apart
+    (theirs: :func:`tap_adjoint_check`; each tap's own launch is timed
+    beside it)."""
     from repro_torch import compile_plan
     from repro_torch.testing import default_tolerances, rel_err
 
@@ -3743,13 +4006,14 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
     per_spec = []
     sx_lib = sw_lib = None
     sw = []
-    for (spec, a, e), n in zip(adj, adj_launches, strict=True):
-        key = "" if not split_sx else " sx" if spec.input == "sx" else " sw"
+    for (unit, a, e), n in zip(adj, adj_launches, strict=True):
+        key = "" if not split_sx else " sx" if unit.members[
+            0].input == "sx" else " sw"
         g = groups.setdefault(key, [0.0, 0.0, 0, 0, 0])
-        ms = _time_ms(adjoint_call(spec, e, a), torch)
-        per_spec.append(f"{spec.input} {ms:.4f}")
-        e_t = compile_plan(spec.result().plan, a, "torch")
-        b_, o_ = plan_work(spec.result().plan, a, 4, spec.scalar)
+        ms = _time_ms(adjoint_call(unit, e, a), torch)
+        per_spec.append(f"{unit_label(unit)} {ms:.4f}")
+        e_t = compile_plan(unit.result().plan, a, "torch")
+        b_, o_ = plan_work(unit.result().plan, a, 4, unit.scalar)
         g[0] += ms
         g[1] += _time_ms(lambda: e_t(a), torch)
         g[2], g[3], g[4] = g[2] + b_, g[3] + o_, g[4] + n
@@ -3761,12 +4025,19 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
                                  f"sx adjoint ({e_lib:.2e})")
             sx_lib = _time_ms(lib, torch)
         elif key == " sw":
-            sw.append((spec, a, e))
+            sw.append((unit, a, e))
     if sw:  # the kernel line takes mv: cuDNN's conv1d is ~300x slower
-        conv, _, _, mv = tap_adjoint_check(label, sw, LM_RADIUS, torch)
+        (grp,) = sw
+        own = spec_executors(grp[0].members, env, ones_cotangent(env, torch))
+        conv, launch, _, mv, launches, _ = tap_adjoint_check(
+            label, grp, own, LM_RADIUS, torch)
         sw_lib = _time_ms(mv, torch)
-        print(f"{label} tap adjoints' library calls: mv {sw_lib:.4f} ms, "
-              f"conv1d {_time_ms(conv, torch):.4f} ms", flush=True)
+        print(f"{label} tap adjoints one call at a time: the group (1 "
+              f"launch) {_time_ms(launch, torch):.4f} ms, each tap's own "
+              f"(3 launches) {_time_ms(launches, torch):.4f} ms; library "
+              f"calls: mv {sw_lib:.4f} ms, conv1d "
+              f"{_time_ms(conv, torch):.4f} ms", flush=True)
+        del own
     adj_ms = sum(g[0] for g in groups.values())
     common = dict(route="cuda", source="src/repro_torch/lowering/emit.py",
                   replaces="src/repro/lowering/emit.py:273")
@@ -4178,9 +4449,8 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
     B_r, S, C = x.shape
     res = _smooth_result(S, B_r * C, LM_RADIUS)
     ex = compile_plan(res.plan, env)
-    adj = adjoint_executors(res.program, env,
-                            {"sy": torch.ones_like(env["sy"])})
-    off = [f"{spec.input}: {e.backend}" for spec, _, e in adj
+    adj = adjoint_executors(res.program, env, ones_cotangent(env, torch))
+    off = [f"{unit_label(u)}: {e.backend}" for u, _, e in adj
            if e.backend != "hopper"]
     if ex.backend != "hopper" or off or not adj:
         raise SystemExit(f"mesh:train:{tag}: mixer off K1: forward "
@@ -4241,7 +4511,8 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
           f"{rel[0]:.2e} <= {MESH_LOSS_TOL:.0e}), every step's rel "
           f"{[float(f'{r:.2e}') for r in rel]}; K1 launches: forward "
           f"{launches[0]}, "
-          f"adjoints {dict(zip((s.input for s, _, _ in adj), launches[1:]))}"
+          f"adjoints "
+          f"{dict(zip((unit_label(u) for u, _, _ in adj), launches[1:]))}"
           f" over {n} steps on {npos} positions; mixer calls per position "
           f"{spans}", flush=True)
     ok = (n == args.steps == len(ones)
@@ -4283,7 +4554,7 @@ def mesh_train_layout(root, label, layout, argv, x, ones, single_ms, t0,
     if not kernel_lines:
         del trainer, mp, env, ex, adj, execs
         return run, []
-    e_grad, grad_abs = train_mixer_grads(x, execs, torch)
+    e_grad, grad_abs = train_mixer_grads(x, ex, adj, torch)
     tol = default_tolerances("float32")["grad"]
     print(f"mesh:train:{tag} mixer grads (sx, taps) K1 vs torch "
           f"{e_grad:.2e} (<= {tol:.0e}), max_abs_err {grad_abs:.3e}",
@@ -4458,12 +4729,13 @@ def mixer_vs_conv1d(torch) -> None:
     (phase 16's one-device step: its batch x qwen2-7b's d_model channels):
     the forward and the ``sx`` adjoint against ``F.conv1d``
     (:func:`mixer_library_call`, :func:`sx_adjoint_library_call`), the tap
-    adjoints (K1's three launches, alone and with the sums the backward
-    takes of them) against one ``torch.mv`` and one conv1d
-    (:func:`tap_adjoint_library_call`); each K1 side also at long
-    segments (:func:`long_blocks`: the same plane tile, segments of
-    ``SEG_PER_WARMUP`` warm-ups), the taps then writing their products for
-    the backward to sum, as before the summed kernel.  Each
+    adjoints (their group's one launch, as the backward runs them, and
+    each tap's own three, as before the group; alone and with the sums the
+    backward takes of them) against one ``torch.mv`` and one conv1d
+    (:func:`tap_adjoint_library_call`); each K1 side but the group also
+    at long segments (:func:`long_blocks`: the same plane tile, segments
+    of ``SEG_PER_WARMUP`` warm-ups), the taps then writing their products
+    for the backward to sum, as before the summed kernel.  Each
     shape's geometries are printed, every side checked first, then timed
     in turns: per round, shape by shape and side by side,
     MIXER_CONV_CALLS calls one at a time (CUDA events around each: the
@@ -4489,8 +4761,11 @@ def mixer_vs_conv1d(torch) -> None:
         gy = {"sy": torch.randn(env["sy"].shape, generator=g_sy,
                                 device=DEVICE)}
         res = _smooth_result(LM_PROMPT, C, LM_RADIUS)
+        adj = adjoint_executors(res.program, env, gy)
+        (grp,) = [t for t in adj if t[0].members[0].input != "sx"]
+        own = spec_executors(grp[0].members, env, gy)
         cells.append((C, env, compile_plan(res.plan, env, "hopper"),
-                      adjoint_executors(res.program, env, gy)))
+                      [t for t in adj if t is not grp] + own, grp))
 
     def long(ex, e):
         """The executor of ``ex``'s plan at long segments (``ex`` where
@@ -4501,13 +4776,14 @@ def mixer_vs_conv1d(torch) -> None:
             block_inner=blocks[2])
 
     # the long segments' sources, all at once (the taps': the products)
-    compile_sources([long(ex, e).spec.source for _, env, fwd, adj in cells
-                     for ex, e in [(fwd, env)] + [(x, a) for _, a, x in adj]])
+    compile_sources([long(ex, e).spec.source for _, env, fwd, adj, _ in
+                     cells for ex, e in [(fwd, env)] + [
+                         (x, a) for _, a, x in adj]])
     sides = {}
-    for C, env, ex, adj in cells:
+    for C, env, ex, adj, grp in cells:
         sw = [t for t in adj if t[0].input != "sx"]
-        lib, k1, k1_sums, mv = tap_adjoint_check(
-            f"mixer vs conv1d C={C}", sw, LM_RADIUS, torch)
+        lib, k1, k1_sums, mv, k1_own, k1_own_sums = tap_adjoint_check(
+            f"mixer vs conv1d C={C}", grp, sw, LM_RADIUS, torch)
         old_sw = [(spec, a, long(e, a)) for spec, a, e in sw]
         (adj_env, adj_ex), = [(a, e) for spec, a, e in adj
                               if spec.input == "sx"]
@@ -4528,6 +4804,8 @@ def mixer_vs_conv1d(torch) -> None:
                 raise SystemExit(f"mixer vs conv1d C={C}: K1's {name} is "
                                  f"off K1, did not launch or disagrees "
                                  f"with conv1d ({err:.2e})")
+        print(f"mixer geometry C={C} sw group: "
+              f"{geometry_text(grp[2].spec.tp.geometry)}", flush=True)
         for name, e, a in (("forward", ex, env),
                            ("sx adjoint", adj_ex, adj_env),
                            ("sw adjoints", sw[0][2], sw[0][1])):
@@ -4543,10 +4821,12 @@ def mixer_vs_conv1d(torch) -> None:
             "K1 sx adjoint, long segments": lambda e=old_sx, a=adj_env:
                 e(a),
             "conv1d sx adjoint": lib_sx,
-            "K1 sw adjoints (3 launches)": k1,
+            "K1 sw group (1 launch)": k1,
+            "K1 sw group and its sums": k1_sums,
+            "K1 sw adjoints (3 launches)": k1_own,
             "K1 sw products (3 launches), long segments":
                 lambda t=old_sw: [e(a) for _, a, e in t],
-            "K1 sw adjoints and their sums": k1_sums,
+            "K1 sw adjoints and their sums": k1_own_sums,
             "K1 sw products and their sums, long segments":
                 lambda t=old_sw: [e(a)[s.gu].sum() for s, a, e in t],
             "mv sw adjoints": mv, "conv1d sw adjoints": lib}
@@ -4790,7 +5070,7 @@ def main() -> int:
         sources.append(specialize_stencil(
             res.plan, shapes, {k: dtype_name(dt) for k in shapes}).source)
     for case, res in grad_cases:
-        sources += adjoint_sources(case, res, np.float32)
+        sources += adjoint_sources(case, res, np.float32, members=False)
     for case, dt, res in main_runs + half_runs[:1]:
         sources += adjoint_sources(case, res, dt)
     batch_runs = [(label, case, dt, B, race(case.program,
@@ -4802,7 +5082,7 @@ def main() -> int:
     # the batched gradient and the HVP (phases 9-10): j3d27pt n=256 f32
     for b in (1, batch_runs[0][3]):
         sources += adjoint_sources(batch_runs[0][1], batch_runs[0][4],
-                                   np.float32, b)
+                                   np.float32, b, members=False)
     # phase 11: the twins' plans (the same as their DSL cases')
     twin_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
                  for case, dt in twin_cells()]
@@ -4969,9 +5249,9 @@ def main() -> int:
     marks.append((6, time.time()))
     backward = {}  # (case name, dtype name) -> (backward ms, adjoints ms)
     for case, dt, res in main_runs + half_runs[:1]:  # + j3d27pt float16
-        kernel, backward_ms = grad_full_size(case, dt, res, torch)
-        kernels.append(kernel)
-        backward[case.name, dtype_name(dt)] = (backward_ms, kernel["ms"])
+        entries, backward_ms = grad_full_size(case, dt, res, torch)
+        kernels += entries
+        backward[case.name, dtype_name(dt)] = (backward_ms, entries[0]["ms"])
         torch.cuda.empty_cache()
     (h_ms, h_adj), (f_ms, f_adj) = (backward["j3d27pt", d]
                                     for d in ("float16", "float32"))

@@ -15,6 +15,9 @@ Hopper stencil kernel.
   * :func:`adjoint_build` — memoized, one adjoint :class:`~.ir.Program` per
     differentiable input, or a refusal with one of the nine codes below; the
     backward then falls back to autograd through the *baseline* evaluator;
+  * :class:`ScalarGroup` — two or more wanted scalar specs as one adjoint
+    program (:meth:`AdjointBuild.scalar_group`), run as one summed K1
+    launch where :func:`adjoint_runs` admits it;
   * :func:`backward` — the runtime VJP: pad cotangents (zeros) and
     coefficient arrays (ones: the zero cotangent already annihilates those
     terms, and ones keep divisions finite), run each adjoint plan through
@@ -55,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import obs as _obs
+from . import ir as _ir
 from .ir import (Const, Expr, FuncName, Loop, Node, Program, Ref, Stmt, Sub,
                  expr_refs, map_expr)
 
@@ -277,15 +281,81 @@ class InputSpec:
         sum of ``gu`` is wanted (:meth:`CompiledRace.run_sum`)."""
         return len(self.sum_axes) == len(self.program.loops)
 
+    @property
+    def members(self) -> tuple:
+        """The specs whose gradients one run of this program gives."""
+        return (self,)
+
     def result(self, reassociate: Optional[int] = None):
         """RACE result for the adjoint program (memoized per level)."""
-        lvl = adjoint_reassociate() if reassociate is None else reassociate
-        res = self._race.get(lvl)
-        if res is None:
-            from .race import race
+        return _memo_race(self, reassociate)
 
-            res = self._race[lvl] = race(self.program, reassociate=lvl)
-        return res
+
+def _memo_race(unit, reassociate: Optional[int]):
+    lvl = adjoint_reassociate() if reassociate is None else reassociate
+    res = unit._race.get(lvl)
+    if res is None:
+        from .race import race
+
+        res = unit._race[lvl] = race(unit.program, reassociate=lvl)
+    return res
+
+
+@dataclass
+class ScalarGroup:
+    """Two or more scalar specs of one program run as one adjoint program.
+
+    Every scalar spec sweeps the forward's whole box, so the members share
+    their loops; the group's program has one statement per member, its
+    ``gu`` from its right-hand side, fed by one pad pass over them all
+    (:func:`group_program`).  On K1 that is one summed launch: it reads the
+    cotangents and the operands once, RACE shares aux across the members'
+    statements, and each member gets its own partials.  Each member's own
+    program stays as it is; the merging happens only at the run."""
+
+    members: tuple    # the member InputSpecs, in the build's order
+    program: Program  # one statement per member, over their loops
+    feeds: tuple      # the recipe of :attr:`InputSpec.feeds`, for them all
+    _race: dict = field(default_factory=dict, repr=False)
+    _admitted: dict = field(default_factory=dict, repr=False)
+
+    scalar = True  # its outputs are summed away (:meth:`CompiledRace.run_sum`)
+
+    def result(self, reassociate: Optional[int] = None):
+        """RACE result for the group's program (memoized per level)."""
+        return _memo_race(self, reassociate)
+
+
+def group_program(program, specs, ir=None) -> tuple:
+    """``(group program, feeds)`` of scalar ``specs`` of ``program``: each
+    member's right-hand side with its own low pads taken back out of its
+    subscripts, then one pad pass over them all (a low pad that one member
+    needs shifts the others' subscripts too).  ``ir`` is the IR module the
+    programs are built in (the port's by default; the reference's builders
+    are the same)."""
+    ir = ir or _ir
+    loops = specs[0].program.loops
+    if any(s.program.loops != loops or len(s.sum_axes) != len(loops)
+           for s in specs):
+        raise ValueError("a scalar group takes scalar specs of one loop nest")
+    rhss = []
+    for spec in specs:
+        lo = {nm: [p[0] for p in pads]
+              for kind, _, nm, pads in spec.feeds if kind != "scalar"}
+
+        def unshift(x, lo=lo):
+            if isinstance(x, ir.Ref) and x.subs and x.name in lo:
+                return ir.Ref(x.name, tuple(
+                    ir.Sub(s.a, s.s, s.b - lo[x.name][d])
+                    for d, s in enumerate(x.subs)))
+            return x
+
+        (st,) = spec.program.body
+        rhss.append(ir.map_expr(st.rhs, unshift))
+    rhss, feeds = _pad_pass(program, loops, rhss, ir)
+    body = tuple(ir.Stmt(s.program.body[0].lhs, rhs)
+                 for s, rhs in zip(specs, rhss))
+    return ir.Program(tuple(loops), body), feeds
 
 
 @dataclass
@@ -295,6 +365,7 @@ class AdjointBuild:
     program: Program
     specs: list
     reason: str = ""  # "" = supported; else an AdjointUnsupported message
+    _groups: dict = field(default_factory=dict, repr=False)
 
     @property
     def ok(self) -> bool:
@@ -305,6 +376,22 @@ class AdjointBuild:
             if s.input == name:
                 return s
         return None
+
+    def scalar_group(self, wrt: Iterable[str]) -> Optional[ScalarGroup]:
+        """The :class:`ScalarGroup` of the scalar specs of the inputs in
+        ``wrt`` (memoized per wanted subset), or None where fewer than two
+        are wanted."""
+        want = set(wrt)
+        members = tuple(s for s in self.specs
+                        if s.scalar and s.input in want)
+        if len(members) < 2:
+            return None
+        key = tuple(s.input for s in members)
+        group = self._groups.get(key)
+        if group is None:
+            prog, feeds = group_program(self.program, members)
+            group = self._groups[key] = ScalarGroup(members, prog, feeds)
+        return group
 
 
 def _gate_lhs(program: Program) -> None:
@@ -378,22 +465,17 @@ def _input_layout(uname: str, entries: list) -> tuple:
     return tuple(layout)
 
 
-def _assemble_spec(program: Program, uname: str, loops: list, terms: list,
-                   embed: tuple, sum_axes: tuple) -> Optional[InputSpec]:
-    """Shared tail of spec construction: sum the terms, bake negative
-    minima into static left pads, and derive the runtime feed recipe."""
-    if not terms:
-        return None
-    rhs = terms[0]
-    for term in terms[1:]:
-        rhs = rhs + term
-
-    # pad pass: per referenced array, per dim, the touched index interval
-    # over the adjoint loop ranges; negative minima become static left pads
-    # baked into the subscript offsets
+def _pad_pass(program, loops, rhss: list, ir) -> tuple:
+    """One pad pass over the right-hand sides of one adjoint loop nest:
+    per referenced array, per dim, the touched index interval over the
+    loop ranges; negative minima become static left pads baked into the
+    subscript offsets.  Returns the shifted right-hand sides and the
+    runtime feed recipe that serves them all.  ``ir`` is the IR module the
+    expressions are built in."""
     rng_of = {lp.level: (lp.lo, lp.hi) for lp in loops}
     bounds: dict = {}
-    for r in set(expr_refs(rhs)):
+    refs = {r for rhs in rhss for r in ir.expr_refs(rhs)}
+    for r in refs:
         if not r.subs:
             continue
         for d, s in enumerate(r.subs):
@@ -408,13 +490,13 @@ def _assemble_spec(program: Program, uname: str, loops: list, terms: list,
               for nm, dims in bounds.items()}
 
     def shift(x):
-        if isinstance(x, Ref) and x.subs and x.name in pad_lo:
-            return Ref(x.name, tuple(
-                Sub(s.a, s.s, s.b + pad_lo[x.name][d])
+        if isinstance(x, ir.Ref) and x.subs and x.name in pad_lo:
+            return ir.Ref(x.name, tuple(
+                ir.Sub(s.a, s.s, s.b + pad_lo[x.name][d])
                 for d, s in enumerate(x.subs)))
         return x
 
-    rhs = map_expr(rhs, shift)
+    rhss = [ir.map_expr(rhs, shift) for rhs in rhss]
 
     full = program.ranges()
     by_lhs = {st.lhs.name: st for st in program.body}
@@ -434,15 +516,27 @@ def _assemble_spec(program: Program, uname: str, loops: list, terms: list,
             feeds.append(("cotangent", src, nm, pads))
         else:
             feeds.append(("array", nm, nm, tuple(zip(plo, smax))))
-    for r in sorted({x for x in expr_refs(rhs) if not x.subs},
-                    key=_ref_sort_key):
+    for r in sorted({x for rhs in rhss for x in ir.expr_refs(rhs)
+                     if not x.subs}, key=_ref_sort_key):
         feeds.append(("scalar", r.name, r.name, None))
+    return rhss, tuple(feeds)
 
+
+def _assemble_spec(program: Program, uname: str, loops: list, terms: list,
+                   embed: tuple, sum_axes: tuple) -> Optional[InputSpec]:
+    """Shared tail of spec construction: sum the terms, bake negative
+    minima into static left pads, and derive the runtime feed recipe."""
+    if not terms:
+        return None
+    rhs = terms[0]
+    for term in terms[1:]:
+        rhs = rhs + term
+    (rhs,), feeds = _pad_pass(program, loops, [rhs], _ir)
     gu = ADJOINT_PREFIX + uname
     lhs = Ref(gu, tuple(Sub(1, k + 1, 0) for k in range(len(loops))))
     adj = Program(tuple(loops), (Stmt(lhs, rhs),))
     return InputSpec(input=uname, program=adj, gu=gu, embed=embed,
-                     sum_axes=sum_axes, feeds=tuple(feeds))
+                     sum_axes=sum_axes, feeds=feeds)
 
 
 def _build_input_spec(program: Program, uname: str, entries: list):
@@ -688,25 +782,68 @@ def finalize_adjoint(spec: InputSpec, env: Mapping, val):
     return canvas
 
 
-def _run_spec(spec: InputSpec, env: Mapping, g: Mapping,
-              backend: Optional[str] = None, batched: bool = False):
+def _admitted(group: ScalarGroup, env: Mapping, g: Mapping,
+              backend: Optional[str]) -> bool:
+    """Whether ``group`` runs: the backend asks for the kernel (``"hopper"``
+    or ``"auto"``) and the group's plan and every member's plan select
+    ``"hopper"`` at the env's dtypes (:func:`~.backend.select_backend`'s
+    probe), which holds on the card and for the tile emulator on the CPU.
+    Decided from the plans and dtypes alone, before any launch; memoized
+    per group and dtypes."""
+    from .backend import probe_hopper
+    from .executor import _dt_name, default_backend, operand_dtypes
+
+    if (backend or default_backend()) == "torch":
+        return False
+    sig = tuple((nm, None, _dt_name(
+        (g if kind == "cotangent" else env)[src].dtype))
+        for kind, src, nm, _ in sorted(group.feeds, key=lambda f: f[2]))
+    ok = group._admitted.get(sig)
+    if ok is None:
+        ok = group._admitted[sig] = all(
+            probe_hopper(u.result().plan,
+                         operand_dtypes(u.result().plan, sig)).eligible
+            for u in (group,) + group.members)
+    return ok
+
+
+def adjoint_runs(build: AdjointBuild, env: Mapping, g: Mapping,
+                 wrt: Iterable[str], backend: Optional[str] = None) -> list:
+    """The adjoint programs a first-order backward runs for the inputs in
+    ``wrt``, in order: each wanted array spec, then the wanted scalar specs
+    as one :class:`ScalarGroup` where there are two or more of them and
+    the group is admitted (:func:`_admitted`), else each scalar spec on its
+    own."""
+    want = set(wrt)
+    specs = [s for s in build.specs if s.input in want]
+    group = build.scalar_group(want)
+    if group is None or not _admitted(group, env, g, backend):
+        return specs
+    return [s for s in specs if not s.scalar] + [group]
+
+
+def _run_unit(unit, env: Mapping, g: Mapping, backend: Optional[str] = None,
+              batched: bool = False) -> dict:
+    """Run one adjoint program (an :class:`InputSpec` or a
+    :class:`ScalarGroup`) and give each of its members' gradients."""
     from .executor import compile_plan, stacked_signature
 
-    res = spec.result()
-    adj_env = assemble_adjoint_env(spec, env, g)
+    res = unit.result()
+    adj_env = assemble_adjoint_env(unit, env, g)
     if batched:  # the executor of the per-example signature, as run's
         dev = next(iter(adj_env.values())).device
         ex = compile_plan(res.plan, stacked_signature(adj_env), backend,
                           device=dev)
     else:
         ex = compile_plan(res.plan, adj_env, backend)
-    if spec.scalar:  # K1 sums the products in the kernel
-        val = ex.run_sum(adj_env, batched)[spec.gu]
+    if unit.scalar:  # K1 sums the products in the kernel
+        out = ex.run_sum(adj_env, batched)
     elif batched:
-        val = ex.run_batch(adj_env)[spec.gu]
+        out = ex.run_batch(adj_env)
     else:
-        val = ex(adj_env)[spec.gu]
-    return finalize_adjoint(spec, env, val)
+        out = ex(adj_env)
+    return {s.input: finalize_adjoint(s, env, out[s.gu])
+            for s in unit.members}
 
 
 _baseline_memo: dict = {}
@@ -762,7 +899,10 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
     entry: ``None`` for integer, unread and unwanted inputs.  ``backend``
     runs the adjoint plans (``None``: ``$RACE_BACKEND`` or ``"auto"``).
     ``batched``: every entry of ``env`` and ``g`` carries a leading batch
-    axis, and the adjoint plans run through ``run_batch``."""
+    axis, and the adjoint plans run through ``run_batch``.  Two or more
+    wanted scalars run as one :class:`ScalarGroup` where
+    :func:`adjoint_runs` admits it, except under a recorded graph (a
+    second-order backward), where every spec runs on its own."""
     wrt = list(env) if wrt is None else [k for k in env if k in set(wrt)]
     if adjoint_mode() == "autodiff":
         if _obs.enabled():
@@ -777,9 +917,16 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
                              mode="autodiff-fallback").inc()
             grads = _autodiff_backward(program, env, g, wrt, batched)
         else:
+            # under a recorded graph (a second-order backward) every spec
+            # runs on its own, as run_sum then takes the full products
+            recording = torch.is_grad_enabled() and any(
+                v.requires_grad for v in (*env.values(), *g.values()))
+            runs = ([s for s in build.specs if s.input in wrt] if recording
+                    else adjoint_runs(build, env, g, wrt, backend))
+            grads = {}
             with _obs.span("adjoint_backward"):
-                grads = {s.input: _run_spec(s, env, g, backend, batched)
-                         for s in build.specs if s.input in wrt}
+                for unit in runs:
+                    grads.update(_run_unit(unit, env, g, backend, batched))
             if _obs.enabled():
                 _obs.counter("race_adjoint_backward_total",
                              mode="stencil").inc()

@@ -143,7 +143,12 @@ def _eval_expr(e: Expr, bufs: dict, domain_levels: tuple, ranges: dict,
             return a / b
         raise ValueError(f"bad op {x.op}")
 
-    return ev(e)
+    try:
+        return ev(e)
+    finally:
+        # ev refers to itself through its cell: without this the cycle
+        # keeps memo's slices, and the buffers they view, until gc runs
+        del ev
 
 
 def _box(domain_levels: tuple, ranges: dict) -> tuple:

@@ -130,7 +130,7 @@ from .moe import _route, mlp_block
 from .sharding import (P, Placed, Sharding, _blocks, batch_axes,
                        cache_shardings, leaf_shape, param_spec)
 from .ssm import (_causal_conv1d, _mamba_conv, _mamba_scan, _rglru_scan,
-                  _smooth_result, race_smooth)
+                  _smooth_result, race_smooth, smooth_env)
 
 class MeshError(ValueError):
     """A mesh, batch or model this execution cannot run."""
@@ -767,13 +767,15 @@ class Step:
         """On the meta device the mixer runs no kernel: its output's shape,
         and the RACE plans' operations (forward, and each adjoint plan the
         backward runs) tallied in :attr:`meta_mixer_ops`."""
-        from ..core.adjoint import adjoint_build
+        from ..core.adjoint import adjoint_build, adjoint_runs
 
         B, S, C = x.shape
         res = _smooth_result(S, B * C, R)
         plans = [res]
         if torch.is_grad_enabled():
-            plans += [s.result() for s in adjoint_build(res.program).specs]
+            env = smooth_env(x, torch.empty(R + 1, device=x.device), R)
+            plans += [u.result() for u in adjoint_runs(
+                adjoint_build(res.program), env, {"sy": env["sy"]}, env)]
         for r in plans:
             pts = prod(lp.hi - lp.lo + 1 for lp in r.program.loops)
             self.meta_mixer_ops += r.op_table()["weighted_total"] * pts

@@ -366,7 +366,8 @@ def test_tf32_split_kernel_matches_plain_bit_for_bit(cuda_device, transpose):
 @pytest.mark.cuda
 def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
     """``torch.autograd.grad`` through ``res.run`` on the card: the adjoint
-    plans the probe admits run on the Hopper kernel, and the gradients
+    plans the probe admits run on the Hopper kernel (the array specs', and
+    the four scalars' as one group), each launched once, and the gradients
     match autograd of the float64 baseline within ``grad``."""
     case = get_case("psinv", 16)
     res = repro_torch.race(case.program, reassociate=3)
@@ -378,9 +379,12 @@ def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
                                    dtype=v.dtype)).reshape(v.shape)
          for k, v in out.items()}
     build_ = adjoint.adjoint_build(case.program)
+    units = adjoint.adjoint_runs(build_, env, g, keys)
+    assert [type(u).__name__ for u in units] == [
+        "InputSpec", "InputSpec", "ScalarGroup"]
     adj = [repro_torch.compile_plan(
-        s.result().plan, adjoint.assemble_adjoint_env(s, env, g))
-        for s in build_.specs]
+        u.result().plan, adjoint.assemble_adjoint_env(u, env, g))
+        for u in units]
     assert all(ex.backend == "hopper" for ex in adj)
     before = [ex.kernel_launches for ex in adj]
     grads = torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
@@ -442,9 +446,10 @@ def test_output_dtype_on_card_follows_the_env_output_array(cuda_device):
 
 @pytest.mark.cuda
 def test_batched_grad_launches_each_adjoint_kernel_once(cuda_device):
-    """``torch.autograd.grad`` through ``run_batch``: each adjoint spec's
-    kernel launches once for the whole batch, and each example's gradient
-    equals ``run``'s within ``grad``."""
+    """``torch.autograd.grad`` through ``run_batch``: each adjoint run's
+    kernel (``u``'s, and the five scalars' group) launches once for the
+    whole batch, and each example's gradient equals ``run``'s within
+    ``grad``."""
     case = get_case("j3d27pt", 2 * SWEEP_SIZES["j3d27pt"])
     res = repro_torch.race(case.program, reassociate=case.reassociate)
     stacked = executor.stack_envs([build_env(case, seed=s) for s in range(3)],
@@ -457,10 +462,13 @@ def test_batched_grad_launches_each_adjoint_kernel_once(cuda_device):
                                    dtype=v.dtype)).reshape(v.shape)
          for k, v in out.items()}
     adj = []
-    for s in adjoint.adjoint_build(case.program).specs:
-        a = adjoint.assemble_adjoint_env(s, stacked, g)
+    units = adjoint.adjoint_runs(adjoint.adjoint_build(case.program),
+                                 stacked, g, keys)
+    assert [type(u).__name__ for u in units] == ["InputSpec", "ScalarGroup"]
+    for u in units:
+        a = adjoint.assemble_adjoint_env(u, stacked, g)
         adj.append(repro_torch.compile_plan(
-            s.result().plan, executor.stacked_signature(a),
+            u.result().plan, executor.stacked_signature(a),
             device=cuda_device))
     assert all(ex.backend == "hopper" for ex in adj)
     before = [ex.kernel_launches for ex in adj]
@@ -702,6 +710,39 @@ def test_summed_tap_adjoints_on_card(cuda_device, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["j3d27pt", "poisson"])
+def test_scalar_group_on_card_is_one_summed_launch(cuda_device, name):
+    """A backward through ``res.run`` on the card runs the scalars as one
+    group: one summed K1 launch, whose members' gradients equal their own
+    summed launches' within ``plan``."""
+    case = get_case(name, 2 * SWEEP_SIZES[name])
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    env = env_to_torch(build_env(case), cuda_device)
+    outs = {st.lhs.name for st in case.program.body}
+    keys = sorted(k for k in env if k not in outs)
+    p = {k: env[k].clone().requires_grad_() for k in keys}
+    out = res.run({**env, **p})
+    g = {k: torch.cos(torch.arange(v.numel(), device=cuda_device,
+                                   dtype=v.dtype)).reshape(v.shape)
+         for k, v in out.items()}
+    build_ = adjoint.adjoint_build(case.program)
+    group = build_.scalar_group(keys)
+    a = adjoint.assemble_adjoint_env(group, env, g)
+    ex = repro_torch.compile_plan(group.result().plan, a)
+    assert ex.backend == "hopper"
+    before = ex.kernel_launches
+    grads = dict(zip(keys, torch.autograd.grad(
+        [out[k] for k in g], [p[k] for k in keys], [g[k] for k in g])))
+    torch.cuda.synchronize()
+    assert ex.kernel_launches == before + 1
+    own = {}
+    for m in group.members:
+        own.update(adjoint._run_unit(m, env, g))
+    assert rel_err({k: grads[k] for k in own}, own) <= default_tolerances(
+        np.float32)["plan"]
+
+
+@pytest.mark.cuda
 def test_reduced_lm_prefill_and_decode_on_card(cuda_device):
     """qwen2's reduced config with the mixer, float32 on the card: the
     prefill launches K1 once and matches the same model on the CPU; a
@@ -759,9 +800,9 @@ def test_launch_train_asks_for_cuda_and_raises_without_a_card(monkeypatch,
 def test_train_step_on_card_runs_the_mixer_and_its_adjoints_on_k1(
         cuda_device):
     """One train step of qwen2's reduced config with the mixer, float32 on
-    the card: the forward and every adjoint spec (``sx`` and the three
-    taps) are K1 executors that launched, the loss matches the same step
-    on the CPU within 1e-5."""
+    the card: the forward and every adjoint run (``sx``'s, and the three
+    taps' group) are K1 executors that launched once, the loss matches the
+    same step on the CPU within 1e-5."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -787,7 +828,7 @@ def test_train_step_on_card_runs_the_mixer_and_its_adjoints_on_k1(
             model, adamw_init(model, opt_cfg), batch)
         losses[str(dev)] = float(m["loss"])
     exs = executor_cache().executors()
-    assert len(exs) == 5
+    assert len(exs) == 3
     assert {ex.backend for ex in exs} == {"hopper"}
     assert all(ex.kernel_launches == 1 for ex in exs)
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])

@@ -81,3 +81,27 @@ def test_sweep_registry_holds_both_backends_against_the_baseline():
     (fb,) = [c for c in ints.combos if c.backend == "hopper"]
     assert fb.status == "fallback" and fb.reason.startswith("hopper-dtype")
     assert "torch[hopper-dtype]" in coverage_matrix([ints])
+
+
+def test_plan_evaluator_leaves_no_cycle_holding_tensors():
+    """A run of the plan evaluator leaves nothing for the garbage
+    collector: no reference cycle keeps its aux buffers or the slices it
+    took of them (on the card such a cycle held a full-size plan's aux
+    until ``gc`` ran)."""
+    import gc
+
+    import torch
+    from repro_torch.core.codegen import build_plan_evaluator
+
+    case = get_case("j3d27pt", 12)
+    run = build_plan_evaluator(repro_torch.race(case.program).plan)
+    env = env_to_torch(build_env(case), "cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        before = sum(isinstance(o, torch.Tensor) for o in gc.get_objects())
+        del run(env)["j27"]
+        after = sum(isinstance(o, torch.Tensor) for o in gc.get_objects())
+    finally:
+        gc.enable()
+    assert after == before

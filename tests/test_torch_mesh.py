@@ -421,8 +421,8 @@ def test_k1_runs_on_every_position_each_step(monkeypatch):
     """With the mixer on ``"hopper"`` (K1's emulator here), one mesh step
     runs the mixer once on each of the four positions (an ``spmd_mixer``
     span per position in ``repro_torch.obs``) and every executor run is on
-    ``"hopper"``: the forward plan and each of its four adjoint plans
-    (``sx``, ``sw0..sw2``) four times, once per position."""
+    ``"hopper"``: the forward plan and each adjoint run (``sx``'s, and
+    ``sw0..sw2`` as one scalar group) four times, once per position."""
     monkeypatch.setenv("RACE_BACKEND", "hopper")
     obs.configure(enabled=True)
     try:
@@ -436,7 +436,7 @@ def test_k1_runs_on_every_position_each_step(monkeypatch):
         runs = {k: v for k, v in obs.snapshot()["counters"].items()
                 if k.startswith("race_executor_runs_total")}
         assert runs and all("backend=hopper" in k for k in runs)
-        assert sorted(runs.values()) == [4.0] * 5
+        assert sorted(runs.values()) == [4.0] * 3
     finally:
         obs.reset()
 

@@ -378,7 +378,7 @@ def test_mixer_trajectory_matches_reference(backend, ref_trajectory,
                                             monkeypatch):
     """Five train steps through ``race_smooth`` on each port backend (on the
     CPU ``"hopper"`` is K1's tile emulator, forward and every adjoint
-    spec): the losses within 1e-4 of the reference's."""
+    run): the losses within 1e-4 of the reference's."""
     monkeypatch.setenv("RACE_BACKEND", backend)
     executor_cache().clear()
     rcfg, pcfg = _cfgs("qwen2_7b", race_smooth_radius=2)
@@ -393,8 +393,10 @@ def test_mixer_trajectory_matches_reference(backend, ref_trajectory,
     assert _rel(losses, ref_trajectory) <= 1e-4, (losses, ref_trajectory)
     ran = {ex.backend for ex in executor_cache().executors()}
     assert ran == {backend}
-    # the forward and the adjoints of sx and the three taps
-    assert len(executor_cache().executors()) >= 5
+    # the forward and the adjoints of sx and the three taps: on "hopper"
+    # the taps run as one scalar group, on "torch" one by one
+    assert len(executor_cache().executors()) >= (
+        3 if backend == "hopper" else 5)
 
 
 def test_remat_policies_give_equal_numbers():
