@@ -366,6 +366,15 @@ re-shards 16's checkpoint).
 
 runs phases 1, 2 (the mesh's mixer sources only) and 18 alone.
 
+    python3 chip_smoke.py --step-turns PARENT [ROUNDS]
+
+times K1 instead at :data:`STEP_CELLS` (phase 4's cells, j3d27pt's and
+poisson's level-0 plans, the scalars' groups of phase 6, and the LM
+mixer's forward, ``sx`` adjoint and taps' group) in the tree at PARENT (a
+``git archive`` of another commit, unpacked under the ignored ``build/``)
+and in this tree, in turns, each turn a fresh process: the parent's
+kernel beside the new one on one card, one call at a time and queued.
+
     python3 chip_smoke.py --tf32-sweep
 
 times K4's 3xTF32 kernel instead at the qwen2-7b head, rebuilt with the
@@ -399,6 +408,9 @@ ITEMSIZE = {"float16": 2, "bfloat16": 2, "float32": 4, "float64": 8}
 HALF_DTYPES = ("float16", "bfloat16")
 #: phase 4's half cells: (case, n), each at both half dtypes
 HALF_CELLS = (("j3d27pt", 512), ("poisson", 512), ("hdifft_gm", 8192))
+#: phase 4's float32 cells whose level-0 plan is timed in turns beside
+#: the default plan (:func:`level0_turns`)
+LEVEL0_CELLS = ("j3d27pt", "poisson")
 #: phase 3's float16 cells whose outputs overflow float16 at three times the
 #: test sizes (rhs_ph1 and rhs_ph2 reach 9.6e5 > 65504): held where the
 #: float64 baseline lies within FP16_HELD.  The reference's own float16 sweep
@@ -447,6 +459,30 @@ MIXER_SWEEP_SEGMENTS = (2, 3, 4, 5, 6, 8, 16, 32)
 MIXER_SWEEP_WIDTHS = (32, 64, 128, 256, 1024)
 #: rounds of (other, new, new, other) turns of :func:`geometry_turns`
 GEOMETRY_ROUNDS = 3
+#: ``--step-turns``: K1's cells timed in turns against another tree's
+#: kernel: (case, n, dtype, level) with level None for the case's default,
+#: 0, or "scalars" for the scalars' group of its backward; and the LM
+#: mixer's ("mixer", C, "float32", run) at ``sx`` 516 x C for C of
+#: MIXER_CONV_CHANNELS and the full width (batch 4 x d_model 3,584), run
+#: the forward, the ``sx`` adjoint or the taps' group
+STEP_CELLS = (("j3d27pt", 512, "float32", None), ("j3d27pt", 512, "float32", 0),
+              ("poisson", 512, "float32", None), ("poisson", 512, "float32", 0),
+              ("derivative", 256, "float64", None),
+              ("hdifft_gm", 8192, "float32", None),
+              ("j3d27pt", 512, "float16", None),
+              ("j3d27pt", 512, "bfloat16", None),
+              ("poisson", 512, "float16", None),
+              ("poisson", 512, "bfloat16", None),
+              ("hdifft_gm", 8192, "float16", None),
+              ("hdifft_gm", 8192, "bfloat16", None),
+              ("j3d27pt", 512, "float32", "scalars"),
+              ("j3d27pt", 512, "float16", "scalars"),
+              ("poisson", 512, "float32", "scalars"),
+              ("derivative", 256, "float64", "scalars")) + tuple(
+    ("mixer", C, "float32", run) for C in (3584, 2048, 4 * 3584)
+    for run in ("forward", "sx", "taps"))
+#: ``--step-turns``' rounds of (parent, new, new, parent) turns
+STEP_ROUNDS = 2
 #: calls enqueued back to back behind a spin kernel per queued timing
 #: (:func:`_queued_ms`)
 QUEUE_CALLS = 50
@@ -741,6 +777,256 @@ def half_turns(label, ex, env, bound_ms, twin, torch) -> None:
           f"{bound_ms / med['half']:.3f} (bound {bound_ms:.4f}); turns "
           f"half {[round(t, 4) for t in turns['half']]}, float32 "
           f"{[round(t, 4) for t in turns['float32']]}", flush=True)
+
+
+def level0_turns(label, case, dt, env, ex, torch) -> None:
+    """Phase 4: the case's level-0 plan (the least reassociation) on K1,
+    checked against ``"torch"`` within ``plan``, timed in turns with the
+    default plan's kernel ``ex`` (level 0, default, default, level 0 per
+    round, GEOMETRY_ROUNDS rounds, each turn :func:`_time_ms`); prints
+    each side's median, default / level 0, level 0's step and every
+    turn."""
+    from repro_torch import compile_plan, race
+    from repro_torch.testing import default_tolerances, rel_err
+
+    res0 = race(case.program, reassociate=0)
+    ex0 = compile_plan(res0.plan, env, "hopper")
+    ex0_t = compile_plan(res0.plan, env, "torch")
+    err = rel_err(ex0(env), ex0_t(env))
+    torch.cuda.synchronize()
+    tol = default_tolerances(dt)["plan"]
+    if err > tol:
+        raise SystemExit(f"{label} level 0: K1 vs torch {err:.2e} > "
+                         f"{tol:.0e}")
+    del ex0_t
+    turns = {"level 0": [], "default": []}
+    for _ in range(GEOMETRY_ROUNDS):
+        for side in ("level 0", "default", "default", "level 0"):
+            turns[side].append(_time_ms(
+                (lambda: ex0(env)) if side == "level 0" else
+                (lambda: ex(env)), torch))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"turns {label} default beside level 0 on {_nvidia_smi()}: "
+          f"default {med['default']:.4f} ms, level 0 {med['level 0']:.4f} "
+          f"ms, default / level 0 {med['default'] / med['level 0']:.3f}; "
+          f"level 0 aux {len(ex0.spec.tp.aux_exprs)}, "
+          f"{k1_step(ex0.spec.tp, ex0.spec.source)}; turns default "
+          f"{[round(t, 4) for t in turns['default']]}, level 0 "
+          f"{[round(t, 4) for t in turns['level 0']]}", flush=True)
+
+
+def k1_step(tp, source: str) -> str:
+    """A K1 kernel's step as the geometry gives it and the build compiled
+    it: barriers a step, rounds of the block's threads a step and per
+    output point of a plane, lane use, blocks an SM by shared memory, by
+    registers and as the launch bounds ask, registers and spilled
+    (local) bytes a thread (``cuobjdump``)."""
+    import re
+
+    from repro_torch.lowering import blocks
+
+    g = tp.geometry
+    res = k1_resources(source)
+    regs = int((re.search(r"REG:(\d+)", res) or [0, 0])[1])
+    spill = sum(int(v) for v in re.findall(r"(?:STACK|LOCAL):(\d+)", res))
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = (blocks.SM_REGISTERS // per_warp // (g.threads // 32)
+               if regs else 0)
+    return (f"barriers/step {g.barriers}, rounds/step {tp.rounds_per_step} "
+            f"({tp.rounds_per_point:.4f} per point), lane use "
+            f"{tp.lane_use:.3f}, blocks/SM by smem {g.smem_blocks} by "
+            f"registers {by_regs} (launch bounds {g.blocks}), registers "
+            f"{regs}, spilled bytes {spill}")
+
+
+def step_cell(cell, envs: dict, torch):
+    """``(label, thunk, check, source, tile program)`` of one
+    :data:`STEP_CELLS` cell on the card: the thunk runs K1 once, ``check``
+    returns its rel_err against the ``"torch"`` backend and the tolerance
+    (the forward's ``plan``; a group's partials summed, ``plan``, at half
+    ``grad``; the mixer taps' sums within ``plan`` of the sum of the
+    products' magnitudes, :func:`tap_adjoint_check`'s gate).  ``envs``
+    holds the envs made so far, one per case and dtype."""
+    import numpy as np
+
+    from repro_torch import compile_plan, race
+    from repro_torch.apps import get_case
+    from repro_torch.apps.paper_kernels import pop_hdifft_gm
+    from repro_torch.core.adjoint import ScalarGroup
+    from repro_torch.testing import default_tolerances, rel_err, torch_env
+
+    name, n, dname, level = cell
+    if name == "mixer":
+        return mixer_step_cell(n, level, envs, torch)
+    case = pop_hdifft_gm(n, n) if name == "hdifft_gm" else get_case(name, n)
+    dt = getattr(np, dname, None) or dname
+    lvl = case.reassociate if level in (None, "scalars") else level
+    label = (f"{name} {dname}" + ("" if level is None else
+                                   f" level {level}" if level == 0 else
+                                   " scalars"))
+    outs = {st.lhs.name for st in case.program.body}
+    key = (name, n, dname)
+    if key not in envs:  # the cells of one case and dtype share it
+        envs[key] = {k: v for k, v in torch_env(case, dt, 0, DEVICE).items()
+                     if k not in outs}
+    env = envs[key]
+    res = race(case.program, reassociate=lvl)
+    # a half group: K1 sums in float32, the "torch" plan op by op in the
+    # half dtype (phase 6's rule)
+    tol = default_tolerances(dt)["grad" if level == "scalars" and dname in
+                                 HALF_DTYPES else "plan"]
+    if level != "scalars":
+        ex = compile_plan(res.plan, env, "hopper")
+        ex_t = compile_plan(res.plan, env, "torch")
+        return (label, lambda: ex(env),
+                lambda: (rel_err(ex(env), ex_t(env)), tol), ex.spec.source,
+                ex.spec.tp)
+    keys = sorted(k for k, v in env.items() if v.is_floating_point())
+    p = {k: env[k].clone().requires_grad_() for k in keys}
+    g = cos_weights(res.run({**env, **p}, device=DEVICE), torch)
+    unit, a, ex = next(x for x in adjoint_executors(case.program, env, g)
+                       if isinstance(x[0], ScalarGroup))
+    ex_t = compile_plan(unit.result().plan, a, "torch")
+
+    def check():
+        got = {k: v.sum() for k, v in ex.run_sum(a).items()}
+        want = {k: v.sum() for k, v in ex_t.run_sum(a).items()}
+        return rel_err(got, want), tol
+
+    return (label, adjoint_call(unit, ex, a), check,
+            ex.spec.source_for(1, True), ex.spec.program(1))
+
+
+def mixer_step_cell(C: int, run: str, envs: dict, torch):
+    """:func:`step_cell` of the LM mixer at ``sx`` (LM_PROMPT + R + 2) x
+    ``C`` (float32, random bfloat16 tokens and taps from a seed): its
+    forward, its ``sx`` adjoint or its taps' group, as the backward runs
+    them (output gradient :func:`cos_weights`)."""
+    from repro_torch import compile_plan
+    from repro_torch.core.adjoint import ScalarGroup
+    from repro_torch.models.ssm import _smooth_result, smooth_env
+    from repro_torch.testing import default_tolerances, rel_err
+
+    res = _smooth_result(LM_PROMPT, C, LM_RADIUS)
+    key = ("mixer", C)
+    if key not in envs:  # a shape's three runs share its env
+        gen = torch.Generator(DEVICE).manual_seed(5)
+        taps = 0.5 * torch.randn(LM_RADIUS + 1, generator=gen, device=DEVICE)
+        x = torch.randn((2, LM_PROMPT, C // 2), generator=gen,
+                        device=DEVICE, dtype=torch.bfloat16)
+        env = {k: v for k, v in smooth_env(x, taps, LM_RADIUS).items()
+               if k != "sy"}
+        g = cos_weights(compile_plan(res.plan, env, "torch")(env), torch)
+        envs[key] = env, adjoint_executors(res.program, env, g)
+    env, adj = envs[key]
+    label = f"mixer {C} {run}"
+    tol = default_tolerances("float32")["plan"]
+    if run == "forward":
+        ex = compile_plan(res.plan, env, "hopper")
+        ex_t = compile_plan(res.plan, env, "torch")
+        return (label, lambda: ex(env),
+                lambda: (rel_err(ex(env), ex_t(env)), tol), ex.spec.source,
+                ex.spec.tp)
+    unit, a, ex = next(x for x in adj if isinstance(x[0], ScalarGroup) == (
+        run == "taps") and (run == "taps" or x[0].input == "sx"))
+    ex_t = compile_plan(unit.result().plan, a, "torch")
+    if run == "sx":
+        return (label, adjoint_call(unit, ex, a),
+                lambda: (rel_err(ex(a), ex_t(a)), tol), ex.spec.source,
+                ex.spec.tp)
+
+    def check():
+        got = {k: float(v.double().sum()) for k, v in ex.run_sum(a).items()}
+        want = ex_t(a)
+        scale = max(float(v.double().abs().sum()) for v in want.values())
+        return max(abs(got[k] - float(want[k].double().sum()))
+                   for k in got) / scale, tol
+
+    return (label, adjoint_call(unit, ex, a), check,
+            ex.spec.source_for(1, True), ex.spec.program(1))
+
+
+def k1_cells(torch) -> None:
+    """``--k1-cells ROOT``: one turn of :func:`step_turns` in this process,
+    on the ``repro_torch`` of the tree at ROOT: build every
+    :data:`STEP_CELLS` source at once, check each cell against
+    ``"torch"``, time it one call at a time (:func:`_time_ms`) and queued
+    (:func:`_queued_ms`) and print one ``k1-cell`` JSON line per cell
+    (this tree's geometry fields too where it has them)."""
+    from repro_torch.kernels.build import compile_sources
+
+    t0 = time.time()
+    envs: dict = {}
+    cells = [step_cell(c, envs, torch) for c in STEP_CELLS]
+    compile_sources([c[3] for c in cells])
+    print(f"k1-cells build {time.time() - t0:.1f} s", flush=True)
+    for label, run, check, source, tp in cells:
+        err, tol = check()
+        torch.cuda.synchronize()
+        if err > tol:
+            raise SystemExit(f"k1-cells {label}: K1 vs torch {err:.2e} > "
+                             f"{tol:.0e}")
+        ms = _time_ms(run, torch)
+        queued, _ = _queued_ms(run, torch)
+        step = k1_step(tp, source) if hasattr(tp, "lane_use") else (
+            k1_resources(source))
+        print("k1-cell " + json.dumps(dict(label=label, ms=ms, queued=queued,
+                                           err=err, step=step)), flush=True)
+        torch.cuda.empty_cache()
+
+
+def step_turns(parent: str, rounds: int, torch) -> None:
+    """``--step-turns PARENT [ROUNDS]``: K1 at :data:`STEP_CELLS` in the
+    tree at PARENT (a ``git archive`` of another commit, unpacked where
+    ``.gitignore`` lists) and in this tree, each turn a fresh process
+    (``--k1-cells``) so that the two packages never share one: ROUNDS
+    (default :data:`STEP_ROUNDS`) rounds of (parent, new, new, parent).
+    Prints every turn and, per cell, each side's median one call at a
+    time and queued, the new one's ratio to the parent's and, within each
+    side, the default level over level 0."""
+    root = str(Path(__file__).resolve().parent)
+    sides = [("parent", parent), ("new", root)]
+    times: dict = {}
+    fields: dict = {}
+    for rnd in range(rounds):
+        for side, tree in sides + sides[::-1]:
+            cmd = [sys.executable, str(Path(root) / "chip_smoke.py"),
+                   "--k1-cells", tree]
+            t0 = time.time()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            if proc.returncode:
+                raise SystemExit(f"step turn {side} exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+            for ln in proc.stdout.splitlines():
+                if ln.startswith("k1-cell "):
+                    c = json.loads(ln[len("k1-cell "):])
+                    times.setdefault((side, c["label"]), []).append(
+                        (c["ms"], c["queued"]))
+                    fields[side, c["label"]] = c["step"]
+            print(f"step turn {rnd} {side}: {time.time() - t0:.1f} s "
+                  f"({[ln for ln in proc.stdout.splitlines() if 'build' in ln]})",
+                  flush=True)
+    labels = [c for (sd, c) in times if sd == "parent"]
+    med = {k: [statistics.median(t[i] for t in v) for i in (0, 1)]
+           for k, v in times.items()}
+    for label in labels:
+        base = med["parent", label]
+        print(f"step {label} on {_nvidia_smi()}: " + "; ".join(
+            f"{side} {med[side, label][0]:.4f} ms "
+            f"({med[side, label][0] / base[0]:.3f} of parent), queued "
+            f"{med[side, label][1]:.4f} "
+            f"({med[side, label][1] / base[1]:.3f}), turns "
+            f"{[[round(x, 4) for x in t] for t in times[side, label]]}"
+            for side, _ in sides), flush=True)
+        for side, _ in sides:
+            print(f"step {label} {side}: {fields[side, label]}", flush=True)
+    for name in ("j3d27pt", "poisson"):
+        for side, _ in sides:
+            d, z = (f"{name} float32", f"{name} float32 level 0")
+            print(f"step {name} {side}: default / level 0 "
+                  f"{med[side, d][0] / med[side, z][0]:.3f}", flush=True)
 
 
 def geometry_text(geo) -> str:
@@ -1216,7 +1502,8 @@ def grad_full_size(case, dt, res, torch) -> tuple:
           f"{geometry_text(geo)}, smem {tp.smem_bytes} B, "
           f"aux_evals_per_point {tp.aux_evals_per_point:.3f}, aux "
           f"{[x.name for x in unit.result().plan.aux_order]}, resources "
-          f"{k1_resources(ex.spec.source_for(1, True))}", flush=True)
+          f"{k1_resources(ex.spec.source_for(1, True))}, step "
+          f"{k1_step(tp, ex.spec.source_for(1, True))}", flush=True)
     entries.append(dict(name=f"race_stencil[{label} adjoint scalars]",
                         launches=1, max_abs_err=group_abs, ms=ms,
                         plain_ms=t_ms, bound_ms=g_bound, bound_by=g_by,
@@ -4964,6 +5251,10 @@ def main() -> int:
     if sys.argv[1:] == ["--store-hit"]:  # phase 12's fresh process
         store_hit(torch)
         return 0
+    if sys.argv[1:2] == ["--k1-cells"]:  # one turn of --step-turns
+        sys.path[0] = str(Path(sys.argv[2]).resolve() / "src")
+        k1_cells(torch)
+        return 0
     # a fresh tuning store: phases 1-11 hold "auto" to the kernel on an
     # empty store, and no record of the user's can change them
     store = root / "build" / "smoke_tuning"
@@ -4997,6 +5288,12 @@ def main() -> int:
               "--mixer-sweep": mixer_sweep}
     if len(sys.argv) == 2 and sys.argv[1] in sweeps:
         sweeps[sys.argv[1]](torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(smi)
+        return 0
+    if sys.argv[1:2] == ["--step-turns"] and len(sys.argv) >= 3:
+        step_turns(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3
+                   else STEP_ROUNDS, torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
         print(smi)
         return 0
@@ -5054,6 +5351,10 @@ def main() -> int:
                 sweep.append((case, lvl, dt, res))
     main_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
                  for case, dt in full_size_cells()]
+    # phase 4's level-0 turns
+    level0_runs = [(case, dt, race(case.program, reassociate=0))
+                   for case, dt in full_size_cells()
+                   if case.name in LEVEL0_CELLS]
     half_runs = [(case, dt, race(case.program, reassociate=case.reassociate))
                  for case, dt in half_cells()]
     # the gradient sweep runs each case at its default level, in float32
@@ -5065,7 +5366,7 @@ def main() -> int:
     marks.append((2, time.time()))
     sources = []
     for case, _, dt, res in sweep + [(c, None, d, r) for c, d, r in
-                                     main_runs + half_runs]:
+                                     main_runs + half_runs + level0_runs]:
         shapes = required_shapes(case.program)
         sources.append(specialize_stencil(
             res.plan, shapes, {k: dtype_name(dt) for k in shapes}).source)
@@ -5206,6 +5507,8 @@ def main() -> int:
             half_turns(label, ex, env, bound_ms, f32_twin[case.name], torch)
         elif dname == "float32" and case.name in dict(HALF_CELLS):
             f32_twin[case.name] = (env, ex)
+        if dname == "float32" and case.name in LEVEL0_CELLS:
+            level0_turns(label, case, dt, env, ex, torch)
         print(f"main {case.name} {dname} {tuple(env[next(iter(arrays))].shape)}"
               f": selection hopper, launches {launches}, stream level "
               f"{geo.s_level}, plane tile "
@@ -5219,7 +5522,8 @@ def main() -> int:
               f"bytes {nbytes}, bound_ms {bound_ms:.4f} ({by}), "
               f"share of bound {bound_ms / kernel_ms:.3f}, max_abs_err "
               f"{max_abs:.3e}, rel_err {e_plan:.2e}, resources "
-              f"{k1_resources(ex.spec.source)}", flush=True)
+              f"{k1_resources(ex.spec.source)}, step "
+              f"{k1_step(tp, ex.spec.source)}", flush=True)
         kernels.append(dict(
             name=f"race_stencil[{label}]", route="cuda",
             source="src/repro_torch/lowering/emit.py",
@@ -5233,7 +5537,10 @@ def main() -> int:
             plane_levels=list(geo.order), segment=geo.seg,
             ring_depths={r.name: r.depth for r in geo.rings},
             smem_bytes=tp.smem_bytes,
-            aux_evals_per_point=tp.aux_evals_per_point))
+            aux_evals_per_point=tp.aux_evals_per_point,
+            barriers=geo.barriers, rounds_per_point=tp.rounds_per_point,
+            lane_use=tp.lane_use, smem_blocks=geo.smem_blocks,
+            launch_bounds_blocks=geo.blocks))
         del env, ex, ex_t, lib
         torch.cuda.empty_cache()
     del f32_twin

@@ -24,10 +24,16 @@ exceeds a block.  None of that carries over.  The kernel streams (2.5-D):
     plane window (the plane tile plus its one-sided halo) per step, into a
     ring of its own with one slot more than its reads span, so the next
     step's plane loads while this step computes (double buffering);
-  * the aux of a step are evaluated in **phases**, one barrier after each:
-    an aux's phase is one more than that of every aux whose plane of the
-    same step it reads (older planes were written before the step's first
-    barrier);
+  * the aux of a step are evaluated in **phases**, one barrier before
+    each (the first is the step's head): an aux's phase is one more than
+    that of every aux whose plane of the same step it reads (older planes
+    were written before the step's head), and the body runs in the phase
+    after the last aux it reads so, or with the first phase's aux where it
+    reads only older planes;
+  * every ring that spans all plane levels lays its planes out at one
+    common **pitch** (the widest ring row), so a box that reads only such
+    rings finds every read of a thread's element at that element's own
+    index plus a constant (``emit``'s linear boxes);
   * boxes are the **exact one-sided ranges** of
     :func:`~.geometry.aux_ranges`, not the symmetric ``±ext``; a ring holds
     the planes from its lead back to the oldest plane any consumer reads at
@@ -92,6 +98,19 @@ SHORT_GRID = 2 * 132
 SHORT_SEGMENT = 4
 #: context key of the body in :attr:`Schedule.reads`
 BODY = -1
+#: bytes of shared memory an H100 SM has for blocks (228 KB), the bytes the
+#: runtime reserves for each block, and the static bytes a kernel may add
+#: (``race_block_sum``'s 32 doubles): what sets the blocks an SM holds
+SM_SHARED = 233472
+BLOCK_RESERVED = 1024
+STATIC_SHARED = 256
+#: threads and blocks an H100 SM holds at most
+SM_THREADS = 2048
+SM_BLOCKS = 32
+#: registers of an SM, and the fewest a thread of the kernel is held to by
+#: ``__launch_bounds__`` (the blocks it asks for stop there)
+SM_REGISTERS = 65536
+MIN_REGISTERS = 64
 
 
 def _pow2_ceil(n: int) -> int:
@@ -156,10 +175,11 @@ class Ring:
     depth: int  # planes kept (1 for a box evaluated once per block)
     lead: int  # plane written at step k: k + lead
     start: int  # first step it is written at
-    phase: int = 0  # barrier phase of a step (aux on a plane only)
+    phase: int = 0  # phase of a step it is written in (aux on a plane)
     widths: tuple = ()  # per level box width in a plane (1: stream, uncovered)
     strides: tuple = ()  # per level element stride in a plane (0: not in it)
     offset: int = 0  # first element in shared memory
+    slot: int = 0  # elements one plane takes in shared memory (pitched rows)
 
     @property
     def plane(self) -> int:
@@ -167,7 +187,7 @@ class Ring:
 
     @property
     def size(self) -> int:
-        return self.depth * self.plane
+        return self.depth * self.slot
 
 
 @dataclass(frozen=True)
@@ -192,12 +212,27 @@ class Schedule:
     s_level: int  # 0: no stream level
     contiguous: tuple  # levels some array or output is contiguous in
     rings: tuple
-    reads: dict
+    reads: dict  # back: planes behind the ring's lead at the reading step
+    order: tuple = ()  # plane levels, fastest first
+    body_phase: int = 0  # phase of a step the body runs in
 
     @property
     def k0(self) -> int:
         """First step of a segment (minus the warm-up)."""
         return min([0] + [r.start for r in self.rings if r.streamed])
+
+    @property
+    def phases(self) -> tuple:
+        """The phases a step runs, in order: one barrier before each (the
+        first is the step's head)."""
+        return tuple(sorted({r.phase for r in self.rings
+                             if r.streamed and not r.operand}
+                            | {self.body_phase}))
+
+    @property
+    def barriers(self) -> int:
+        """``__syncthreads()`` a step of the march runs."""
+        return len(self.phases)
 
     def plane_widths(self, ring: Ring, tile: dict) -> tuple:
         m = len(ring.lo)
@@ -205,10 +240,43 @@ class Schedule:
                      if l in ring.levels and l != self.s_level else 1
                      for l in range(1, m + 1))
 
-    def footprint(self, tile: dict) -> int:
-        """Shared-memory elements of the rings at a plane tile."""
-        return sum(r.depth * prod(self.plane_widths(r, tile))
-                   for r in self.rings)
+    def layout(self, tile: dict) -> tuple:
+        """``(pitches, [(slot, strides) per ring], margin)`` at a plane
+        tile.  A ring that spans every plane level lays a plane out with
+        each level's rows at the common pitch (the widest such ring's, or
+        the tile's, on every plane level but the slowest), so that one
+        element index serves all of them; another ring is compact.
+        ``margin``: elements after the last ring that a linear box's
+        padding elements may read past a slot (less than one row of each
+        pitched level)."""
+        m = len(tile) + (1 if self.s_level else 0)
+        full = [r for r in self.rings
+                if all(l in r.levels for l in self.order)]
+        pitch = {l: max([tile[l]] + [self.plane_widths(r, tile)[l - 1]
+                                     for r in full])
+                 for l in self.order[:-1]}
+        out = []
+        for r in self.rings:
+            widths = self.plane_widths(r, tile)
+            strides, acc = [0] * m, 1
+            for l in self.order:
+                if l in r.levels:
+                    strides[l - 1] = acc
+                    acc *= pitch[l] if r in full and l in pitch else (
+                        widths[l - 1])
+            out.append((acc, tuple(strides)))
+        margin, acc = 0, 1
+        for l in self.order[:-1]:
+            acc *= pitch[l]
+            margin += acc
+        return pitch, out, margin if full else 0
+
+    def shared(self, tile: dict) -> int:
+        """Shared-memory elements of the rings as laid out, margin
+        included."""
+        _, slots, margin = self.layout(tile)
+        return sum(r.depth * sl for r, (sl, _) in zip(self.rings, slots)) + (
+            margin)
 
 
 def schedule(plan, stage: bool = True) -> Schedule:
@@ -292,15 +360,26 @@ def schedule(plan, stage: bool = True) -> Schedule:
                     if l in sh and l != s else 0 for l in range(1, m + 1))
         back = ring.lead - (lead + sh[s]) if ring.streamed else 0
         reads[(key, r)] = Read(index[r.name], back, off)
-    for k, a in enumerate(aux):
+    def phase(key) -> int:
+        """One more than the phase of every aux plane ``key`` reads at its
+        own step (0: none)."""
+        return 1 + max([rings[rd.ring].phase for (c, _), rd in reads.items()
+                        if c == key and rd.ring < len(aux)
+                        and rings[rd.ring].streamed and rd.back == 0],
+                       default=-1)
+
+    for k in range(len(aux)):
         if rings[k].streamed:
-            rings[k] = replace(rings[k], phase=1 + max(
-                [rings[rd.ring].phase for (key, _), rd in reads.items()
-                 if key == k and rd.ring < len(aux)
-                 and rings[rd.ring].streamed and rd.back == 0],
-                default=-1))
+            rings[k] = replace(rings[k], phase=phase(k))
+    # the level the outputs are contiguous in runs fastest in every box, so
+    # that stores coalesce and shared memory is read along rows; operand
+    # planes still load along their own contiguous level (emit's windows)
+    wl = plan.body[0].lhs.subs[-1].s
+    head = (wl, xl) if wl not in (xl, s) else (xl,)
+    order = head + tuple(l for l in range(m, 0, -1)
+                         if l not in head and l != s)
     return Schedule(xl, s, contiguous_levels(plan, analysis), tuple(rings),
-                    reads)
+                    reads, order, phase(BODY))
 
 
 @dataclass(frozen=True)
@@ -321,6 +400,12 @@ class LaunchGeometry:
     rings: tuple  # Ring, laid out in shared memory
     reads: dict  # (context, Ref) -> Read
     k0: int  # first step of a segment (-warm-up)
+    pitch: tuple = ()  # per level the pitched rings' row pitch (0: none)
+    smem_elems: int = 0  # shared-memory elements: rings and margin
+    smem_blocks: int = 1  # blocks an SM holds, as shared memory allows
+    blocks: int = 1  # blocks an SM the launch bounds ask for
+    phases: tuple = (0,)  # phases a step runs, one barrier before each
+    body_phase: int = 0  # the phase the body runs in
 
     @property
     def extents(self) -> tuple:
@@ -340,8 +425,9 @@ class LaunchGeometry:
         return prod(self.tile[l - 1] for l in self.order)
 
     @property
-    def smem_elems(self) -> int:
-        return sum(r.size for r in self.rings)
+    def barriers(self) -> int:
+        """``__syncthreads()`` a step of the march runs."""
+        return len(self.phases)
 
 
 def _overrides(m: int, block_rows: int, block_cols: int,
@@ -359,8 +445,30 @@ def _overrides(m: int, block_rows: int, block_cols: int,
     return fixed
 
 
+def blocks_per_sm(nbytes: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``nbytes`` of dynamic shared memory
+    an H100 SM holds at once, as shared memory and threads allow."""
+    return min(SM_SHARED // (nbytes + STATIC_SHARED + BLOCK_RESERVED),
+               SM_THREADS // threads, SM_BLOCKS)
+
+
+def block_threads(plane_points: int) -> int:
+    return min(THREADS, max(32, _pow2_ceil(plane_points)))
+
+
+def launch_blocks(smem_blocks: int, threads: int) -> int:
+    """The blocks an SM ``__launch_bounds__`` asks for, so that registers
+    do not cut what shared memory allows: those blocks, at most as many as
+    hold a thread at ``MIN_REGISTERS`` registers (more would have the
+    compiler spill).  On an H100 the phase-4 kernels compiled at 48-118
+    registers under it with nothing spilled, and asking for no minimum or
+    for ``MIN_REGISTERS``' worth of blocks ran within the noise of turns
+    (``PERF.md``, the launch-bound rules)."""
+    return min(smem_blocks, SM_REGISTERS // (threads * MIN_REGISTERS))
+
+
 def _refuse(sched: Schedule, tile: dict, itemsize: int) -> LoweringError:
-    n = sched.footprint(tile) * itemsize
+    n = sched.shared(tile) * itemsize
     return LoweringError((FallbackReason(
         R_HOPPER_SMEM,
         f"aux rings need {n} B of shared memory at plane tile "
@@ -376,15 +484,15 @@ def choose_tile(plan, itemsize: int, block_rows: int = 0,
     examples) and the schedule it was sized for.
 
     The plane tile is, among power-of-two shapes of at most
-    ``MAX_PLANE_POINTS`` points whose rings fit ``budget``, the one with the
-    fewest aux plane elements per output point, then the fewest staged
-    operand elements, then the most points, then the widest x-level, with
-    each plane level that an array or output is contiguous in (the x-level
-    among them) spanning a ``LINE_BYTES`` line where the extent allows.
-    When no shape fits with the operands staged, they are read from device
-    memory; when none fits at all, the one-point tile is taken up to
-    ``SMEM_LIMIT`` and refused beyond it.  Memoized in
-    :func:`~.geometry.kernel_memo`."""
+    ``MAX_PLANE_POINTS`` points whose rings, as laid out, fit
+    ``budget``, the one with the fewest aux plane elements per output
+    point, then the fewest staged operand elements, then the most points,
+    then the widest x-level, with each plane level that an array or output
+    is contiguous in (the x-level among them) spanning a ``LINE_BYTES``
+    line where the extent allows.  When no shape fits with the operands
+    staged, they are read from device memory; when none fits at all, the
+    one-point tile is taken up to ``SMEM_LIMIT`` and refused beyond it.
+    Memoized in :func:`~.geometry.kernel_memo`."""
     memo = kernel_memo(plan)
     key = ("tile", itemsize, block_rows, block_cols, block_inner, budget,
            batch)
@@ -416,7 +524,7 @@ def _choose_tile(plan, itemsize, block_rows, block_cols, block_inner,
             points = prod(shape)
             if points > MAX_PLANE_POINTS and len(fixed) < len(plane):
                 continue
-            if sched.footprint(tile) * itemsize > budget:
+            if sched.shared(tile) * itemsize > budget:
                 continue
             widths = [prod(sched.plane_widths(r, tile)) for r in sched.rings]
             short = sum(tile[l] < min(LINE_BYTES // itemsize, cap[l])
@@ -430,7 +538,7 @@ def _choose_tile(plan, itemsize, block_rows, block_cols, block_inner,
             break
     else:
         tile = {l: fixed.get(l, 1) for l in plane}
-        if sched.footprint(tile) * itemsize > SMEM_LIMIT:
+        if sched.shared(tile) * itemsize > SMEM_LIMIT:
             raise _refuse(sched, tile, itemsize)
     if s:
         tile[s] = fixed.get(s) or segment_length(
@@ -469,31 +577,25 @@ def build_geometry(plan, itemsize: int, block_rows: int = 0,
     tile, sched = choose_tile(plan, itemsize, block_rows, block_cols,
                               block_inner, batch=batch)
     xl, s = sched.x_level, sched.s_level
-    # the level the outputs are contiguous in runs fastest in every box, so
-    # that stores coalesce and shared memory is read along rows; operand
-    # planes still load along their own contiguous level (emit._stage)
-    wl = plan.body[0].lhs.subs[-1].s
-    head = (wl, xl) if wl not in (xl, s) else (xl,)
-    order = head + tuple(l for l in range(m, 0, -1)
-                         if l not in head and l != s)
-    tiles = dict(zip(range(1, m + 1), tile))
+    tiles = {l: tile[l - 1] for l in sched.order}
+    pitch, slots, margin = sched.layout(tiles)
     rings, offset = [], 0
-    for r in sched.rings:
-        widths = sched.plane_widths(r, tiles)
-        strides, acc = [0] * m, 1
-        for l in order:
-            if l in r.levels:
-                strides[l - 1] = acc
-                acc *= widths[l - 1]
-        rings.append(replace(r, widths=widths, strides=tuple(strides),
-                             offset=offset))
+    for r, (slot, strides) in zip(sched.rings, slots):
+        rings.append(replace(r, widths=sched.plane_widths(r, tiles),
+                             strides=strides, offset=offset, slot=slot))
         offset += rings[-1].size
     nb = tuple(-(-(h - l + 1) // t) for l, h, t in zip(lo, hi, tile))
     if prod(nb) >= 2 ** 31:
         raise ValueError(f"grid of {prod(nb)} blocks is over CUDA's limit")
-    plane_points = prod(tile[l - 1] for l in order)
-    threads = min(THREADS, max(32, _pow2_ceil(plane_points)))
+    threads = block_threads(prod(tiles.values()))
+    smem = offset + margin
+    blocks = blocks_per_sm(smem * itemsize, threads)
     return LaunchGeometry(m=m, lo=lo, hi=hi, tile=tile, x_level=xl,
-                          s_level=s, order=order, nb=nb, threads=threads,
-                          rings=tuple(rings), reads=sched.reads,
-                          k0=sched.k0)
+                          s_level=s, order=sched.order, nb=nb,
+                          threads=threads, rings=tuple(rings),
+                          reads=sched.reads, k0=sched.k0,
+                          pitch=tuple(pitch.get(l, 0)
+                                      for l in range(1, m + 1)),
+                          smem_elems=smem, smem_blocks=blocks,
+                          blocks=launch_blocks(blocks, threads),
+                          phases=sched.phases, body_phase=sched.body_phase)

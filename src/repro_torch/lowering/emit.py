@@ -54,6 +54,14 @@ streaming kernel):
     evaluated once per thread into registers at the top of the kernel;
   * in-plane offsets are 32-bit where they fit, plane bases 64-bit, and
     each ring's slot base rotates once per step;
+  * a step is fixed work per thread: each box a fully unrolled count of
+    rounds over the thread's fixed elements (:class:`_Maps`), an aux box
+    whose rings all span the plane swept by its slot's own index (one
+    pitch for all such rings: every read is that index plus a constant),
+    a phase's such boxes packed end to end; the schedule's phases (one
+    barrier before each) are the only barriers, and ``__launch_bounds__`` asks
+    for the blocks an SM the geometry gives (:func:`~.blocks.
+    launch_blocks`);
   * a batch (``run_batch``; the reference's ``jax.vmap`` over
     ``pallas_call``) is the grid's second axis: ``blockIdx.y`` is the
     example, each pointer moves by its per-example count, and the rank-0
@@ -85,7 +93,7 @@ import torch
 
 from ..core.depgraph import Plan
 from ..core.ir import Const, Expr, Node, Ref, expr_refs
-from .blocks import BODY, LaunchGeometry, build_geometry
+from .blocks import BODY, STATIC_SHARED, LaunchGeometry, build_geometry
 from .facts import R_HOPPER_DTYPE, FallbackReason, LoweringError
 from .geometry import kernel_analysis
 
@@ -218,6 +226,26 @@ class TileProgram:
                     for r in self.aux)
         return evals / (g.plane_points * g.seg)
 
+    @property
+    def rounds_per_step(self) -> int:
+        """Rounds the block's threads take in one step of the march: the
+        staged operands' next planes, the aux boxes and the body
+        (:func:`step_loops`)."""
+        return sum(x.rounds for x in step_loops(self))
+
+    @property
+    def rounds_per_point(self) -> float:
+        return self.rounds_per_step / self.geometry.plane_points
+
+    @property
+    def lane_use(self) -> float:
+        """The share of a step's thread rounds that hold an element of a
+        box (a linear box's pitch padding and the threads past a box's
+        last element hold none)."""
+        loops = step_loops(self)
+        return sum(x.useful for x in loops) / max(1, sum(
+            x.rounds for x in loops) * self.geometry.threads)
+
 
 def affine(ref: Ref) -> tuple:
     """``((a, level, b), ...)`` per array dimension (level 0: constant b)."""
@@ -304,14 +332,89 @@ def _offset(terms: list, small: bool) -> str:
     return " + ".join(f"{cast}({ix}) * {st}" for ix, st in terms) or "0"
 
 
+class _Map(NamedTuple):
+    """A thread-to-element map of one box shape: element ``e`` of a round is
+    ``threadIdx.x + n * threads``, its position along ``levels`` (fastest
+    first) the digits of ``e`` in the radices ``widths`` (the last
+    unbounded).  Each thread's digits of ``threadIdx.x`` are computed once,
+    before the march (``m<id>_<level>``); a round adds the digits of
+    ``n * threads``, known when the source is rendered, with a carry only
+    where one can occur, so the march holds no division."""
+
+    ident: int
+    levels: tuple
+    widths: tuple
+
+
+class _Maps:
+    """The maps a kernel uses, each rendered once before the march."""
+
+    def __init__(self, threads: int):
+        self.threads = threads
+        self.maps: dict = {}
+
+    def get(self, levels, widths) -> _Map:
+        key = (tuple(levels), tuple(widths))
+        if key not in self.maps:
+            self.maps[key] = _Map(len(self.maps), *key)
+        return self.maps[key]
+
+    def prologue(self) -> list:
+        lines = []
+        for mp in self.maps.values():
+            acc = 1
+            for i, (l, w) in enumerate(zip(mp.levels, mp.widths)):
+                v = "threadIdx.x" if acc == 1 else f"threadIdx.x / {acc}"
+                if i < len(mp.levels) - 1:
+                    v = f"({v}) % {w}"
+                lines.append(f"  const int m{mp.ident}_{l} = {v};")
+                acc *= w
+        return lines
+
+    def round(self, mp: _Map, n: int, name: str = "p") -> list:
+        """Lines defining ``<name><level>`` for each level of the map at
+        round ``n``."""
+        t = self.threads
+        digits, rest = [], n * t
+        for w in mp.widths[:-1]:
+            digits.append(rest % w)
+            rest //= w
+        digits.append(rest)
+        lines, carry, acc = [], False, 1
+        for i, (l, w, d) in enumerate(zip(mp.levels, mp.widths, digits)):
+            most = min(w - 1, (t - 1) // acc)
+            acc *= w
+            base = f"m{mp.ident}_{l} + {d}" + (f" + y{mp.ident}_{i - 1}"
+                                               if carry else "")
+            last = i == len(mp.levels) - 1
+            if not last and most + d + carry >= w:
+                lines += [f"      const int y{mp.ident}_{i} = {base} >= {w};",
+                          f"      const int {name}{l} = {base} - "
+                          f"(y{mp.ident}_{i} ? {w} : 0);"]
+                carry = True
+            else:
+                lines.append(f"      const int {name}{l} = {base};")
+                carry = False
+        return lines
+
+
+def _rounds(size: int, threads: int) -> list:
+    """``(n, bound)`` per round of a box of ``size`` elements: ``bound`` the
+    threads whose element lies in the box (``threads``: all)."""
+    return [(n, min(threads, size - n * threads))
+            for n in range(-(-size // threads))]
+
+
 class _Box:
     """Code for one box of a step (an aux plane, an aux box evaluated once
     per block, or the output plane) or, with ``key=None``, for the rank-0
-    aux at the top of the kernel."""
+    aux at the top of the kernel.  ``linear``: a thread's element is the
+    ring slot's own index ``e`` (the box and every ring it reads laid out
+    at the common pitch), so each read is at ``e`` plus a constant."""
 
-    def __init__(self, tp: TileProgram, key):
+    def __init__(self, tp: TileProgram, key, linear: bool = False):
         g = tp.geometry
-        self.tp, self.key = tp, key
+        self.tp, self.key, self.linear = tp, key, linear
         if key == BODY:
             self.levels = tuple(range(1, g.m + 1))
             self.lo, self.lead = (0,) * g.m, 0
@@ -326,26 +429,28 @@ class _Box:
         self.loads: dict = {}  # base Ref -> local variable name
         self.lines: list = []
 
-    def header(self) -> list:
-        """Loop header: a thread-strided sweep of the box, fastest level
-        first, with each covered level's index ``i<l>``."""
+    @property
+    def plane(self) -> list:
+        return [l for l in self.tp.geometry.order if l in self.levels]
+
+    @property
+    def size(self) -> int:
+        return prod(self.widths[l - 1] for l in self.plane)
+
+    def map(self, maps: _Maps) -> _Map:
+        return maps.get(self.plane, [self.widths[l - 1] for l in self.plane])
+
+    def round_header(self, maps: _Maps, n: int) -> list:
+        """The element of round ``n``: ``p<l>`` from the thread's map and
+        each covered level's index ``i<l>``."""
+        return maps.round(self.map(maps), n) + self._indices()
+
+    def _indices(self) -> list:
         g = self.tp.geometry
-        plane = [l for l in g.order if l in self.levels]
-        size = prod(self.widths[l - 1] for l in plane)
-        lines = [f"    for (int e = threadIdx.x; e < {size}; "
-                 f"e += {g.threads}) {{", "      int q = e;"]
-        for k, l in enumerate(plane):
-            if k == len(plane) - 1:
-                lines.append(f"      const int p{l} = q;")
-            else:
-                lines.append(f"      const int p{l} = q % "
-                             f"{self.widths[l - 1]}; q /= "
-                             f"{self.widths[l - 1]};")
-            lines.append(f"      const int i{l} = t{l} + ({self.lo[l - 1]} "
-                         f"+ p{l});")
+        lines = [f"      const int i{l} = t{l} + ({self.lo[l - 1]} + p{l});"
+                 for l in self.plane]
         if self.streamed:
             lines.append(f"      const int i{g.s_level} = z + {self.lead};")
-        lines.append("      (void)q;")
         return lines
 
     def expr(self, e: Expr) -> str:
@@ -380,6 +485,10 @@ class _Box:
         g = self.tp.geometry
         r = g.rings[rd.ring]
         base = f"b{rd.ring}_{rd.back}" if r.streamed else str(r.offset)
+        if self.linear:
+            const = sum(rd.offset[l - 1] * r.strides[l - 1]
+                        for l in g.order if l in r.levels)
+            return f"smem[{base} + e + {const}]"
         terms = [f"(p{l} + {rd.offset[l - 1]}) * {r.strides[l - 1]}"
                  for l in g.order if l in r.levels]
         return f"smem[{base} + " + (" + ".join(terms) or "0") + "]"
@@ -410,6 +519,71 @@ class _Box:
         return var
 
 
+def linear_boxes(tp: TileProgram) -> set:
+    """The aux rings on a plane whose box a thread sweeps by the slot's own
+    index (:class:`_Box` ``linear``): the ring and every ring it reads span
+    all plane levels (so all are laid out at the common pitch) and it reads
+    nothing from device memory.  A round then computes no index at all;
+    the pitch's padding elements are computed too, and never read."""
+    g = tp.geometry
+    full = {k for k, r in enumerate(g.rings)
+            if all(l in r.levels for l in g.order)}
+    out = set()
+    for k, e in enumerate(tp.aux_exprs):
+        r = g.rings[k]
+        refs = [x for x in expr_refs(e) if x.subs]
+        if (r.streamed and k in full
+                and all((k, x) in g.reads and g.reads[k, x].ring in full
+                        for x in refs)):
+            out.add(k)
+    return out
+
+
+class StepLoop(NamedTuple):
+    """One sweep of a step over the block's threads: the boxes it covers
+    (aux ring indices, or :data:`BODY`, or ``("stage", ring)``), the
+    elements they hold and the rounds the threads take."""
+
+    phase: int
+    boxes: tuple
+    useful: int  # elements of the boxes
+    swept: int  # elements swept (a linear box's pitch padding included)
+    rounds: int
+
+
+def step_loops(tp: TileProgram) -> list:
+    """The sweeps of one step of the march, in order: the staged operands'
+    next planes, then each phase's linear aux boxes packed into one
+    sweep (the slots laid end to end), its other aux boxes one sweep each,
+    and the body in its phase."""
+    g = tp.geometry
+    t = g.threads
+    out = [StepLoop(-1, (("stage", k),), r.plane, r.plane,
+                    -(-r.plane // t))
+           for k, r in enumerate(g.rings) if r.operand]
+    if not g.s_level:
+        out = []
+    lin = linear_boxes(tp)
+    body = prod(g.tile[l - 1] for l in g.order)
+    for ph in g.phases:
+        aux = [k for k in range(len(tp.aux_exprs))
+               if g.rings[k].streamed and g.rings[k].phase == ph]
+        packed = [k for k in aux if k in lin]
+        if packed:
+            swept = sum(g.rings[k].slot for k in packed)
+            out.append(StepLoop(ph, tuple(packed),
+                                sum(g.rings[k].plane for k in packed),
+                                swept, -(-swept // t)))
+        for k in aux:
+            if k not in lin:
+                out.append(StepLoop(ph, (k,), g.rings[k].plane,
+                                    g.rings[k].plane,
+                                    -(-g.rings[k].plane // t)))
+        if ph == g.body_phase:
+            out.append(StepLoop(ph, (BODY,), body, body, -(-body // t)))
+    return out
+
+
 class _Window(NamedTuple):
     """Code for one staged operand's plane window at one step: threads run
     the operand's own contiguous level fastest, so that a warp's loads
@@ -417,13 +591,14 @@ class _Window(NamedTuple):
 
     ix: int  # the operand's position: ``in<ix>``
     head: list  # the plane's row ``zz``, ``zok`` and its base ``src``
-    elem: list  # element ``e``'s indices ``p<l>`` (in the slot), ``j<l>``
+    map: _Map  # the thread's elements
+    elem: list  # indices ``j<l>`` of the element ``p<l>`` (in the slot)
     guard: list  # conditions of a read inside the array
     off: str  # the element's offset from ``src``
     pos: str  # its offset in the ring's slot
 
 
-def _window(tp: TileProgram, k: int, step: str) -> _Window:
+def _window(tp: TileProgram, k: int, step: str, maps: _Maps) -> _Window:
     g = tp.geometry
     r = g.rings[k]
     ix = next(i for i, o in enumerate(tp.operands) if o.ring == k)
@@ -437,84 +612,81 @@ def _window(tp: TileProgram, k: int, step: str) -> _Window:
         f"      const store_t* const src = zok ? in{ix} + (long long)zz * "
         f"{op.strides[ds]}LL : in{ix};",
     ]
-    elem = ["        int q = e;"]
-    for n, l in enumerate(plane):
-        if n == len(plane) - 1:
-            elem.append(f"        const int p{l} = q;")
-        else:
-            elem.append(f"        const int p{l} = q % {r.widths[l - 1]}; "
-                        f"q /= {r.widths[l - 1]};")
-        elem.append(f"        const int j{l} = t{l} + ({r.lo[l - 1]} + "
-                    f"p{l});")
-    elem.append("        (void)q;")
+    mp = maps.get(plane, [r.widths[l - 1] for l in plane])
+    elem = [f"        const int j{l} = t{l} + ({r.lo[l - 1]} + p{l});"
+            for l in plane]
     guard = ["zok"] + [f"j{op.dims[d]} >= 0 && j{op.dims[d]} < {op.shape[d]}"
                        for d in inner]
     off = _offset([(f"j{op.dims[d]}", op.strides[d]) for d in inner],
                   _fits32(op.shape, op.strides, inner))
     pos = _offset([(f"p{l}", r.strides[l - 1]) for l in plane], True)
-    return _Window(ix, head, elem, guard, off, pos)
+    return _Window(ix, head, mp, elem, guard, off, pos)
 
 
 def _slot_base(tp: TileProgram, k: int, slot: str) -> str:
     r = tp.geometry.rings[k]
     return (f"      acc_t* const dst = smem + {r.offset} + ({slot}) * "
-            f"{r.plane};")
+            f"{r.slot};")
 
 
-def _stage(tp: TileProgram, k: int, step: str, slot: str) -> list:
+def _guarded(bound: int, threads: int, lines: list) -> list:
+    """``lines`` in a block, run by the threads under ``bound``."""
+    cond = "{" if bound >= threads else f"if (threadIdx.x < {bound}) {{"
+    return [f"      {cond}"] + ["  " + ln for ln in lines] + ["      }"]
+
+
+def _stage(tp: TileProgram, k: int, step: str, slot: str,
+           maps: _Maps) -> list:
     """Copy one operand plane window into its ring slot with ``race_stage``
     (``cp.async`` at 4 and 8 bytes, a converting load at 2; reads 0
-    outside the array): the plane of step ``step``."""
-    w = _window(tp, k, step)
-    return (["    {"] + w.head + [
-        _slot_base(tp, k, slot),
-        f"      for (int e = threadIdx.x; e < {tp.geometry.rings[k].plane}; "
-        f"e += {tp.geometry.threads}) {{"] + w.elem + [
-        f"        const bool ok = {' && '.join(w.guard)};",
-        f"        race_stage(dst + {w.pos}, ok ? src + {w.off} : in{w.ix}, "
-        "ok);",
-        "      }",
-        "    }",
-    ])
+    outside the array): the plane of step ``step``, in fully unrolled
+    rounds of the thread's fixed elements."""
+    g = tp.geometry
+    w = _window(tp, k, step, maps)
+    lines = ["    {"] + w.head + [_slot_base(tp, k, slot)]
+    for n, bound in _rounds(g.rings[k].plane, g.threads):
+        lines += _guarded(bound, g.threads, maps.round(w.map, n) + w.elem + [
+            f"        const bool ok = {' && '.join(w.guard)};",
+            f"        race_stage(dst + {w.pos}, ok ? src + {w.off} : "
+            f"in{w.ix}, ok);"])
+    return lines + ["    }"]
 
 
-def _next_plane(tp: TileProgram, k: int) -> tuple:
+def _next_plane(tp: TileProgram, k: int, maps: _Maps) -> tuple:
     """A 2-byte operand's plane of step ``k + 1``, staged in two halves
     (PTX has no 2-byte ``cp.async``): ``(declarations, load, store)``.
     The load, at the head of step ``k``, issues every element a thread
     owns into ``store_t`` registers (``race_fetch``: raw, zero outside the
-    array) in a fully unrolled loop, and keeps each one's place in the
+    array), one round after another, and keeps each one's place in the
     slot; nothing uses those registers until the store, after the body,
     converts them (``race_acc``) into the slot after the lead, which no
     read of step ``k`` touches.  So the loads are in flight while the step
     computes, as ``cp.async`` keeps a wider operand's."""
     g = tp.geometry
     r = g.rings[k]
-    regs = -(-r.plane // g.threads)
-    w = _window(tp, k, "k + 1")
-    # the last register of a thread whose share ends past the plane
-    inside = ([f"(n < {regs - 1} || e < {r.plane})"]
-              if r.plane % g.threads else [])
-    decl = [f"    store_t h{k}[{regs}];  // ring {r.name}: the next plane, "
-            "raw",
-            f"    int a{k}[{regs}];  // each element's place in its slot"]
-    loop = ["#pragma unroll", f"      for (int n = 0; n < {regs}; ++n) {{"]
-    e = [f"        const int e = threadIdx.x + n * {g.threads};"]
-    load = ["    {"] + w.head + loop + e + w.elem + [
-        f"        const bool ok = {' && '.join(inside + w.guard)};",
-        f"        h{k}[n] = race_fetch(ok ? src + {w.off} : in{w.ix}, ok);",
-        f"        a{k}[n] = {w.pos};",
-        "      }",
-        "    }",
-    ]
-    slot = _slot_base(tp, k, f"r{k} + 1 == {r.depth} ? 0 : r{k} + 1")
-    guard = f"if {inside[0]} " if inside else ""
-    store = ["    {", slot] + loop + (e if inside else []) + [
-        f"        {guard}dst[a{k}[n]] = race_acc(h{k}[n]);",
-        "      }",
-        "    }",
-    ]
-    return decl, load, store
+    rounds = _rounds(r.plane, g.threads)
+    w = _window(tp, k, "k + 1", maps)
+    decl = [f"    store_t h{k}[{len(rounds)}];  // ring {r.name}: the next "
+            "plane, raw",
+            f"    int a{k}[{len(rounds)}];  // each element's place in its "
+            "slot"]
+    load = ["    {"] + w.head
+    store = ["    {", _slot_base(tp, k, f"r{k} + 1 == {r.depth} ? 0 : "
+                                       f"r{k} + 1")]
+    for n, bound in rounds:
+        load += _guarded(bound, g.threads, maps.round(w.map, n) + w.elem + [
+            f"        const bool ok = {' && '.join(w.guard)};",
+            f"        h{k}[{n}] = race_fetch(ok ? src + {w.off} : in{w.ix}, "
+            "ok);",
+            f"        a{k}[{n}] = {w.pos};"])
+        store += _guarded(bound, g.threads, [
+            f"        dst[a{k}[{n}]] = race_acc(h{k}[{n}]);"])
+    return decl, load + ["    }"], store + ["    }"]
+
+
+def _when(parts: list, lines: list) -> list:
+    return ([f"    if ({' && '.join(parts)}) {{"] if parts else ["    {"]) + (
+        lines + ["    }"])
 
 
 def render_cuda(tp: TileProgram, summed: bool = False) -> str:
@@ -532,6 +704,15 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     the signature) times ``blockIdx.y``, in 64 bits.  A single run passes
     ``batch`` 1, so one source serves every batch size.
 
+    A step of the march: one barrier before each of the schedule's phases;
+    every box as fully unrolled rounds of the
+    thread's fixed elements (:class:`_Map`, :func:`step_loops`: a
+    phase's linear aux boxes packed end to end, reading at the slot's
+    own index plus a constant), so the march holds no ``%`` or ``/`` of an
+    index.  ``__launch_bounds__`` asks for the blocks an SM that the
+    block's shared memory allows (``geometry.blocks``), so that registers
+    do not cut them.
+
     ``summed``: the kernel stores no output point.  Each thread adds its
     points of each output over its march (``race_add``, in double), the
     block sums the threads' sums (``race_block_sum``: warp shuffles, then
@@ -546,11 +727,13 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     n_aux = len(tp.aux_exprs)
     staged = [k for k, r in enumerate(g.rings) if r.operand]
     streamed = [k for k, r in enumerate(g.rings) if r.streamed]
+    maps = _Maps(g.threads)
     lines = [
         "// Generated by repro_torch.lowering.emit.render_cuda: the RACE "
         "stencil kernel",
         f"// of one plan, depth {m}, block {g.tile}, stream level {s}, "
-        f"{n_aux} aux and {len(staged)} staged operands in shared memory"
+        f"{n_aux} aux and {len(staged)} staged operands in shared memory, "
+        f"{g.barriers} barrier(s) a step"
         + ("; each output summed, one partial per block." if summed
            else "."),
         f'#include "{kd.header}"',
@@ -558,7 +741,8 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
         "namespace {",
         "",
         "template <typename store_t, typename acc_t>",
-        f"__global__ void __launch_bounds__({g.threads}) race_stencil_kernel(",
+        f"__global__ void __launch_bounds__({g.threads}, {g.blocks}) "
+        "race_stencil_kernel(",
         f"    const RaceArgs<store_t, acc_t, {n_in}, {n_out}> args) {{",
     ]
     if g.rings:
@@ -594,22 +778,19 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     lines.append(f"  const int z0 = {g.lo[s - 1] if s else 0} + bid * "
                  f"{g.seg};")
     lines.append("  (void)bid; (void)z0; (void)bz;")
-
-    def evaluate(key: int, dst: str) -> list:
-        box = _Box(tp, key)
-        val = box.expr(tp.aux_exprs[key])
-        return box.header() + box.lines + [f"      {dst} = {val};", "    }"]
+    # the thread maps, rendered once the march's code has named them
+    maps_at = len(lines)
 
     for k in range(n_aux):
         if not g.rings[k].streamed:
             r = g.rings[k]
             lines.append(f"  // aux {r.name}: one box, levels {r.levels}, "
                          f"[{r.lo}, {r.hi}]")
-            lines += ["  {"] + evaluate(k, f"smem[{r.offset} + e]") + [
-                "  }", "  __syncthreads();"]
+            lines += _box_rounds(tp, k, maps, f"smem[{r.offset} + ") + [
+                "  __syncthreads();"]
 
     lines.append(f"  // the march: steps {g.k0}..{g.seg - 1}, output plane "
-                 f"z0 + k from step 0")
+                 f"z0 + k from step 0; {g.barriers} barrier(s) a step")
     for k in streamed:
         lines.append(f"  int r{k} = 0;  // ring {g.rings[k].name}: slot of "
                      f"its lead, (k - {g.k0}) mod {g.rings[k].depth}")
@@ -617,7 +798,7 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     if staged:  # the planes of the first step
         for k in staged:
             if g.rings[k].start <= g.k0:
-                lines += _stage(tp, k, str(g.k0), "0")
+                lines += _stage(tp, k, str(g.k0), "0", maps)
         if not half:
             lines.append("  race_cp_async_commit();")
     lines.append(f"  for (int k = {g.k0}; k < {g.seg}; ++k) {{")
@@ -633,18 +814,31 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
                 f"(r{ring} >= {back} ? r{ring} - {back} : r{ring} + "
                 f"{r.depth - back})")
         lines.append(f"    const int b{ring}_{back} = {r.offset} + {slot} * "
-                     f"{r.plane};")
+                     f"{r.slot};")
+    for k in streamed:
+        r = g.rings[k]
+        if not r.operand:
+            lines.append(f"    const int w{k} = {r.offset} + r{k} * "
+                         f"{r.slot};  // ring {r.name}: its lead's slot")
+    on = {}  # aux ring -> the condition of the steps it is written at
+    for k in streamed:
+        r = g.rings[k]
+        if r.start > g.k0 and not r.operand:
+            on[k] = f"on{k}"
+            lines.append(f"    const bool on{k} = k >= {r.start};")
+
     def next_planes(code: dict) -> list:
         """``code[k]``, ring ``k``'s code for its plane of the next step,
         under that plane's conditions."""
-        out = [f"    if (k + 1 < {g.seg}) {{"]
+        out = []
         for k in staged:
-            if g.rings[k].start > g.k0 + 1:
-                out.append(f"    if (k + 1 >= {g.rings[k].start})")
-            out += code[k]
-        return out + ["    }"]
+            r = g.rings[k]
+            cond = [f"k + 1 < {g.seg}"] + (
+                [f"k + 1 >= {r.start}"] if r.start > g.k0 + 1 else [])
+            out += [f"    if ({' && '.join(cond)}) {{"] + code[k] + ["    }"]
+        return out
 
-    nexts = {k: _next_plane(tp, k) for k in staged} if half else {}
+    nexts = {k: _next_plane(tp, k, maps) for k in staged} if half else {}
     if nexts:
         lines += ["    // the next step's planes, loaded into registers now "
                   "and stored after the",
@@ -655,49 +849,21 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
     elif staged:  # cp.async into the slot after the lead
         lines += next_planes({k: _stage(
             tp, k, "k + 1", f"(r{k} + 1 == {g.rings[k].depth} ? 0 : r{k} + "
-            "1)") for k in staged}) + ["    race_cp_async_commit();"]
-    phases = sorted({g.rings[k].phase for k in range(n_aux)
-                     if g.rings[k].streamed})
-    for ph in phases:
-        for k in range(n_aux):
-            r = g.rings[k]
-            if not r.streamed or r.phase != ph:
-                continue
-            lines.append(f"    // aux {r.name}: levels {r.levels}, [{r.lo}, "
-                         f"{r.hi}], ring of {r.depth}, lead {r.lead}, "
-                         f"phase {ph}")
-            lines.append(f"    if (k >= {r.start}) {{" if r.start > g.k0
-                         else "    {")
-            lines += evaluate(k, f"smem[{r.offset} + r{k} * {r.plane} + e]")
-            lines.append("    }")
-        lines.append("    __syncthreads();")
+            "1)", maps) for k in staged}) + ["    race_cp_async_commit();"]
 
-    lines.append("    // body: one output plane")
-    cond = f"k >= 0 && z <= {g.hi[s - 1]}" if s else "k >= 0"
-    lines.append(f"    if ({cond}) {{")
-    box = _Box(tp, BODY)
-    lines += box.header()
-    plane = [l for l in g.order]
-    if plane:
-        lines.append("      if (" + " || ".join(
-            f"i{l} > {g.hi[l - 1]}" for l in plane) + ") continue;")
-    vals = [box.expr(e) for e in tp.body]
-    lines += box.lines
-    for k, (out, val) in enumerate(zip(tp.outputs, vals)):
-        if summed:
-            lines.append(f"      sum{k} = race_add(sum{k}, {val});")
+    lin, phase = linear_boxes(tp), g.phases[0]
+    for loop in step_loops(tp):
+        if loop.phase < 0:
             continue
-        strides = _contiguous_strides(out.shape)
-        inner = [d for d, l in enumerate(out.levels) if l != s]
-        off = _offset([(f"i{out.levels[d]} - {g.lo[out.levels[d] - 1]}",
-                        strides[d]) for d in inner],
-                      _fits32(out.shape, strides, inner))
-        if s:
-            ds = out.levels.index(s)
-            off = (f"(long long)(z - {g.lo[s - 1]}) * {strides[ds]}LL + "
-                   f"{off}")
-        lines.append(f"      race_store(out{k} + ({off}), {val});")
-    lines += ["    }", "    }"]
+        if loop.phase != phase:  # the next phase reads this one's
+            lines.append("    __syncthreads();")
+            phase = loop.phase
+        if loop.boxes == (BODY,):
+            lines += _body(tp, maps, summed)
+        elif loop.boxes[0] in lin:
+            lines += _linear(tp, loop, on)
+        else:
+            lines += _coords_aux(tp, loop.boxes[0], maps, on)
     if nexts:
         lines.append("    // the next step's planes, converted into the "
                      "slot after the lead")
@@ -712,6 +878,7 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
                   f"    if (threadIdx.x == 0) part{k}[blockIdx.x] = v;",
                   "  }"]
     lines += ["}", ""]
+    lines[maps_at:maps_at] = maps.prologue()
 
     smem = f"{tp.smem_elems} * sizeof(acc_t)"
     lines += [
@@ -726,7 +893,9 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
         "a.out[k] = static_cast<store_t*>(outs[k]);",
         "  a.scalars = static_cast<const acc_t*>(scalars);",
         f"  const size_t smem = {smem};",
-        "  if (smem > 48 * 1024) {",
+        "  // the 48 KB a block has without opting in hold its static bytes",
+        "  // too (a summed kernel's block sums)",
+        f"  if (smem + {STATIC_SHARED if summed else 0} > 48 * 1024) {{",
         "    const cudaError_t err = cudaFuncSetAttribute(",
         "        race_stencil_kernel<store_t, acc_t>,",
         "        cudaFuncAttributeMaxDynamicSharedMemorySize, "
@@ -756,6 +925,94 @@ def render_cuda(tp: TileProgram, summed: bool = False) -> str:
         "",
     ]
     return "\n".join(lines)
+
+
+def _linear(tp: TileProgram, loop: StepLoop, on: dict) -> list:
+    """A phase's linear aux boxes, their slots laid end to end and swept
+    in rounds: a round's threads split between at most a few boxes at
+    bounds known when the source is rendered (a warp splits at most once
+    between two), each thread's element ``e`` its slot's own index."""
+    g = tp.geometry
+    t = g.threads
+    lines = [f"    // aux {', '.join(g.rings[k].name for k in loop.boxes)}:"
+             f" phase {loop.phase}, {loop.rounds} rounds of the slots' "
+             f"own indices"]
+    vals, first = {}, 0
+    spans = []
+    for k in loop.boxes:
+        box = _Box(tp, k, linear=True)
+        vals[k] = box.expr(tp.aux_exprs[k])
+        spans.append((k, first, first + g.rings[k].slot))
+        first += g.rings[k].slot
+    for n in range(loop.rounds):
+        lo, hi = n * t, (n + 1) * t
+        for k, a, b in spans:
+            if b <= lo or a >= hi:
+                continue
+            parts = ([on[k]] if k in on else []) + (
+                [f"threadIdx.x >= {a - lo}"] if a > lo else []) + (
+                [f"threadIdx.x < {b - lo}"] if b < hi else [])
+            lines += _when(parts, [
+                f"      const int e = threadIdx.x + {lo - a};",
+                f"      smem[w{k} + e] = {vals[k]};"])
+    return lines
+
+
+def _box_rounds(tp: TileProgram, k: int, maps: _Maps, dst: str) -> list:
+    """Aux ring ``k``'s box in rounds of the thread's fixed elements with
+    their indices, each value stored at ``dst`` plus its place in the
+    slot (``dst`` opens the subscript)."""
+    g = tp.geometry
+    r = g.rings[k]
+    box = _Box(tp, k)
+    val = box.expr(tp.aux_exprs[k])
+    pos = " + ".join(f"p{l} * {r.strides[l - 1]}" for l in box.plane) or "0"
+    out = []
+    for n, bound in _rounds(box.size, g.threads):
+        out += _guarded(bound, g.threads, box.round_header(maps, n)
+                        + box.lines + [f"        {dst}{pos}] = {val};"])
+    return out
+
+
+def _coords_aux(tp: TileProgram, k: int, maps: _Maps, on: dict) -> list:
+    """An aux box on a plane that reads device memory or a ring off the
+    common pitch."""
+    r = tp.geometry.rings[k]
+    return [f"    // aux {r.name}: levels {r.levels}, [{r.lo}, {r.hi}], "
+            f"ring of {r.depth}, lead {r.lead}, phase {r.phase}"] + (
+        _when([on[k]] if k in on else [],
+              _box_rounds(tp, k, maps, f"smem[w{k} + ")))
+
+
+def _body(tp: TileProgram, maps: _Maps, summed: bool) -> list:
+    """One output plane, in rounds of the thread's fixed points."""
+    g = tp.geometry
+    s = g.s_level
+    box = _Box(tp, BODY)
+    vals = [box.expr(e) for e in tp.body]
+    store = []
+    for k, (out, val) in enumerate(zip(tp.outputs, vals)):
+        if summed:
+            store.append(f"        sum{k} = race_add(sum{k}, {val});")
+            continue
+        strides = _contiguous_strides(out.shape)
+        inner = [d for d, l in enumerate(out.levels) if l != s]
+        off = _offset([(f"i{out.levels[d]} - {g.lo[out.levels[d] - 1]}",
+                        strides[d]) for d in inner],
+                      _fits32(out.shape, strides, inner))
+        if s:
+            ds = out.levels.index(s)
+            off = (f"(long long)(z - {g.lo[s - 1]}) * {strides[ds]}LL + "
+                   f"{off}")
+        store.append(f"        race_store(out{k} + ({off}), {val});")
+    inside = " && ".join(f"i{l} <= {g.hi[l - 1]}" for l in g.order)
+    rounds = []
+    for n, bound in _rounds(box.size, g.threads):
+        rounds += _guarded(bound, g.threads, box.round_header(maps, n) + [
+            f"        if ({inside or 'true'}) {{"] + [
+            "  " + ln for ln in box.lines + store] + ["        }"])
+    cond = f"k >= 0 && z <= {g.hi[s - 1]}" if s else "k >= 0"
+    return ["    // body: one output plane"] + _when([cond], rounds)
 
 
 # ---------------------------------------------------------------------------

@@ -168,7 +168,7 @@ def test_smem_refusal_code():
     a = analyze_plan(res.plan)
     assert a.eligible and len(res.plan.aux_order) == 1
     # the aux ring alone (no operand staged) at a one-point plane tile
-    assert schedule(res.plan, stage=False).footprint(
+    assert schedule(res.plan, stage=False).shared(
         {1: 1, 2: 1, 3: 1}) * 4 > SMEM_LIMIT
     cap = res.capability()
     assert not cap.eligible
@@ -225,34 +225,36 @@ def test_emulator_reads_outside_the_array_as_zero():
 # the chooser's grid: unchanged where it reaches the target, short streams
 # ---------------------------------------------------------------------------
 
-#: (case, n, dtype, tile, nb, threads, k0, shared-memory elements, (depth,
-#: lead, first step) of each ring), as the chooser gave them before short
-#: streams took shorter segments: phase 4's cells at float32 and float64
-#: (896 to 1,536 blocks, none a short grid) and j3d27pt at half precision
+#: (case, n, dtype, tile, nb, threads, k0, shared-memory elements (the
+#: rings at the common pitch and the margin), (depth, lead, first step) of
+#: each ring), as the chooser gives them: phase 4's cells at float32 and
+#: float64 (896 to 1,536 blocks, none a short grid) and j3d27pt at half
+#: precision.  The plane tiles, segments and rings are those the card's
+#: sweeps chose before the step was redesigned
 FULL_SIZE_GEOMETRY = [
-    ("j3d27pt", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+    ("j3d27pt", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 17034,
      ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
       (3, 2, -2), (3, 1, -2))),
-    ("j3d27pt", 512, "float64", (16, 32, 170), (32, 16, 3), 256, -2, 8540,
+    ("j3d27pt", 512, "float64", (16, 32, 170), (32, 16, 3), 256, -2, 9018,
      ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
       (3, 2, -2), (3, 1, -2))),
-    ("j3d27pt", 512, "float16", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+    ("j3d27pt", 512, "float16", (32, 32, 102), (16, 16, 5), 256, -2, 17034,
      ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
       (3, 2, -2), (3, 1, -2))),
-    ("j3d27pt", 512, "bfloat16", (32, 32, 102), (16, 16, 5), 256, -2, 16540,
+    ("j3d27pt", 512, "bfloat16", (32, 32, 102), (16, 16, 5), 256, -2, 17034,
      ((1, 2, -2), (1, 1, -2), (2, 1, -2), (1, 2, -2), (2, 2, -2), (2, 1, -2),
       (3, 2, -2), (3, 1, -2))),
-    ("poisson", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 16344,
+    ("poisson", 512, "float32", (32, 32, 102), (16, 16, 5), 256, -2, 16830,
      ((2, 1, -2), (1, 1, -2), (2, 1, -2), (2, 2, -2), (3, 2, -2), (2, 0, 0),
       (3, 1, -2))),
-    ("poisson", 512, "float64", (32, 16, 170), (16, 32, 3), 256, -2, 8408,
+    ("poisson", 512, "float64", (32, 16, 170), (16, 32, 3), 256, -2, 8670,
      ((2, 1, -2), (1, 1, -2), (2, 1, -2), (2, 2, -2), (3, 2, -2), (2, 0, 0),
       (3, 1, -2))),
-    ("derivative", 256, "float32", (32, 16, 36), (8, 16, 7), 256, -4, 24948,
+    ("derivative", 256, "float32", (32, 16, 36), (8, 16, 7), 256, -4, 25308,
      ((2, 2, -4), (2, 2, -4), (2, 2, -4), (3, 1, -2), (5, 2, -4), (3, 1, -2),
       (5, 2, -4), (3, 1, -2), (5, 2, -4), (2, 2, -4), (2, 2, -4),
       (2, 2, -4))),
-    ("derivative", 256, "float64", (16, 16, 51), (16, 16, 5), 256, -4, 13716,
+    ("derivative", 256, "float64", (16, 16, 51), (16, 16, 5), 256, -4, 14060,
      ((2, 2, -4), (2, 2, -4), (2, 2, -4), (3, 1, -2), (5, 2, -4), (3, 1, -2),
       (5, 2, -4), (3, 1, -2), (5, 2, -4), (2, 2, -4), (2, 2, -4),
       (2, 2, -4))),

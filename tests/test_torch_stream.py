@@ -56,14 +56,16 @@ def _program(plan, shapes, rows=0, cols=0, inner=0):
 
 def _replay(tp) -> int:
     """Replay one block's march on plane numbers (relative to the segment's
-    first output plane).  Each ring slot holds the plane last written into
-    it, with the step and barrier phase of the write; the operand planes of
-    the next step count as written while a step runs (their loads are in
-    flight).  Every read must find, in the slot it reads, the
-    plane its reference needs at that step, written in an earlier step or
-    an earlier phase of this one; its in-plane window must lie inside the
-    ring's box at the reference's offset.  Returns the number of reads
-    checked."""
+    first output plane), phase by phase.  Each ring slot holds the plane
+    last written into it, with the step and phase of the write;
+    the operand planes of the next step count as written at the head of a
+    step and in flight through it.  Every read must find, in the slot it
+    reads, the plane its reference needs at that step, written in an
+    earlier step or an earlier phase of this one; its in-plane window
+    must lie inside the ring's box at the reference's offset.  And the
+    slot invariant of the step: no slot is read in the phase that writes
+    it, nor in the step that loads it.  Returns the
+    number of reads checked."""
     g = tp.geometry
     s, m = g.s_level, g.m
     held = [[None] * r.depth for r in g.rings]
@@ -73,6 +75,7 @@ def _replay(tp) -> int:
     body_widths = tuple(g.tile[l - 1] if l in g.order else 1
                         for l in range(1, m + 1))
     checked = [0]
+    in_flight = max(g.phases) + 1
 
     def offsets(ref) -> dict:
         if ref.name in {r.name for r in g.rings if not r.operand}:
@@ -80,13 +83,15 @@ def _replay(tp) -> int:
                     _aux_ref_shifts(ref, {ref.name})[0][1].items()}
         return {sub.s: int(sub.b) for sub in ref.subs}
 
-    def check(ctx, k, phase):
+    def check(ctx, k, phase) -> set:
         lo, lead, widths = ((0,) * m, 0, body_widths) if ctx == BODY else (
             g.rings[ctx].lo, g.rings[ctx].lead, g.rings[ctx].widths)
+        touched = set()
         for ref, rd in reads_of.get(ctx, ()):
             r = g.rings[rd.ring]
             off = offsets(ref)
             slot = (k - g.k0 - rd.back) % r.depth if r.streamed else 0
+            assert held[rd.ring][slot] is not None, (ref, rd, k)
             plane, step, wphase = held[rd.ring][slot]
             if r.streamed:
                 assert plane == k + lead + off[s], (ref, rd)
@@ -99,11 +104,14 @@ def _replay(tp) -> int:
                     assert rd.offset[l - 1] + widths[l - 1] <= r.widths[
                         l - 1]
             checked[0] += 1
+            touched.add((rd.ring, slot))
+        return touched
 
-    def write(i, k, step, phase):
+    def write(i, k, step, phase) -> tuple:
         r = g.rings[i]
         assert k >= r.start
         held[i][(k - g.k0) % r.depth] = (k + r.lead, step, phase)
+        return i, (k - g.k0) % r.depth
 
     operands = [i for i, r in enumerate(g.rings) if r.operand]
     n_aux = len(tp.aux_exprs)
@@ -114,18 +122,19 @@ def _replay(tp) -> int:
     for i in operands:
         if g.rings[i].start <= g.k0:
             write(i, g.k0, g.k0 - 1, -1)
-    last = max([r.phase for r in g.rings], default=0) + 1
     for k in range(g.k0, g.seg):
-        for i in operands:
-            if g.rings[i].start <= k + 1 < g.seg:
-                write(i, k + 1, k, last + 1)
-        for i in sorted(range(n_aux), key=lambda i: g.rings[i].phase):
-            r = g.rings[i]
-            if r.streamed and k >= r.start:
-                check(i, k, r.phase)
-                write(i, k, k, r.phase)
-        if k >= 0:
-            check(BODY, k, last)
+        loading = {write(i, k + 1, k, in_flight) for i in operands
+                   if g.rings[i].start <= k + 1 < g.seg}
+        for ph in g.phases:
+            ctxs = [i for i in range(n_aux) if g.rings[i].streamed
+                    and g.rings[i].phase == ph
+                    and k >= g.rings[i].start]
+            touched = set()
+            for i in ctxs + ([BODY] if ph == g.body_phase and k >= 0
+                             else []):
+                touched |= check(i, k, ph)
+            written = {write(i, k, k, ph) for i in ctxs}
+            assert not touched & (written | loading), (k, ph)
     return checked[0]
 
 
