@@ -50,7 +50,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and launch it once in the backward, and each scalar of a group must
      get, bit for bit, the gradient that group's launch gives it
      (:func:`group_gate`; refused adjoint builds print their code and take
-     autograd);
+     autograd).  Then the fault programs of ROADMAP F14 and F15
+     (``repro_torch.testing.faults``, :data:`FAULT_CELLS`) at three times
+     their test extent, float32, through ``"hopper"`` and ``"auto"``: each
+     read input alone and all of them wanted, ``torch.autograd.grad``
+     without ``allow_unused`` within ``grad`` of autograd of the float64
+     baseline, the cancelled input's gradient exact zeros of its dtype and
+     shape, and the backward's K1 launches one per wanted adjoint spec the
+     probe admits (none on the autograd fallback);
   6. gradient at full size: the four cells of phase 4 and j3d27pt n=512 at
      float16, the backward through ``res.run`` timed (CUDA events, median
      of 10 after a warm-up), its kernel launches counted (zeroed just
@@ -198,8 +205,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
      ``torch.autograd.grad`` through the sharded ``run`` of poisson
      against the single-device one within ``grad``: every adjoint spec
      sharded (4 launches) or fallen back (1) and on K1, both backwards
-     timed; rprj3 must raise ``ShardingUnavailable`` with
-     ``shard-strided``; last, a 1 GiB device-to-device copy is timed (and
+     timed; the fault programs of :data:`SHARD_FAULT_CELLS` differentiated
+     through ``run_sharded`` as phase 5 differentiates them; rprj3 must
+     raise ``ShardingUnavailable`` with ``shard-strided``; last, a 1 GiB device-to-device copy is timed (and
      a peer copy from card 0 to card 1 where there are two cards).  The
      local plans' sources (forward and adjoint) are built in phase 2;
  15. the LM stack (``repro_torch.models``) on the card.  ``lm:qwen2-7b``:
@@ -517,6 +525,20 @@ SERVE_SHORT = {"derivative_b8": 64}
 #: extent, 510, splits in two), the gradient cell
 SHARD_CELLS = (("j3d27pt", 512), ("poisson", 512))
 SHARD_GRAD_CELL = ("poisson", 512)
+#: phase 5's fault programs (``repro_torch.testing.faults``, ROADMAP F14
+#: and F15) at three times their test extent: (program, level, backends).
+#: f14_mixed's forward cannot take K1 (mixed strides), so it runs on
+#: ``"auto"`` only; its unit-stride twin, on the forced autograd fallback,
+#: takes ``"hopper"``
+FAULT_CELLS = (("f14_strided", 3, ("hopper", "auto")),
+               ("f14_mixed", 3, ("auto",)),
+               ("f14_unit", 3, ("hopper", "auto")),
+               ("f15_sin", 0, ("hopper", "auto")),
+               ("f15_scalar", 3, ("hopper", "auto")),
+               ("f15_scalar", 4, ("hopper", "auto")))
+#: phase 14's fault programs run sharded: (program, level, wanted inputs)
+SHARD_FAULT_CELLS = (("f14_strided", 3, ("A",)), ("f15_sin", 0, ("B",)),
+                     ("f15_sin", 0, ("A", "B")))
 #: phase 15: the LM at full width (src/repro_torch/configs/qwen2_7b.py) with
 #: the RACE mixer at examples/train_lm.py's default radius; batch, prompt
 #: and generated tokens; the parity cell's depth and prompt; decode steps
@@ -1295,6 +1317,220 @@ def grad_sweep(sweep_cases, torch) -> list:
         if not ok:
             failures.append(line)
     print(f"grad sweep: {on_kernel} adjoint runs on the kernel", flush=True)
+    return failures
+
+
+def fault_runs(cells) -> list:
+    """``(name, level, program, RaceResult, last field)`` of each fault
+    cell, its program (``repro_torch.testing.faults``) at three times its
+    test extent."""
+    from repro_torch import race
+    from repro_torch.core import ir
+    from repro_torch.testing.faults import N, PROGRAMS
+
+    out = []
+    for name, lvl, last in cells:
+        program = PROGRAMS[name](ir, SWEEP_SCALE * N)
+        out.append((name, lvl, program, race(program, reassociate=lvl),
+                    last))
+    return out
+
+
+def fault_env(program, torch) -> dict:
+    """A float32 env on the card of the inputs the program reads (the
+    output arrays left out), from seed 1."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core.ir import expr_refs
+    from repro_torch.testing import build_env, env_to_torch
+
+    read = {r.name for st in program.body for r in expr_refs(st.rhs)}
+    env = build_env(types.SimpleNamespace(program=program, scalars=()),
+                    np.float32, seed=1)
+    return env_to_torch({k: v for k, v in env.items() if k in read}, DEVICE)
+
+
+def fault_sources(mesh) -> list:
+    """The K1 sources of the fault cells, built in phase 2: each forward
+    plan and each adjoint spec's plan that ``"auto"`` sends to the kernel
+    at float32, single-device (phase 5) and, for phase 14's cells, each
+    shard's local plan."""
+    import numpy as np
+
+    from repro_torch import env_signature
+    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.backend import select_backend
+    from repro_torch.core.codegen import required_shapes
+    from repro_torch.core.executor import ExecutorCache
+    from repro_torch.core.ir import expr_refs
+    from repro_torch.lowering.emit import specialize_stencil
+    from repro_torch.shard import ShardingUnavailable, compile_sharded
+    from repro_torch.testing.faults import FORCED
+
+    def shapes_of(program):  # the inputs it reads, as fault_env
+        read = {r.name for st in program.body for r in expr_refs(st.rhs)}
+        return {k: v for k, v in required_shapes(program).items()
+                if k in read}
+
+    out = []
+    for name, _, program, res, _ in fault_runs(FAULT_CELLS):
+        shapes = shapes_of(program)
+        units = [(res.plan, shapes, False)] + [
+            (spec.result().plan,
+             adjoint_env_shapes(spec, program, shapes), spec.scalar)
+            for spec in adjoint_build(program).specs if name not in FORCED]
+        for plan, shp, summed in units:
+            if select_backend(plan, "auto", ["float32"]).backend == "hopper":
+                sp = specialize_stencil(plan, shp, {k: "float32" for k in shp})
+                out.append(sp.source_for(1, summed))
+    cache = ExecutorCache()
+    for _, _, program, res, _ in fault_runs(SHARD_FAULT_CELLS):
+        shapes = shapes_of(program)
+        units = [(res, shapes)] + [
+            (spec.result(), adjoint_env_shapes(spec, program, shapes))
+            for spec in adjoint_build(program).specs]
+        for r, shp in units:
+            sig = env_signature({k: np.zeros(v, np.float32)
+                                 for k, v in shp.items()})
+            try:
+                sr = compile_sharded(r, sig, mesh, cache=cache)
+            except ShardingUnavailable:
+                continue
+            out += [ex.spec.source for ex in sr.locals.values()
+                    if ex.spec is not None]
+    return out
+
+
+def k1_launch_counts() -> dict:
+    """``{id(executor): (executor, K1 launches)}`` of every single-device
+    executor in the process-wide cache (a sharded executor's locals are
+    among them)."""
+    from repro_torch.core.executor import executor_cache
+    from repro_torch.shard import ShardedRace
+
+    return {id(ex): (ex, ex.kernel_launches)
+            for ex in executor_cache().executors()
+            if not isinstance(ex, ShardedRace)}
+
+
+def k1_launched_since(before: dict) -> int:
+    """K1 launches since ``before`` (:func:`k1_launch_counts`) of the
+    executors in the cache now: one the LRU cache evicted since adds
+    nothing, one it added since counts from 0."""
+    return sum(n - before.get(i, (None, 0))[1]
+               for i, (_, n) in k1_launch_counts().items())
+
+
+@contextlib.contextmanager
+def forced_autodiff(on: bool):
+    """``RACE_ADJOINT=autodiff`` in the block where ``on``."""
+    old = os.environ.get("RACE_ADJOINT")
+    if on:
+        os.environ["RACE_ADJOINT"] = "autodiff"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RACE_ADJOINT", None)
+        else:
+            os.environ["RACE_ADJOINT"] = old
+
+
+def fault_baseline(program, res, env, keys, torch) -> tuple:
+    """The cotangents (:func:`cos_weights`, float64) and autograd of the
+    float64 baseline program: ``(g, {input: gradient})``, zeros where
+    autograd gives none."""
+    from repro_torch.core.codegen import interior
+
+    env64 = {k: v.double().requires_grad_() if k in keys else v.double()
+             for k, v in env.items()}
+    base = interior(res.plan, res.baseline_evaluator()(env64))
+    g = cos_weights(base, torch)
+    live = [k for k in g if base[k].requires_grad]  # not a constant output
+    want = torch.autograd.grad([base[k] for k in live],
+                               [env64[k] for k in keys],
+                               [g[k] for k in live], allow_unused=True)
+    return g, {k: torch.zeros_like(env64[k]) if v is None else v
+               for k, v in zip(keys, want)}
+
+
+def fault_check(name, grads, want, env, tol, torch) -> tuple:
+    """One fault backward's gradients: ``(ok, text)``.  Every wanted
+    gradient within ``tol`` of the float64 baseline's, and the cancelled
+    input's exact zeros of its dtype, shape and device."""
+    from repro_torch.testing import rel_err
+    from repro_torch.testing.faults import CANCELLED
+
+    err = rel_err(grads, {k: want[k] for k in grads})
+    ok = err <= tol
+    text = f"{'+'.join(grads)} {err:.2e}"
+    c = CANCELLED.get(name)
+    if c in grads:
+        z = grads[c]
+        zero = (z.dtype == env[c].dtype and z.shape == env[c].shape
+                and z.device == env[c].device
+                and torch.equal(z, torch.zeros_like(z)))
+        ok &= zero
+        text += f" {c} zeros {zero}"
+    return ok, text
+
+
+def fault_grads(torch) -> list:
+    """Phase 5's fault programs (ROADMAP F14, F15) on the card at float32:
+    ``torch.autograd.grad`` through ``res.run`` on each backend of the
+    cell, for each read input alone and all of them, without
+    ``allow_unused`` (a ``None`` gradient raises), against autograd of the
+    float64 baseline (:func:`fault_check`); the backward's K1 launches
+    are those of the wanted adjoint specs ``"auto"`` admits, one each
+    (none on the autograd fallback, whose torch ops run on the card).
+    Returns the failures."""
+    import numpy as np
+
+    from repro_torch.core.adjoint import adjoint_build
+    from repro_torch.core.backend import select_backend
+    from repro_torch.testing import default_tolerances
+    from repro_torch.testing.faults import FORCED
+
+    tol = default_tolerances(np.float32)["grad"]
+    failures = []
+    for name, lvl, program, res, backends in fault_runs(FAULT_CELLS):
+        env = fault_env(program, torch)
+        keys = sorted(k for k, v in env.items() if v.is_floating_point())
+        g, want = fault_baseline(program, res, env, keys, torch)
+        g = {k: v.float() for k, v in g.items()}
+        build = adjoint_build(program)
+        admitted = {s.input for s in build.specs
+                    if name not in FORCED and select_backend(
+                        s.result().plan, "auto", ["float32"]).backend
+                    == "hopper"}
+        for backend in backends:
+            parts, ok = [], True
+            for wrt in [[k] for k in keys] + [keys]:
+                p = {k: env[k].clone().requires_grad_() for k in wrt}
+                with forced_autodiff(name in FORCED):
+                    out = res.run({**env, **p}, backend, device=DEVICE)
+                    before = k1_launch_counts()
+                    grads = torch.autograd.grad(
+                        [out[k] for k in g], [p[k] for k in wrt],
+                        [g[k] for k in g])
+                    torch.cuda.synchronize()
+                    launched = k1_launched_since(before)
+                expected = len(admitted & set(wrt))
+                good, text = fault_check(name, dict(zip(wrt, grads)), want,
+                                         env, tol, torch)
+                ok &= good and launched == expected
+                parts.append(f"{text} K1 {launched}/{expected}")
+            how = (f"autodiff fallback: {build.reason}" if not build.ok
+                   else "forced autodiff" if name in FORCED else "stencil")
+            line = (f"grad-fault {name} r{lvl} {backend} float32 ({how}): "
+                    f"wrt, vs float64 baseline (<= {tol:.0e}), K1 launches/"
+                    f"admitted specs: {'; '.join(parts)} "
+                    f"{'ok' if ok else 'FAIL'}")
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
     return failures
 
 
@@ -3426,6 +3662,46 @@ def shard_grad(mesh, torch) -> None:
                          f"{sorted(adj)} for inputs {keys}")
 
 
+def shard_faults(mesh, torch) -> None:
+    """Phase 14's fault programs (ROADMAP F14, F15): ``torch.autograd.grad``
+    through ``run_sharded`` on ``"hopper"``, without ``allow_unused``,
+    against autograd of the float64 baseline (:func:`fault_check`); K1
+    launches in the backward where, and only where, a wanted input has an
+    adjoint spec (a spec the partitioner admits launches once a shard, a
+    refused one once)."""
+    import numpy as np
+
+    from repro_torch.core.adjoint import adjoint_build
+    from repro_torch.testing import default_tolerances
+
+    tol = default_tolerances(np.float32)["grad"]
+    bad = []
+    for name, lvl, program, res, wrt in fault_runs(SHARD_FAULT_CELLS):
+        env = fault_env(program, torch)
+        keys = sorted(k for k, v in env.items() if v.is_floating_point())
+        g, want = fault_baseline(program, res, env, keys, torch)
+        g = {k: v.float() for k, v in g.items()}
+        p = {k: env[k].clone().requires_grad_() for k in wrt}
+        out = res.run_sharded({**env, **p}, mesh, "hopper")
+        before = k1_launch_counts()
+        grads = torch.autograd.grad([out[k] for k in g],
+                                    [p[k] for k in wrt], [g[k] for k in g])
+        torch.cuda.synchronize()
+        launched = k1_launched_since(before)
+        specs = any(s.input in wrt for s in adjoint_build(program).specs)
+        ok, text = fault_check(name, dict(zip(wrt, grads)), want, env, tol,
+                               torch)
+        ok &= (launched > 0) == specs
+        line = (f"shard-fault {name} r{lvl} hopper float32: wrt, vs float64 "
+                f"baseline (<= {tol:.0e}): {text}; K1 launches {launched} "
+                f"{'ok' if ok else 'FAIL'}")
+        print(line, flush=True)
+        if not ok:
+            bad.append(line)
+    if bad:
+        raise SystemExit("sharded fault gradients failed:\n" + "\n".join(bad))
+
+
 def shard_refusal(mesh, torch) -> None:
     """Phase 14: rprj3's stride-2 reads refuse sharding with
     ``shard-strided``."""
@@ -5402,6 +5678,8 @@ def main() -> int:
     # phase 14: the sharded local plans, forward and adjoint
     mesh = shard_mesh(torch)
     sources += shard_sources(mesh)
+    # phases 5 and 14: the fault programs, single-device and sharded
+    sources += fault_sources(mesh)
     # phases 15-16: the LM mixers' plans, and the training mixers' adjoints
     sources += lm_sources() + train_sources() + mesh_sources()
     sources += constant_sources()
@@ -5548,7 +5826,7 @@ def main() -> int:
 
     # ---- phase 5: gradient sweep -------------------------------------------
     marks.append((5, time.time()))
-    failures = grad_sweep(grad_cases, torch)
+    failures = grad_sweep(grad_cases, torch) + fault_grads(torch)
     if failures:
         raise SystemExit("phase 5 failed:\n" + "\n".join(failures))
 
@@ -5636,6 +5914,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     shard_grad(mesh, torch)
     torch.cuda.empty_cache()
+    shard_faults(mesh, torch)
     shard_refusal(mesh, torch)
     copy_bandwidth(torch)
     torch.cuda.empty_cache()

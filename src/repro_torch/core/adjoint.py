@@ -33,7 +33,9 @@ Hopper stencil kernel.
     reference's backward is plain JAX).
 
 Unlike the reference, an integer or unread input gets ``None`` (torch has no
-``float0``), and only the inputs autograd asks for are computed.
+``float0``), and only the inputs autograd asks for are computed.  A wanted
+input the program reads gets a tensor on every path: zeros where its terms
+all cancel (:func:`complete_gradients`).
 
 Telemetry (``RACE_OBS``) as the reference's: an ``adjoint_build`` span,
 ``race_adjoint_builds_total{outcome}`` and the ``adjoint_refusal`` event
@@ -875,17 +877,59 @@ def _autodiff_backward(program: Program, env: Mapping, g: Mapping,
                       else v.detach().requires_grad_()) if k in keys else v
                   for k, v in env.items()}
         out = run(dict(leaves))
-        outs = []
+        outs, gouts = [], []
         for st in program.body:
             sl = tuple(slice(full[s.s][0] + _as_int(s.b),
                              full[s.s][1] + _as_int(s.b) + 1)
                        for s in st.lhs.subs)
-            outs.append(out[st.lhs.name][(Ellipsis,) + sl])
+            o = out[st.lhs.name][(Ellipsis,) + sl]
+            # an output built from no wanted input (a constant, or reads of
+            # unwanted inputs only) has no graph: it adds nothing
+            if o.requires_grad:
+                outs.append(o)
+                gouts.append(g[st.lhs.name])
+        if not outs or not keys:
+            return {}
         grads = torch.autograd.grad(
-            outs, [leaves[k] for k in keys],
-            [g[st.lhs.name] for st in program.body], allow_unused=True,
+            outs, [leaves[k] for k in keys], gouts, allow_unused=True,
             create_graph=create)
     return dict(zip(keys, grads))
+
+
+class _CancelledGradient(torch.autograd.Function):
+    """Zeros shaped like the input, as the gradient of a read input whose
+    terms all cancel.  Under a recorded graph the zeros stay connected to
+    the input, and their own backward is this function again, so a
+    gradient of any order through them is zeros too (``x * 0`` would give
+    NaN where ``x`` holds an infinity)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _CancelledGradient.apply(g)
+
+
+def complete_gradients(program: Program, env: Mapping, grads: Mapping,
+                       wrt: Iterable[str]) -> dict:
+    """The full-env result of a backward, from the gradients it computed
+    (``None`` or missing where it computed none): a wanted floating-point
+    input the program reads but that got no gradient, as every term of its
+    adjoint cancels, gets zeros of its dtype, shape and device (batch axis
+    included); integer, unread and unwanted inputs get ``None``.  Every
+    backward path ends here, so they cannot differ."""
+    want = set(wrt)
+    reads = {r.name for st in program.body for r in expr_refs(st.rhs)}
+    out = {}
+    for k, v in env.items():
+        gk = grads.get(k)
+        if (gk is None and k in want and k in reads
+                and v.is_floating_point()):
+            gk = _CancelledGradient.apply(v)
+        out[k] = gk
+    return out
 
 
 def backward(program: Program, env: Mapping, g: Mapping, *,
@@ -896,7 +940,9 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
 
     ``g`` maps output names to cotangents; ``wrt`` names the inputs wanted
     (default: all).  Returns ``{name: gradient or None}`` for every env
-    entry: ``None`` for integer, unread and unwanted inputs.  ``backend``
+    entry (:func:`complete_gradients`): zeros for a wanted input the
+    program reads whose terms all cancel, ``None`` for integer, unread and
+    unwanted inputs.  ``backend``
     runs the adjoint plans (``None``: ``$RACE_BACKEND`` or ``"auto"``).
     ``batched``: every entry of ``env`` and ``g`` carries a leading batch
     axis, and the adjoint plans run through ``run_batch``.  Two or more
@@ -930,4 +976,4 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
             if _obs.enabled():
                 _obs.counter("race_adjoint_backward_total",
                              mode="stencil").inc()
-    return {k: grads.get(k) for k in env}
+    return complete_gradients(program, env, grads, wrt)

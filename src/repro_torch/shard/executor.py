@@ -85,7 +85,7 @@ class _ShardedFunction(torch.autograd.Function):
                if need]
         grads = sr._backward(dict(zip(names, ctx.saved_tensors)),
                              dict(zip(sr.out_names, gouts)), wrt)
-        return (None, None) + tuple(grads.get(nm) for nm in names)
+        return (None, None) + tuple(grads[nm] for nm in names)
 
 
 class ShardedRace:
@@ -201,7 +201,8 @@ class ShardedRace:
     def _backward(self, env: Mapping, g: Mapping, wrt) -> dict:
         """Mirror of :func:`repro_torch.core.adjoint.backward` with each
         adjoint plan running under this executor's own mesh partition.
-        Returns ``{input: gradient}`` for the inputs of ``wrt``."""
+        Returns its full-env result, as
+        :func:`~repro_torch.core.adjoint.complete_gradients` gives it."""
         from ..core import adjoint as adj
 
         program = self.result.program
@@ -210,7 +211,9 @@ class ShardedRace:
             if _obs.enabled():
                 _obs.counter("race_adjoint_backward_total",
                              mode="autodiff-sharded").inc()
-            return adj._autodiff_backward(program, env, g, wrt)
+            return adj.complete_gradients(
+                program, env, adj._autodiff_backward(program, env, g, wrt),
+                wrt)
         build = adj.adjoint_build(program)
         grads = {}
         with _obs.span("adjoint_backward", sharded="1"):
@@ -224,7 +227,7 @@ class ShardedRace:
         if _obs.enabled():
             _obs.counter("race_adjoint_backward_total",
                          mode="stencil-sharded").inc()
-        return grads
+        return adj.complete_gradients(program, env, grads, wrt)
 
     def adjoint_executors(self) -> dict:
         """``{input: executor}`` of the adjoint plans built so far: a
