@@ -141,10 +141,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
      and ``python -m repro_torch.obs.report`` must find every span of
      :data:`OBS_SPANS` (it writes the Chrome trace
      ``build/obs/OBS_trace.json`` and prints the span summary).  Last,
-     the host's µs per call of 256 calls each of the executor's ``run``,
+     the host's µs inside each of 256 calls of the executor's ``run``,
      ``res.run`` and ``race_kernel.run`` on one j3d27pt_b256 example
-     (n = 64) with obs off and on, in turns (off, on, on, off, twice),
-     and the medians;
+     (n = 64), of ``res.run_batch`` on :data:`OBS_BATCH` of them and of
+     an empty ``obs.span``, with obs off, off under ``torch.profiler``
+     (the spans as its ranges alone) and on, in turns (off, profiler, on,
+     on, profiler, off, twice), and the medians;
  12. the autotuner (``repro_torch.tuning``) on a fresh store (the script
      points ``$RACE_TUNING_CACHE`` at ``build/smoke_tuning/`` before phase
      1, so phases 1-11 hold ``"auto"`` to the kernel on an empty store):
@@ -361,6 +363,10 @@ summed ``sw0`` adjoint at ``sx`` 516 x 2,048, 3,584 and 14,336) at every
 
 runs phases 1, 2 (the mixers' sources only) and 15 alone.
 
+    python3 chip_smoke.py --obs-cost
+
+runs phase 11's host cost of obs alone.
+
     python3 chip_smoke.py --train
 
 runs phases 1, 2 (the training mixers' sources only) and 16 alone.
@@ -502,6 +508,8 @@ OBS_SPANS = ("capture,detect,contract,lower,compile,run,adjoint_build,"
              "adjoint_backward")
 #: ``run`` calls per obs setting in phase 11's host-cost measurement
 OBS_CALLS = 256
+#: examples of its ``run_batch`` call (the benchmark's batch cell's)
+OBS_BATCH = 256
 #: phase 12: (case, n) tuned at float32 over levels {0, the case's
 #: default}, and the serving cell tuned per call and at these batch sizes
 TUNE_CELLS = (("j3d27pt", 512), ("poisson", 512))
@@ -2839,11 +2847,22 @@ def obs_trace(torch) -> None:
                          f"{proc.stderr}")
 
 
+def empty_span(obs) -> None:
+    """One span around nothing: what a span alone costs."""
+    with obs.span("k1"):
+        pass
+
+
 def obs_cost(torch) -> None:
-    """Phase 11's host cost of obs: µs per call of :data:`OBS_CALLS` calls
-    of the executor's ``run``, ``res.run`` and ``race_kernel.run`` on one
-    j3d27pt_b256 example (n = 64), obs off and on in turns (off, on, on,
+    """Phase 11's host cost of obs: host µs inside each of
+    :data:`OBS_CALLS` calls of the executor's ``run``, ``res.run`` and
+    ``race_kernel.run`` on one j3d27pt_b256 example (n = 64), of
+    ``res.run_batch`` on :data:`OBS_BATCH` of them and of an empty
+    ``obs.span``, with obs off, off under ``torch.profiler`` (the spans as
+    its ranges alone) and on, in turns (off, profiler, on, on, profiler,
     off, twice); each round's numbers, then the medians."""
+    import contextlib
+
     import numpy as np
 
     from repro_torch import compile_plan, obs, race, race_kernel
@@ -2853,37 +2872,53 @@ def obs_cost(torch) -> None:
 
     case = get_case("j3d27pt", 64)
     env = env_to_torch(build_env(case, np.float32, seed=0), DEVICE)
+    stacked = {k: v.expand((OBS_BATCH,) + v.shape).contiguous()
+               for k, v in env.items()}
     res = race(case.program, reassociate=case.reassociate)
     kern = race_kernel(TWINS["j3d27pt"], reassociate=case.reassociate)
     ex = compile_plan(res.plan, env)
     calls = {"executor.run": lambda: ex(env),
              "res.run": lambda: res.run(env, device=DEVICE),
-             "race_kernel.run": lambda: kern.run(env, device=DEVICE)}
+             "race_kernel.run": lambda: kern.run(env, device=DEVICE),
+             "res.run_batch": lambda: res.run_batch(stacked, device=DEVICE),
+             "obs.span": lambda: empty_span(obs)}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    modes = {"off": (False, contextlib.nullcontext),
+             "profiler": (False, lambda: torch.profiler.profile(
+                 activities=acts)),
+             "on": (True, contextlib.nullcontext)}
 
     def per_call_us(fn) -> float:
+        # the host's time inside each call; the card is synchronised after
+        # it, outside the timing, so a batch's kernel time never counts
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        host = 0.0
         for _ in range(OBS_CALLS):
+            t0 = time.perf_counter()
             fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / OBS_CALLS * 1e6
+            host += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        return host / OBS_CALLS * 1e6
 
-    rounds = {False: [], True: []}
-    for on in (False, True, True, False) * 2:
+    rounds = {m: [] for m in modes}
+    for mode in ("off", "profiler", "on", "on", "profiler", "off") * 2:
+        on, ctx = modes[mode]
         obs.configure(enabled=on)
-        us = {label: per_call_us(fn) for label, fn in calls.items()}
-        rounds[on].append(us)
-        print(f"obs {'on ' if on else 'off'}: {OBS_CALLS} calls each, us "
-              f"per call: " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                       us.items()), flush=True)
+        with ctx():
+            us = {label: per_call_us(fn) for label, fn in calls.items()}
+        rounds[mode].append(us)
+        print(f"obs {mode}: {OBS_CALLS} calls each, us per call: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
     obs.reset()
     for label in calls:
-        off = statistics.median(r[label] for r in rounds[False])
-        on = statistics.median(r[label] for r in rounds[True])
-        print(f"obs cost {label}: off {off:.2f} us, on {on:.2f} us per call "
-              f"(medians of {len(rounds[False])} rounds), on - off "
-              f"{on - off:.2f} us", flush=True)
+        med = {m: statistics.median(r[label] for r in rounds[m])
+               for m in modes}
+        print(f"obs cost {label}: off {med['off']:.2f} us, profiler "
+              f"{med['profiler']:.2f} us, on {med['on']:.2f} us per call "
+              f"(medians of {len(rounds['off'])} rounds), on - off "
+              f"{med['on'] - med['off']:.2f} us", flush=True)
 
 
 def shape_env(case, dt) -> dict:
@@ -5570,6 +5605,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--step-turns"] and len(sys.argv) >= 3:
         step_turns(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3
                    else STEP_ROUNDS, torch)
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--obs-cost"]:  # phase 11's host cost alone
+        obs_cost(torch)
         print(f"total seconds: {time.time() - t_start:.1f}")
         print(smi)
         return 0

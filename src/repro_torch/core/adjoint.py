@@ -963,17 +963,21 @@ def backward(program: Program, env: Mapping, g: Mapping, *,
                              mode="autodiff-fallback").inc()
             grads = _autodiff_backward(program, env, g, wrt, batched)
         else:
-            # under a recorded graph (a second-order backward) every spec
-            # runs on its own, as run_sum then takes the full products
-            recording = torch.is_grad_enabled() and any(
-                v.requires_grad for v in (*env.values(), *g.values()))
-            runs = ([s for s in build.specs if s.input in wrt] if recording
-                    else adjoint_runs(build, env, g, wrt, backend))
-            grads = {}
             with _obs.span("adjoint_backward"):
+                # under a recorded graph (a second-order backward) every
+                # spec runs on its own, as run_sum then takes the full
+                # products
+                recording = torch.is_grad_enabled() and any(
+                    v.requires_grad for v in (*env.values(), *g.values()))
+                runs = ([s for s in build.specs if s.input in wrt]
+                        if recording
+                        else adjoint_runs(build, env, g, wrt, backend))
+                grads = {}
                 for unit in runs:
                     grads.update(_run_unit(unit, env, g, backend, batched))
+                out = complete_gradients(program, env, grads, wrt)
             if _obs.enabled():
                 _obs.counter("race_adjoint_backward_total",
                              mode="stencil").inc()
+            return out
     return complete_gradients(program, env, grads, wrt)

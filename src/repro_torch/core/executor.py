@@ -405,23 +405,25 @@ class CompiledRace:
                          batched, True)
 
     def _run(self, env: Mapping, batched: bool, summed: bool) -> dict:
-        """Count the call and, with obs on, span and count it: the first
-        call pays the kernel's build (nvcc, when its library is not on disk
-        yet) and load, its "compile" span; every later one is a "run"."""
+        """Count the call and span it (obs on, or the profiler recording),
+        and with obs on count it in the registry: the first call pays the
+        kernel's build (nvcc, when its library is not on disk yet) and
+        load, its "compile" span; every later one is a "run"."""
         if batched:
             self.batch_calls += 1
         else:
             self.calls += 1
-        if not _obs.enabled():  # the RACE_OBS=0 fast path: one flag read
+        if not _obs.tracing():  # the RACE_OBS=0 fast path: two flag reads
             return self._call(env, batched, summed)
         n = self.batch_calls if batched else self.calls
         labels = {"batch": "1"} if batched else {}
         with _obs.span("compile" if n == 1 else "run", plan=self._plan_h,
                        backend=self.backend, **labels):
             out = self._call(env, batched, summed)
-        _obs.counter("race_executor_batch_runs_total" if batched
-                     else "race_executor_runs_total", plan=self._plan_h,
-                     backend=self.backend).inc()
+        if _obs.enabled():
+            _obs.counter("race_executor_batch_runs_total" if batched
+                         else "race_executor_runs_total", plan=self._plan_h,
+                         backend=self.backend).inc()
         return out
 
     @property

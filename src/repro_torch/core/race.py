@@ -161,28 +161,36 @@ class RaceResult:
         from .executor import (compile_plan, env_signature, env_to_torch,
                                resolve_device)
 
-        if backend is None and self.options.get("mesh") is not None:
-            # race(..., mesh=...) makes sharded the default execution path;
-            # an explicit backend= on run() opts back into single-device
-            return self.run_sharded(
-                env, block_rows=block_rows, block_cols=block_cols,
-                block_inner=block_inner)
-        dev = resolve_device(device)
-        env = env_to_torch(env, dev)
-        if backend is None and (self._tuned
-                                or self.options.get("tune") is not None):
-            entry = self._tuned_entry(env, env_signature(env), dev)
-            if entry is not None:
-                dec, target = entry
-                ch = dec.choice
-                ex = compile_plan(
-                    target.plan, env, ch.backend, block_rows=ch.block_rows,
-                    block_cols=ch.block_cols, block_inner=ch.block_inner)
-                return ex(env)
-        ex = compile_plan(self.plan, env, backend or self.options["backend"],
-                          block_rows=block_rows, block_cols=block_cols,
-                          block_inner=block_inner)
-        return ex(env)
+        with _obs.span("entry"):
+            if backend is None and self.options.get("mesh") is not None:
+                # race(..., mesh=...) makes sharded the default execution
+                # path; an explicit backend= on run() opts back into
+                # single-device
+                return self.run_sharded(
+                    env, block_rows=block_rows, block_cols=block_cols,
+                    block_inner=block_inner)
+            with _obs.span("inputs"):
+                dev = resolve_device(device)
+                env = env_to_torch(env, dev)
+            with _obs.span("lookup"):
+                ex = None
+                if backend is None and (self._tuned or
+                                        self.options.get("tune") is not None):
+                    entry = self._tuned_entry(env, env_signature(env), dev)
+                    if entry is not None:
+                        dec, target = entry
+                        ch = dec.choice
+                        ex = compile_plan(
+                            target.plan, env, ch.backend,
+                            block_rows=ch.block_rows,
+                            block_cols=ch.block_cols,
+                            block_inner=ch.block_inner)
+                if ex is None:
+                    ex = compile_plan(
+                        self.plan, env, backend or self.options["backend"],
+                        block_rows=block_rows, block_cols=block_cols,
+                        block_inner=block_inner)
+            return ex(env)
 
     def run_sharded(self, env: dict, mesh=None,
                     backend: Optional[str] = None, *,
@@ -240,29 +248,34 @@ class RaceResult:
         from .executor import (compile_plan, resolve_device, stack_envs,
                                stacked_signature)
 
-        dev = resolve_device(device)
-        stacked = stack_envs(envs, dev)
-        sig = stacked_signature(stacked)
-        if backend is None and (self._tuned
-                                or self.options.get("tune") is not None):
-            # the example a tune run needs (batch element 0) is sliced
-            # lazily: only a search reads it
-            entry = self._tuned_entry(
-                lambda: {k: v[0].detach() for k, v in stacked.items()}, sig,
-                dev)
-            if entry is not None:
-                dec, target = entry
-                ch = dec.choice
-                ex = compile_plan(
-                    target.plan, sig, ch.backend, device=dev,
-                    block_rows=ch.block_rows, block_cols=ch.block_cols,
-                    block_inner=ch.block_inner)
-                return ex.run_batch(stacked)
-        ex = compile_plan(self.plan, sig,
-                          backend or self.options["backend"], device=dev,
-                          block_rows=block_rows, block_cols=block_cols,
-                          block_inner=block_inner)
-        return ex.run_batch(stacked)
+        with _obs.span("entry"):
+            with _obs.span("inputs"):
+                dev = resolve_device(device)
+                stacked = stack_envs(envs, dev)
+                sig = stacked_signature(stacked)
+            with _obs.span("lookup"):
+                ex = None
+                if backend is None and (self._tuned or
+                                        self.options.get("tune") is not None):
+                    # the example a tune run needs (batch element 0) is
+                    # sliced lazily: only a search reads it
+                    entry = self._tuned_entry(
+                        lambda: {k: v[0].detach() for k, v in stacked.items()},
+                        sig, dev)
+                    if entry is not None:
+                        dec, target = entry
+                        ch = dec.choice
+                        ex = compile_plan(
+                            target.plan, sig, ch.backend, device=dev,
+                            block_rows=ch.block_rows,
+                            block_cols=ch.block_cols,
+                            block_inner=ch.block_inner)
+                if ex is None:
+                    ex = compile_plan(
+                        self.plan, sig, backend or self.options["backend"],
+                        device=dev, block_rows=block_rows,
+                        block_cols=block_cols, block_inner=block_inner)
+            return ex.run_batch(stacked)
 
     # --- observability ------------------------------------------------------
     def telemetry(self) -> dict:

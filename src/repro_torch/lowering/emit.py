@@ -91,6 +91,7 @@ from typing import Mapping, NamedTuple
 
 import torch
 
+from .. import obs as _obs
 from ..core.depgraph import Plan
 from ..core.ir import Const, Expr, Node, Ref, expr_refs
 from .blocks import BODY, STATIC_SHARED, LaunchGeometry, build_geometry
@@ -1243,7 +1244,7 @@ class LoweredStencil:
     summed kernel for a caller that wants only each output's sum.  Each
     (program, summed) source is built at its first launch
     (:meth:`source_for`); ``launches`` counts this wrapper's kernel
-    launches, of any source."""
+    launches, of any source.  Each of the three is the span ``k1``."""
 
     def __init__(self, programs):
         # ``programs(batch)``: the TileProgram of a launch of that many
@@ -1277,19 +1278,21 @@ class LoweredStencil:
         return src
 
     def apply(self, env: Mapping) -> dict:
-        ins = [env[o.name] for o in self.tp.operands]
-        if all(t.device.type == "cpu" for t in ins):
-            return emulate(self.tp, env)
-        return self._launch(env, ins, None)
+        with _obs.span("k1"):
+            ins = [env[o.name] for o in self.tp.operands]
+            if all(t.device.type == "cpu" for t in ins):
+                return emulate(self.tp, env)
+            return self._launch(env, ins, None)
 
     __call__ = apply
 
     def apply_batch(self, env: Mapping) -> dict:
-        ins = [env[o.name] for o in self.tp.operands]
-        batch = ins[0].shape[0]
-        if all(t.device.type == "cpu" for t in ins):
-            return self._emulate_batch(env, batch, False)
-        return self._launch(env, ins, batch)
+        with _obs.span("k1"):
+            ins = [env[o.name] for o in self.tp.operands]
+            batch = ins[0].shape[0]
+            if all(t.device.type == "cpu" for t in ins):
+                return self._emulate_batch(env, batch, False)
+            return self._launch(env, ins, batch)
 
     def apply_sum(self, env: Mapping, batched: bool = False) -> dict:
         """Each output's partial sums, one per block of the grid: ``{name:
@@ -1297,13 +1300,14 @@ class LoweredStencil:
         carries a leading batch axis) in float64, whose sum is the
         output's: the emulator's summed march on the CPU, else the summed
         kernel."""
-        ins = [env[o.name] for o in self.tp.operands]
-        batch = ins[0].shape[0] if batched else None
-        if all(t.device.type == "cpu" for t in ins):
-            if batch is None:
-                return emulate(self.tp, env, summed=True)
-            return self._emulate_batch(env, batch, True)
-        return self._launch(env, ins, batch, summed=True)
+        with _obs.span("k1"):
+            ins = [env[o.name] for o in self.tp.operands]
+            batch = ins[0].shape[0] if batched else None
+            if all(t.device.type == "cpu" for t in ins):
+                if batch is None:
+                    return emulate(self.tp, env, summed=True)
+                return self._emulate_batch(env, batch, True)
+            return self._launch(env, ins, batch, summed=True)
 
     def _emulate_batch(self, env: Mapping, batch: int, summed: bool) -> dict:
         """The emulator per example, at the batch's tile program."""

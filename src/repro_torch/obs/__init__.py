@@ -14,6 +14,7 @@ One process-wide state (registry + event log) behind a single enabled flag:
 Public surface (every call is safe — and near-free — when disabled):
 
     obs.enabled()                  -> bool (one attribute read)
+    obs.tracing()                  -> bool: obs on, or torch.profiler recording
     obs.span("detect", **labels)   -> context manager timing a phase
     obs.event("kind", **fields)    -> structured decision event
     obs.counter/gauge/histogram()  -> registry series (get-or-create)
@@ -28,7 +29,14 @@ diagnostics, gate verdicts, cache evictions — is *emitted*, not discarded,
 the moment observability is on.  The disabled path is a no-op by
 construction: ``span`` returns a shared no-op object, ``event`` and the
 metric helpers return before building anything, so serving pays one boolean
-attribute read per call site.
+attribute read per call site (a span two: the profiler's flag besides).
+
+The port's spans are also ``torch.profiler`` ranges, ``race.<span>``, with
+obs on or off, whenever the profiler records: a trace of any caller's code
+shows which layer of the port the host was in, on the device trace's
+clock, at a few microseconds a range.  With obs off that is all a span
+does (no registry, no span log).  :data:`PORT_SPANS` are the port's own
+spans, which the reference has no counterpart of.
 """
 from __future__ import annotations
 
@@ -36,10 +44,12 @@ import json
 import os
 import threading
 
+from torch.autograd import profiler as _profiler
+
 from .events import DEFAULT_RING, EventLog, load_jsonl
 from .metrics import DEFAULT_BUCKETS, Counter, Gauge, Histogram, Registry
-from .spans import (DEFAULT_SPAN_RING, NOOP_SPAN, Span, SpanLog,
-                    current_path, epoch_of_origin)
+from .spans import (DEFAULT_SPAN_RING, NOOP_SPAN, RANGE_PREFIX, Span,
+                    SpanLog, current_path, epoch_of_origin, profiler_range)
 
 __all__ = [
     "enabled", "configure", "reset", "span", "event", "events",
@@ -59,6 +69,12 @@ ENV_SPANS = "RACE_OBS_SPANS"
 
 #: schema version stamped on dumps and benchmark JSON artifacts
 OBS_SCHEMA = 1
+
+#: the port's own spans, which the reference does not have: ``entry`` (a
+#: whole ``RaceResult.run`` / ``run_batch``), ``inputs`` (its device and
+#: input moves), ``lookup`` (choosing its executor) and ``k1`` (K1's
+#: wrapper, ``LoweredStencil``: checks, launch or emulator, cast)
+PORT_SPANS = ("entry", "inputs", "lookup", "k1")
 
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -112,6 +128,12 @@ def enabled() -> bool:
     return _state.enabled
 
 
+def tracing() -> bool:
+    """Does a span record anything: obs on, or ``torch.profiler`` recording
+    (whose ranges the spans then open)?  Two flag reads."""
+    return _state.enabled or _profiler._is_profiler_enabled
+
+
 def configure(enabled=None, events_path=..., ring=None) -> None:
     """Programmatic control (overrides the env): flip the flag, point the
     JSONL sink somewhere (``None`` detaches it), resize the ring.  Metric
@@ -151,12 +173,19 @@ def reset() -> None:
 
 
 def span(name: str, **labels):
-    """Time a phase: ``with obs.span("detect"): ...``.  Disabled -> a shared
-    no-op context manager (no allocation, no clock read)."""
+    """Time a phase: ``with obs.span("detect"): ...``.  Disabled -> the
+    profiler's range ``race.<name>`` alone while ``torch.profiler`` records,
+    else a shared no-op context manager (no allocation, no clock read).
+    Enabled -> a :class:`Span`, which opens the same range while the
+    profiler records."""
     st = _state
-    if not st.enabled:
-        return NOOP_SPAN
-    return Span(name, st.registry, labels, st.spans)
+    if st.enabled:
+        return Span(name, st.registry, labels, st.spans,
+                    profiler_range(name) if _profiler._is_profiler_enabled
+                    else None)
+    if _profiler._is_profiler_enabled:
+        return profiler_range(name)
+    return NOOP_SPAN
 
 
 def event(kind: str, **fields):

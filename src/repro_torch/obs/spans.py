@@ -22,12 +22,19 @@ Perfetto timeline needs (:mod:`repro_torch.obs.trace` renders it).
 When observability is disabled, ``obs.span`` returns one shared no-op
 context manager — no allocation, no clock read, no stack touch — which is
 the whole overhead story of the ``RACE_OBS=0`` path.
+
+The port's own addition: while ``torch.profiler`` records, a span also
+opens a profiler range named ``race.<span>`` (:func:`profiler_range`), so
+the spans sit on the device trace's clock, beside the kernels they
+launched; with obs off the range alone is the span.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
+
+import torch
 
 #: default SpanLog capacity (records, not bytes); newest win
 DEFAULT_SPAN_RING = 16384
@@ -39,6 +46,20 @@ _ORIGIN_PERF = time.perf_counter()
 _ORIGIN_EPOCH = time.time()
 
 _stack = threading.local()
+
+#: a span's name in a ``torch.profiler`` trace is this prefix and its own
+RANGE_PREFIX = "race."
+
+# the profiler's cheap range (``record_function`` costs several times as
+# much, and as much again with the profiler off); older torch lacks it
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
+
+
+def profiler_range(name: str):
+    """A context manager that records the range ``race.<name>`` in the
+    ``torch.profiler`` trace being taken."""
+    return _RANGE(RANGE_PREFIX + name)
 
 
 def _path_of(name: str) -> str:
@@ -94,21 +115,27 @@ def epoch_of_origin() -> float:
 
 
 class Span:
-    """One timed phase; records on exit (exceptions still record)."""
+    """One timed phase; records on exit (exceptions still record).  ``rng``,
+    where given, is a profiler range (:func:`profiler_range`) held open
+    around the timed block."""
 
     __slots__ = ("name", "labels", "registry", "log", "t0", "path",
-                 "seconds")
+                 "seconds", "rng")
 
-    def __init__(self, name: str, registry, labels: dict, log=None):
+    def __init__(self, name: str, registry, labels: dict, log=None,
+                 rng=None):
         self.name = name
         self.registry = registry
         self.labels = labels
         self.log = log
+        self.rng = rng
         self.t0 = 0.0
         self.path = ""
         self.seconds = None
 
     def __enter__(self) -> "Span":
+        if self.rng is not None:
+            self.rng.__enter__()
         self.path = _path_of(self.name)
         _stack.names.append(self.name)
         self.t0 = time.perf_counter()
@@ -116,6 +143,8 @@ class Span:
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
+        if self.rng is not None:
+            self.rng.__exit__(*exc)
         dt = t1 - self.t0
         self.seconds = dt
         stack = _stack.names
