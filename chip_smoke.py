@@ -367,6 +367,11 @@ runs phases 1, 2 (the mixers' sources only) and 15 alone.
 
 runs phase 11's host cost of obs alone.
 
+    python3 chip_smoke.py --grad
+
+runs phases 1, 2 (the adjoint plans' sources only), 5, 6 and phase 9's
+gradient (``batch_grad``) alone.
+
     python3 chip_smoke.py --train
 
 runs phases 1, 2 (the training mixers' sources only) and 16 alone.
@@ -916,11 +921,12 @@ def step_cell(cell, envs: dict, torch):
     g = cos_weights(res.run({**env, **p}, device=DEVICE), torch)
     unit, a, ex = next(x for x in adjoint_executors(case.program, env, g)
                        if isinstance(x[0], ScalarGroup))
-    ex_t = compile_plan(unit.result().plan, a, "torch")
+    c = canvas_env(a, ex)
+    ex_t = compile_plan(unit.result().plan, c, "torch")
 
     def check():
         got = {k: v.sum() for k, v in ex.run_sum(a).items()}
-        want = {k: v.sum() for k, v in ex_t.run_sum(a).items()}
+        want = {k: v.sum() for k, v in ex_t.run_sum(c).items()}
         return rel_err(got, want), tol
 
     return (label, adjoint_call(unit, ex, a), check,
@@ -959,15 +965,16 @@ def mixer_step_cell(C: int, run: str, envs: dict, torch):
                 ex.spec.tp)
     unit, a, ex = next(x for x in adj if isinstance(x[0], ScalarGroup) == (
         run == "taps") and (run == "taps" or x[0].input == "sx"))
-    ex_t = compile_plan(unit.result().plan, a, "torch")
+    c = canvas_env(a, ex)
+    ex_t = compile_plan(unit.result().plan, c, "torch")
     if run == "sx":
         return (label, adjoint_call(unit, ex, a),
-                lambda: (rel_err(ex(a), ex_t(a)), tol), ex.spec.source,
+                lambda: (rel_err(ex(a), ex_t(c)), tol), ex.spec.source,
                 ex.spec.tp)
 
     def check():
         got = {k: float(v.double().sum()) for k, v in ex.run_sum(a).items()}
-        want = ex_t(a)
+        want = ex_t(c)
         scale = max(float(v.double().abs().sum()) for v in want.values())
         return max(abs(got[k] - float(want[k].double().sum()))
                    for k in got) / scale, tol
@@ -1158,10 +1165,12 @@ def adjoint_sources(case, res, dt, batch: int = 1,
     scalar's: the summed kernel, which the backward runs), for launches of
     ``batch`` examples: the scalars' group's, which a backward of every
     input runs, and each spec's but, without ``members``, the group's
-    members' (phase 6 times them beside the group)."""
+    members' (phase 6 times them beside the group).  Each reads its
+    zero-padded cotangents in place, as the backward's K1 does."""
     import numpy as np
 
-    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.adjoint import (adjoint_build, adjoint_env_shapes,
+                                          cotangent_pads)
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
     from repro_torch.lowering.emit import specialize_stencil
@@ -1177,7 +1186,8 @@ def adjoint_sources(case, res, dt, batch: int = 1,
         plan = unit.result().plan
         adj = adjoint_env_shapes(unit, case.program, shapes)
         if select_backend(plan, "auto", [dname]).backend == "hopper":
-            sp = specialize_stencil(plan, adj, {k: dname for k in adj})
+            sp = specialize_stencil(plan, adj, {k: dname for k in adj},
+                                    pads=cotangent_pads(unit))
             out.append(sp.source_for(batch, unit.scalar))
     return out
 
@@ -1194,19 +1204,37 @@ def adjoint_call(unit, ex, a, batched: bool = False):
 def spec_executors(units, env, g, batched: bool = False) -> list:
     """``(unit, adjoint env, executor)`` of each adjoint program of
     ``units`` (default backend), as the backward fetches them from the
-    executor cache; ``batched``: ``env`` and ``g`` are stacked."""
+    executor cache (``adjoint_executor``: on K1 each zero-padded cotangent
+    unpadded in the env, read in place; a tree without it pads them all);
+    ``batched``: ``env`` and ``g`` are stacked."""
     from repro_torch import compile_plan
-    from repro_torch.core.adjoint import assemble_adjoint_env
+    from repro_torch.core import adjoint
     from repro_torch.core.executor import stacked_signature
 
     out = []
     for unit in units:
-        a = assemble_adjoint_env(unit, env, g)
-        plan = unit.result().plan
-        out.append((unit, a, compile_plan(
-            plan, stacked_signature(a), device=DEVICE) if batched
-            else compile_plan(plan, a)))
+        if hasattr(adjoint, "adjoint_executor"):
+            ex = adjoint.adjoint_executor(unit, env, g, batched=batched)
+            a = adjoint.assemble_adjoint_env(unit, env, g, in_place=ex.pads)
+        else:
+            a = adjoint.assemble_adjoint_env(unit, env, g)
+            plan = unit.result().plan
+            ex = (compile_plan(plan, stacked_signature(a), device=DEVICE)
+                  if batched else compile_plan(plan, a))
+        out.append((unit, a, ex))
     return out
+
+
+def canvas_env(a, ex) -> dict:
+    """``a`` (an executor's adjoint env) with each operand ``ex`` reads
+    without its zero pad padded into its canvas: the env of the adjoint
+    plan's ``"torch"`` twin and of a library call on it."""
+    import torch.nn.functional as F
+
+    pads = getattr(ex, "pads", None) or {}
+    return {k: F.pad(v, tuple(x for lo, hi in reversed(pads[k])
+                              for x in (lo, hi))) if k in pads else v
+            for k, v in a.items()}
 
 
 def adjoint_executors(program, env, g, batched: bool = False) -> list:
@@ -1368,7 +1396,8 @@ def fault_sources(mesh) -> list:
     import numpy as np
 
     from repro_torch import env_signature
-    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    from repro_torch.core.adjoint import (adjoint_build, adjoint_env_shapes,
+                                          cotangent_pads)
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
     from repro_torch.core.executor import ExecutorCache
@@ -1385,13 +1414,14 @@ def fault_sources(mesh) -> list:
     out = []
     for name, _, program, res, _ in fault_runs(FAULT_CELLS):
         shapes = shapes_of(program)
-        units = [(res.plan, shapes, False)] + [
-            (spec.result().plan,
-             adjoint_env_shapes(spec, program, shapes), spec.scalar)
+        units = [(res.plan, shapes, False, None)] + [
+            (spec.result().plan, adjoint_env_shapes(spec, program, shapes),
+             spec.scalar, cotangent_pads(spec))
             for spec in adjoint_build(program).specs if name not in FORCED]
-        for plan, shp, summed in units:
+        for plan, shp, summed, pads in units:
             if select_backend(plan, "auto", ["float32"]).backend == "hopper":
-                sp = specialize_stencil(plan, shp, {k: "float32" for k in shp})
+                sp = specialize_stencil(plan, shp, {k: "float32" for k in shp},
+                                        pads=pads)
                 out.append(sp.source_for(1, summed))
     cache = ExecutorCache()
     for _, _, program, res, _ in fault_runs(SHARD_FAULT_CELLS):
@@ -1657,8 +1687,9 @@ def grad_full_size(case, dt, res, torch) -> tuple:
         ms = _time_ms(adjoint_call(unit, ex, a), torch)
         kernel_ms += ms
         per_spec.append(f"{unit_label(unit)} {ms:.4f}")
-        ex_t = compile_plan(unit.result().plan, a, "torch")
-        t_ms = _time_ms(lambda: ex_t(a), torch)
+        c = canvas_env(a, ex)
+        ex_t = compile_plan(unit.result().plan, c, "torch")
+        t_ms = _time_ms(lambda: ex_t(c), torch)
         torch_ms += t_ms
         b, o = plan_work(unit.result().plan, a, itemsize, unit.scalar)
         nbytes, ops = nbytes + b, ops + o
@@ -2257,11 +2288,12 @@ def batch_grad(label, case, dt, B, res, torch) -> dict:
     itemsize = np.dtype(dt).itemsize
     for unit, a, ex in adj:
         kernel_ms += _time_ms(adjoint_call(unit, ex, a, True), torch)
-        ex_t = compile_plan(unit.result().plan, stacked_signature(a),
+        c = canvas_env(a, ex)
+        ex_t = compile_plan(unit.result().plan, stacked_signature(c),
                             "torch", device=DEVICE)
-        torch_ms += _time_ms(lambda: ex_t.run_batch(a), torch)
+        torch_ms += _time_ms(lambda: ex_t.run_batch(c), torch)
         k_out = adjoint_call(unit, ex, a, True)()
-        t_out = ex_t.run_batch(a)
+        t_out = ex_t.run_batch(c)
         if unit.scalar:  # each example's sum: of the partials, the box
             k_out, t_out = ({k: v.double().flatten(1).sum(1)
                              for k, v in o.items()} for o in (k_out, t_out))
@@ -2447,6 +2479,35 @@ def constant_check(torch) -> list:
         if not ok:
             failures.append(line)
     return failures
+
+
+def gradient_phases(grad_cases, full_runs, marks, torch) -> list:
+    """Phases 5 and 6 (``full_runs``: phase 4's cells and j3d27pt's
+    float16 one); returns phase 6's kernel lines."""
+    from repro_torch.testing.differential import dtype_name
+
+    # ---- phase 5: gradient sweep -------------------------------------------
+    marks.append((5, time.time()))
+    failures = grad_sweep(grad_cases, torch) + fault_grads(torch)
+    if failures:
+        raise SystemExit("phase 5 failed:\n" + "\n".join(failures))
+
+    # ---- phase 6: gradient at full size ------------------------------------
+    marks.append((6, time.time()))
+    kernels = []
+    backward = {}  # (case name, dtype name) -> (backward ms, adjoints ms)
+    for case, dt, res in full_runs:
+        entries, backward_ms = grad_full_size(case, dt, res, torch)
+        kernels += entries
+        backward[case.name, dtype_name(dt)] = (backward_ms, entries[0]["ms"])
+        torch.cuda.empty_cache()
+    (h_ms, h_adj), (f_ms, f_adj) = (backward["j3d27pt", d]
+                                    for d in ("float16", "float32"))
+    print(f"grad-main j3d27pt float16 beside float32 (this run, "
+          f"{_nvidia_smi()}): backward_ms {h_ms:.4f} / {f_ms:.4f} "
+          f"({h_ms / f_ms:.3f}), adjoint kernels {h_adj:.4f} / "
+          f"{f_adj:.4f} ({h_adj / f_adj:.3f})", flush=True)
+    return kernels
 
 
 def full_size_cells():
@@ -3917,8 +3978,9 @@ def tap_adjoint_check(label, grp, sw, radius: int, torch) -> tuple:
                          f"per block ({n_grp}, {n_tiles})")
     k1 = torch.stack([gparts[m.gu].double().sum() for m in group.members])
     own = torch.stack([p.double().sum() for p in parts])
-    scale = max(float(compile_plan(spec.result().plan, a, "torch")(a)[
-        spec.gu].double().abs().sum()) for spec, a, _ in sw)
+    scale = max(float(compile_plan(spec.result().plan, c, "torch")(c)[
+        spec.gu].double().abs().sum()) for spec, c in (
+            (spec, canvas_env(a, e)) for spec, a, e in sw))
     diff = float((got - k1).abs().max())
     diff_mv = float((got_mv - k1).abs().max())
     diff_own = float((own - k1).abs().max())
@@ -4342,8 +4404,10 @@ def mixer_sources(S: int, C: int, adjoints: bool) -> list:
     """The K1 sources of one mixer shape (float32 streams): its forward
     and, with ``adjoints``, every adjoint plan the probe admits: each
     spec's (the taps': the summed kernel, timed beside their group) and
-    the taps' group's, which the backward runs."""
-    from repro_torch.core.adjoint import adjoint_build, adjoint_env_shapes
+    the taps' group's, which the backward runs (reading its zero-padded
+    cotangents in place)."""
+    from repro_torch.core.adjoint import (adjoint_build, adjoint_env_shapes,
+                                          cotangent_pads)
     from repro_torch.core.backend import select_backend
     from repro_torch.core.codegen import required_shapes
     from repro_torch.lowering.emit import specialize_stencil
@@ -4359,7 +4423,8 @@ def mixer_sources(S: int, C: int, adjoints: bool) -> list:
         plan = unit.result().plan
         if select_backend(plan, "auto", ["float32"]).backend == "hopper":
             adj = adjoint_env_shapes(unit, res.program, shapes)
-            sp = specialize_stencil(plan, adj, {k: "float32" for k in adj})
+            sp = specialize_stencil(plan, adj, {k: "float32" for k in adj},
+                                    pads=cotangent_pads(unit))
             out.append(sp.source_for(1, unit.scalar))
     return out
 
@@ -4610,13 +4675,14 @@ def k1_mixer_lines(label, tag, ex, env, adj, fwd_launches, adj_launches,
         g = groups.setdefault(key, [0.0, 0.0, 0, 0, 0])
         ms = _time_ms(adjoint_call(unit, e, a), torch)
         per_spec.append(f"{unit_label(unit)} {ms:.4f}")
-        e_t = compile_plan(unit.result().plan, a, "torch")
+        c = canvas_env(a, e)
+        e_t = compile_plan(unit.result().plan, c, "torch")
         b_, o_ = plan_work(unit.result().plan, a, 4, unit.scalar)
         g[0] += ms
-        g[1] += _time_ms(lambda: e_t(a), torch)
+        g[1] += _time_ms(lambda: e_t(c), torch)
         g[2], g[3], g[4] = g[2] + b_, g[3] + o_, g[4] + n
         if key == " sx":
-            lib = sx_adjoint_library_call(a, LM_RADIUS, torch)
+            lib = sx_adjoint_library_call(c, LM_RADIUS, torch)
             e_lib = rel_err(lib(), e(a))
             if e_lib > default_tolerances("float32")["baseline"]:
                 raise SystemExit(f"{label}: conv1d and K1 disagree on the "
@@ -5367,11 +5433,14 @@ def mixer_vs_conv1d(torch) -> None:
 
     def long(ex, e):
         """The executor of ``ex``'s plan at long segments (``ex`` where
-        those are the chooser's)."""
+        those are the chooser's), reading ``ex``'s operands as ``ex``
+        does (``e`` its env)."""
         blocks = long_blocks(ex.spec.tp.geometry)
+        pads = getattr(ex, "pads", None)
         return ex if blocks is None else compile_plan(
-            ex.plan, e, "hopper", block_rows=blocks[0], block_cols=blocks[1],
-            block_inner=blocks[2])
+            ex.plan, ex.env_sig if pads else e, "hopper", device=DEVICE,
+            block_rows=blocks[0], block_cols=blocks[1],
+            block_inner=blocks[2], **({"pads": pads} if pads else {}))
 
     # the long segments' sources, all at once (the taps': the products)
     compile_sources([long(ex, e).spec.source for _, env, fwd, adj, _ in
@@ -5386,7 +5455,8 @@ def mixer_vs_conv1d(torch) -> None:
         (adj_env, adj_ex), = [(a, e) for spec, a, e in adj
                               if spec.input == "sx"]
         lib_f = mixer_library_call(env, LM_RADIUS, torch)
-        lib_sx = sx_adjoint_library_call(adj_env, LM_RADIUS, torch)
+        lib_sx = sx_adjoint_library_call(canvas_env(adj_env, adj_ex),
+                                         LM_RADIUS, torch)
         old_f, old_sx = long(ex, env), long(adj_ex, adj_env)
         for name, e, a, want in (("forward", ex, env, lib_f),
                                  ("forward, long segments", old_f, env,
@@ -5678,6 +5748,34 @@ def main() -> int:
                   if lvl == case.reassociate and dt is np.float32]
 
     marks = [(1, t_start)]  # (phase, start) for the phase seconds
+    batch_runs = [(label, case, dt, B, race(case.program,
+                                            reassociate=case.reassociate))
+                  for label, case, dt, B in batch_cells()]
+    if sys.argv[1:] == ["--grad"]:
+        # phases 1, 2 (the adjoints' sources), 5, 6 and 9's gradient alone
+        marks.append((2, time.time()))
+        sources = fault_sources(shard_mesh(torch))
+        for case, res in grad_cases:
+            sources += adjoint_sources(case, res, np.float32, members=False)
+        for case, dt, res in main_runs + half_runs[:1]:
+            sources += adjoint_sources(case, res, dt)
+        label, case, dt, B, res = batch_runs[0]
+        sources += adjoint_sources(case, res, np.float32, B, members=False)
+        compile_sources(sources)
+        print(f"build: {len(set(sources))} kernel sources compiled in "
+              f"{time.time() - marks[-1][1]:.1f} s", flush=True)
+        kernels = gradient_phases(grad_cases, main_runs + half_runs[:1],
+                                  marks, torch)
+        marks.append((9, time.time()))
+        kernels.append(batch_grad(label, case, dt, B, res, torch))
+        marks.append((None, time.time()))
+        print("phase seconds: " + ", ".join(
+            f"{ph} {t1 - t0:.1f}"
+            for (ph, t0), (_, t1) in zip(marks, marks[1:])))
+        print(f"total seconds: {time.time() - t_start:.1f}")
+        print(json.dumps({"kernels": kernels}))
+        print(smi)
+        return 0
     # ---- phase 2: build ----------------------------------------------------
     marks.append((2, time.time()))
     sources = []
@@ -5690,9 +5788,6 @@ def main() -> int:
         sources += adjoint_sources(case, res, np.float32, members=False)
     for case, dt, res in main_runs + half_runs[:1]:
         sources += adjoint_sources(case, res, dt)
-    batch_runs = [(label, case, dt, B, race(case.program,
-                                            reassociate=case.reassociate))
-                  for label, case, dt, B in batch_cells()]
     for _, case, dt, B, res in batch_runs:  # phase 13's cells' too
         sources += geometry_sources(res.plan, required_shapes(case.program),
                                     np.dtype(dt).name, B)
@@ -5864,26 +5959,8 @@ def main() -> int:
     del f32_twin
     torch.cuda.empty_cache()
 
-    # ---- phase 5: gradient sweep -------------------------------------------
-    marks.append((5, time.time()))
-    failures = grad_sweep(grad_cases, torch) + fault_grads(torch)
-    if failures:
-        raise SystemExit("phase 5 failed:\n" + "\n".join(failures))
-
-    # ---- phase 6: gradient at full size ------------------------------------
-    marks.append((6, time.time()))
-    backward = {}  # (case name, dtype name) -> (backward ms, adjoints ms)
-    for case, dt, res in main_runs + half_runs[:1]:  # + j3d27pt float16
-        entries, backward_ms = grad_full_size(case, dt, res, torch)
-        kernels += entries
-        backward[case.name, dtype_name(dt)] = (backward_ms, entries[0]["ms"])
-        torch.cuda.empty_cache()
-    (h_ms, h_adj), (f_ms, f_adj) = (backward["j3d27pt", d]
-                                    for d in ("float16", "float32"))
-    print(f"grad-main j3d27pt float16 beside float32 (this run, "
-          f"{_nvidia_smi()}): backward_ms {h_ms:.4f} / {f_ms:.4f} "
-          f"({h_ms / f_ms:.3f}), adjoint kernels {h_adj:.4f} / "
-          f"{f_adj:.4f} ({h_adj / f_adj:.3f})", flush=True)
+    kernels += gradient_phases(grad_cases, main_runs + half_runs[:1], marks,
+                               torch)
 
     # ---- phase 7: fused cross-entropy sweep --------------------------------
     marks.append((7, time.time()))

@@ -18,9 +18,10 @@ Hopper stencil kernel.
   * :class:`ScalarGroup` — two or more wanted scalar specs as one adjoint
     program (:meth:`AdjointBuild.scalar_group`), run as one summed K1
     launch where :func:`adjoint_runs` admits it;
-  * :func:`backward` — the runtime VJP: pad cotangents (zeros) and
-    coefficient arrays (ones: the zero cotangent already annihilates those
-    terms, and ones keep divisions finite), run each adjoint plan through
+  * :func:`backward` — the runtime VJP: pad cotangents (zeros; K1 reads
+    them unpadded, its guards supplying the zeros) and coefficient arrays
+    (ones: the zero cotangent already annihilates those terms, and ones
+    keep divisions finite), run each adjoint plan through
     :func:`~.executor.compile_plan` under the default backend, sum the
     broadcast axes, and embed the result into input-shaped zeros.
     :class:`~.executor.CompiledRace` installs it as a
@@ -42,7 +43,9 @@ Telemetry (``RACE_OBS``) as the reference's: an ``adjoint_build`` span,
 around each (memoized) build; ``race_adjoint_backward_total{mode}`` and an
 ``adjoint_backward`` span in :func:`backward`.  The reference's backward
 runs inside ``jax.jit``, so its counter and span fire once per trace; this
-backward is eager, so they fire once per backward call.
+backward is eager, so they fire once per backward call.  The port's own
+``race_adjoint_pads_total{how, kind}`` counts each padded feed of a
+backward (:func:`assemble_adjoint_env`).
 
 Env knobs: ``RACE_ADJOINT`` — ``"stencil"`` (default) or ``"autodiff"``
 (force the fallback); ``RACE_ADJOINT_REASSOCIATE`` — reassociation level of
@@ -706,32 +709,81 @@ def _torch_pads(pads) -> tuple:
     return tuple(x for lo, hi in reversed(pads) for x in (lo, hi))
 
 
-def assemble_adjoint_env(spec: InputSpec, env: Mapping, g: Mapping) -> dict:
+def _feed_pads(kind: str, pads, shape) -> tuple:
+    """``(lo, hi)`` per trailing dimension by which a feed of ``shape`` is
+    padded: a cotangent's static zero pads, a coefficient array's ones-pads
+    with the high one resolved against ``shape``; ``()`` for a scalar."""
+    if kind == "cotangent":
+        return tuple(pads)
+    if kind == "scalar":
+        return ()
+    lead = len(shape) - len(pads)
+    return tuple((plo, max(0, smax + 1 - (plo + shape[lead + d])))
+                 for d, (plo, smax) in enumerate(pads))
+
+
+def cotangent_pads(spec: InputSpec) -> dict:
+    """``{adjoint env name: ((lo, hi) per dimension)}`` of the spec's
+    cotangent feeds padded with zeros: what K1 reads in place
+    (:func:`assemble_adjoint_env`'s ``in_place``)."""
+    return {nm: tuple(pads) for kind, _, nm, pads in spec.feeds
+            if kind == "cotangent" and any(lo or hi for lo, hi in pads)}
+
+
+def assemble_adjoint_env(spec: InputSpec, env: Mapping, g: Mapping,
+                         in_place=(), count: bool = False) -> dict:
     """One adjoint plan's env from the forward env and the cotangents, per
     the spec's feed recipe: zero-padded cotangent canvases, ones-padded
     coefficient arrays, scalars as they are.  Every entry is contiguous (a
     cotangent from autograd may be an expanded view).  Pads act on the
     trailing, per-example dimensions, so a batch axis in front passes
-    through."""
+    through.  A cotangent named in ``in_place`` is left unpadded, for K1 to
+    read at its :func:`cotangent_pads` (the guards supply the zeros).
+    ``count``: the env of a backward; with obs on, each padded feed counts
+    once in ``race_adjoint_pads_total{how, kind}`` (``how`` ``"kernel"``
+    where K1 reads it in place, else ``"canvas"``; ``kind``
+    ``"cotangent"`` or ``"coefficient"``)."""
     adj_env = {}
     for kind, src, adj_name, pads in spec.feeds:
-        if kind == "scalar":
-            arr = env[src]
-        elif kind == "cotangent":
-            arr = g[src]
-            if any(lo or hi for lo, hi in pads):
-                arr = F.pad(arr, _torch_pads(pads))
-        else:  # coefficient array: ones-fill keeps divisions finite where
-            # the zero cotangent already annihilates the padded terms
-            arr = env[src]
-            lead = arr.dim() - len(pads)
-            padspec = tuple(
-                (plo, max(0, smax + 1 - (plo + arr.shape[lead + d])))
-                for d, (plo, smax) in enumerate(pads))
-            if any(lo or hi for lo, hi in padspec):
-                arr = F.pad(arr, _torch_pads(padspec), value=1)
+        arr = g[src] if kind == "cotangent" else env[src]
+        padspec = _feed_pads(kind, pads, arr.shape)
+        if any(lo or hi for lo, hi in padspec):
+            how = "kernel" if adj_name in in_place else "canvas"
+            if how == "canvas":  # a coefficient's ones keep divisions
+                # finite where the zero cotangent annihilates the terms
+                arr = F.pad(arr, _torch_pads(padspec),
+                            value=0 if kind == "cotangent" else 1)
+            if count and _obs.enabled():
+                _obs.counter("race_adjoint_pads_total", how=how,
+                             kind="cotangent" if kind == "cotangent"
+                             else "coefficient").inc()
         adj_env[adj_name] = arr.contiguous()
     return adj_env
+
+
+def _fed_shape(kind: str, pads, shape) -> tuple:
+    """The shape of a feed of ``shape`` in the env
+    :func:`assemble_adjoint_env` gives: padded by :func:`_feed_pads`."""
+    padspec = _feed_pads(kind, pads, shape)
+    k = len(shape) - len(padspec)
+    return tuple(shape[:k]) + tuple(
+        n + lo + hi for n, (lo, hi) in zip(shape[k:], padspec))
+
+
+def adjoint_signature(spec: InputSpec, env: Mapping, g: Mapping,
+                      batched: bool = False) -> tuple:
+    """The :func:`~.executor.env_signature` of the env
+    :func:`assemble_adjoint_env` gives (``batched``: per example, as
+    :func:`~.executor.stacked_signature`), from the shapes and dtypes of
+    ``env`` and ``g`` alone: nothing is padded."""
+    from .executor import _dt_name
+
+    sig = []
+    for kind, src, adj_name, pads in spec.feeds:
+        arr = g[src] if kind == "cotangent" else env[src]
+        sig.append((adj_name, _fed_shape(kind, pads, tuple(arr.shape)[
+            1 if batched else 0:]), _dt_name(arr.dtype)))
+    return tuple(sorted(sig))
 
 
 def adjoint_env_shapes(spec: InputSpec, program: Program,
@@ -742,17 +794,34 @@ def adjoint_env_shapes(spec: InputSpec, program: Program,
     by_lhs = {st.lhs.name: st for st in program.body}
     out = {}
     for kind, src, adj_name, pads in spec.feeds:
-        if kind == "scalar":
-            out[adj_name] = tuple(shapes[src])
-        elif kind == "cotangent":
-            ext = [full[s.s][1] - full[s.s][0] + 1
-                   for s in by_lhs[src].lhs.subs]
-            out[adj_name] = tuple(n + lo + hi
-                                  for n, (lo, hi) in zip(ext, pads))
-        else:
-            out[adj_name] = tuple(max(plo + n, smax + 1)
-                                  for n, (plo, smax) in zip(shapes[src], pads))
+        shape = (tuple(full[s.s][1] - full[s.s][0] + 1
+                       for s in by_lhs[src].lhs.subs)
+                 if kind == "cotangent" else tuple(shapes[src]))
+        out[adj_name] = _fed_shape(kind, pads, shape)
     return out
+
+
+def adjoint_executor(unit, env: Mapping, g: Mapping,
+                     backend: Optional[str] = None, batched: bool = False):
+    """The executor one adjoint program (an :class:`InputSpec` or a
+    :class:`ScalarGroup`) runs on in a backward: the one of the padded
+    env's signature (per example where ``batched``, as ``run_batch``'s).
+    Where it runs K1 and no graph is recorded, it reads each zero-padded
+    cotangent as it came (:func:`cotangent_pads`, its
+    :attr:`~.executor.CompiledRace.pads`), K1's guards supplying the zeros;
+    the ``"torch"`` evaluator, and a recorded graph (which differentiates
+    the pad), take the canvas.  Its env is :func:`assemble_adjoint_env`
+    with ``in_place=ex.pads``."""
+    from .executor import compile_plan
+
+    feeds = [(g if kind == "cotangent" else env)[src]
+             for kind, src, _, _ in unit.feeds]
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in feeds)
+    return compile_plan(unit.result().plan,
+                        adjoint_signature(unit, env, g, batched), backend,
+                        device=feeds[0].device,
+                        pads=None if recording else cotangent_pads(unit))
 
 
 def finalize_adjoint(spec: InputSpec, env: Mapping, val):
@@ -827,17 +896,11 @@ def adjoint_runs(build: AdjointBuild, env: Mapping, g: Mapping,
 def _run_unit(unit, env: Mapping, g: Mapping, backend: Optional[str] = None,
               batched: bool = False) -> dict:
     """Run one adjoint program (an :class:`InputSpec` or a
-    :class:`ScalarGroup`) and give each of its members' gradients."""
-    from .executor import compile_plan, stacked_signature
-
-    res = unit.result()
-    adj_env = assemble_adjoint_env(unit, env, g)
-    if batched:  # the executor of the per-example signature, as run's
-        dev = next(iter(adj_env.values())).device
-        ex = compile_plan(res.plan, stacked_signature(adj_env), backend,
-                          device=dev)
-    else:
-        ex = compile_plan(res.plan, adj_env, backend)
+    :class:`ScalarGroup`) on its :func:`adjoint_executor` and give each of
+    its members' gradients."""
+    ex = adjoint_executor(unit, env, g, backend, batched)
+    adj_env = assemble_adjoint_env(unit, env, g, in_place=ex.pads,
+                                   count=True)
     if unit.scalar:  # K1 sums the products in the kernel
         out = ex.run_sum(adj_env, batched)
     elif batched:

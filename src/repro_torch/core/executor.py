@@ -278,6 +278,9 @@ class ExecutorKey:
     partition: Optional[tuple] = None
     #: sharded entries only: the requested halo strategy
     halo: Optional[str] = None
+    #: K1 entries only: the operands it reads without their zero pad
+    #: (:func:`~repro_torch.lowering.emit.pad_key`)
+    pads: tuple = ()
 
 
 # ---------------------------------------------------------------------------
@@ -322,16 +325,20 @@ class CompiledRace:
     """One specialization of a plan: the torch evaluator or the kernel's
     wrapper, built once per :class:`ExecutorKey`.  ``calls`` counts runs,
     ``batch_calls`` batched runs, and ``kernel_launches`` the Hopper kernel
-    launches among them."""
+    launches among them.  ``pads`` (``{name: ((lo, hi) per dimension)}``,
+    K1 alone): those entries of an env come without that zero pad around
+    their shape in ``env_sig``, and the kernel reads them in place; such an
+    executor records no graph."""
 
     def __init__(self, plan: Plan, env_sig: tuple, selection: Selection, *,
                  device: torch.device, block_rows: int = 0,
-                 block_cols: int = 0, block_inner: int = 0):
+                 block_cols: int = 0, block_inner: int = 0, pads=()):
         self.plan = plan
         self.env_sig = env_sig
         self.selection = selection
         self.backend = selection.backend
         self.device = device
+        self.pads = dict(pads)
         self.calls = 0
         self.batch_calls = 0
         self.out_names = tuple(dict.fromkeys(st.lhs.name for st in plan.body))
@@ -343,7 +350,8 @@ class CompiledRace:
                 self.spec = specialize_stencil(
                     plan, {nm: shp for nm, shp, _ in env_sig},
                     {nm: dt for nm, _, dt in env_sig}, block_rows=block_rows,
-                    block_cols=block_cols, block_inner=block_inner)
+                    block_cols=block_cols, block_inner=block_inner,
+                    pads=self.pads)
                 self._core = self.spec.apply
                 self._batch_core = self.spec.apply_batch
             else:
@@ -366,6 +374,9 @@ class CompiledRace:
         kernel where no graph is recorded."""
         if torch.is_grad_enabled() and any(v.requires_grad
                                            for v in env.values()):
+            if self.pads:
+                raise ValueError("an executor that reads operands without "
+                                 "their pad records no graph")
             names = tuple(nm for nm, _, _ in self.env_sig)
             outs = _RaceFunction.apply(self, names, batched,
                                        *(env[nm] for nm in names))
@@ -685,7 +696,7 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
                  block_rows: int = 0, block_cols: int = 0,
                  block_inner: int = 0,
                  cache: Optional[ExecutorCache] = None,
-                 batch: int = 0) -> CompiledRace:
+                 batch: int = 0, pads=None) -> CompiledRace:
     """Fetch (or build) the executor for this (plan, tensor env) pairing.
 
     ``env`` is a tensor env, whose tensors fix the device, or a precomputed
@@ -703,7 +714,11 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
     passes for the plan and the env's dtypes.  Explicit ``"torch"`` /
     ``"hopper"`` requests bypass the store (that is how the tuner measures).
     The selection is memoized per plan and request, so its telemetry fires
-    once, not per run."""
+    once, not per run.  ``pads`` (``{name: ((lo, hi) per dimension)}``):
+    where the selection is K1, the executor's env brings those entries
+    without that zero pad around the signature's shape
+    (:attr:`CompiledRace.pads`); the ``"torch"`` evaluator takes no pads,
+    and its executor has none."""
     if isinstance(env, tuple):
         if device is None:
             raise ValueError("compile_plan on a signature needs device=")
@@ -728,21 +743,29 @@ def compile_plan(plan: Plan, env: Union[Mapping, tuple],
             if tuned_blocks is not None:
                 try:
                     return _executor(plan, sig, _resolve(plan, "hopper", base),
-                                     tuned_blocks, device, cache)
+                                     tuned_blocks, device, cache, pads)
                 except ValueError:
                     pass  # e.g. hopper-smem: the chooser's tile below
                 blocks = (0, 0, 0)
     return _executor(plan, sig, _resolve(plan, backend, base), blocks, device,
-                     cache)
+                     cache, pads)
 
 
 def _executor(plan: Plan, sig: tuple, sel: Selection, blocks: tuple,
-              device, cache: Optional[ExecutorCache]) -> CompiledRace:
-    """The cached executor of one resolved selection and block config."""
+              device, cache: Optional[ExecutorCache],
+              pads=None) -> CompiledRace:
+    """The cached executor of one resolved selection, block config and (on
+    K1) set of operands read without their zero pad."""
+    hopper = sel.backend == "hopper"
+    if hopper and pads:
+        from ..lowering.emit import pad_key
+
+        pads = pad_key(pads)
+    else:
+        pads = ()
     key = ExecutorKey(plan_hash(plan), sig, sel.backend,
-                      blocks if sel.backend == "hopper" else None,
-                      str(device))
+                      blocks if hopper else None, str(device), pads=pads)
     c = cache if cache is not None else _CACHE
     return c.get_or_build(key, lambda: CompiledRace(
         plan, sig, sel, device=device, block_rows=blocks[0],
-        block_cols=blocks[1], block_inner=blocks[2]))
+        block_cols=blocks[1], block_inner=blocks[2], pads=pads))

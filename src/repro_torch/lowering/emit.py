@@ -49,7 +49,9 @@ streaming kernel):
     indices with guarded 64-bit loads, converted as they are read.
     Outputs are written straight into their own dimension order.  The
     per-call transposes, flips, pads and ``3**k`` halo copies the Pallas
-    path made to feed BlockSpec do not exist here;
+    path made to feed BlockSpec do not exist here, nor does the adjoint's
+    zero-padded cotangent canvas: an operand may come without a zero pad
+    (:func:`pad_operands`), the guards supplying its zeros;
   * rank-0 aux (loop-invariant; the reference's ``scalar-aux``) are
     evaluated once per thread into registers at the top of the kernel;
   * in-plane offsets are 32-bit where they fit, plane bases 64-bit, and
@@ -85,7 +87,7 @@ tolerance (float32 1e-5, float64 1e-12), so no flag disables it.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from math import isfinite, prod
 from typing import Mapping, NamedTuple
 
@@ -156,12 +158,21 @@ def dtype_reasons(dtypes) -> list:
 
 @dataclass(frozen=True)
 class Operand:
-    """One base array, read in place in its own (contiguous) layout."""
+    """One base array, read in place in its own (contiguous) layout.
+
+    ``shape`` is the logical shape, the one the plan indexes.  The array in
+    memory (``stored``) may be the part of it after ``lo`` zeros along each
+    dimension, the rest zeros too: an unpadded cotangent whose zero pad the
+    guards supply (:func:`pad_operands`).  Every guard is against
+    ``stored`` and every address is ``j - lo``, both constants of the
+    source, so a zero ``lo`` renders the text of an unpadded operand."""
 
     name: str
     shape: tuple
-    strides: tuple  # element strides of the contiguous layout
+    strides: tuple  # element strides of the stored (contiguous) layout
     dims: tuple  # loop level of each array dimension (0: constant)
+    lo: tuple  # zeros before the stored array, per dimension
+    stored: tuple  # the stored array's shape
     ring: int = -1  # its staged ring in the geometry; -1: device memory
 
 
@@ -214,7 +225,7 @@ class TileProgram:
         """``(operand elements, output elements, scalars)`` of one example:
         the strides of the batch axis (each operand's and output's pointer
         moves by its count per example, the scalars' by theirs)."""
-        return (tuple(prod(o.shape) for o in self.operands),
+        return (tuple(prod(o.stored) for o in self.operands),
                 tuple(prod(o.shape) for o in self.outputs), len(self.scalars))
 
     @property
@@ -293,8 +304,8 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
                 f"{nm}: environment array has rank {len(shape)}, plan "
                 f"references rank {analysis.arrays[nm].ndim}")
         operands.append(Operand(nm, shape, _contiguous_strides(shape),
-                                analysis.arrays[nm].dims,
-                                staged.get(nm, -1)))
+                                analysis.arrays[nm].dims, (0,) * len(shape),
+                                shape, staged.get(nm, -1)))
 
     scalar_aux = tuple((a.name, plan.aux_exprs[a.name])
                        for a in plan.aux_order if not a.levels)
@@ -315,6 +326,43 @@ def tile_program(plan: Plan, shapes: Mapping, dtypes: Mapping,
                        scalars=scalars, scalar_aux=scalar_aux,
                        outputs=tuple(outputs), aux_exprs=aux_exprs,
                        body=body)
+
+
+def pad_key(pads) -> tuple:
+    """``pads`` (``{operand: ((lo, hi) per dimension)}``, or None) as a
+    sorted tuple without the all-zero entries: ``()`` for no pad."""
+    return tuple(sorted(
+        (nm, tuple((int(lo), int(hi)) for lo, hi in p))
+        for nm, p in (pads or {}).items() if any(lo or hi for lo, hi in p)))
+
+
+def pad_operands(tp: TileProgram, pads) -> TileProgram:
+    """``tp`` reading each operand named in ``pads`` (``{name: ((lo, hi)
+    per dimension)}``) unpadded: stored without ``lo`` zeros before and
+    ``hi`` after its logical shape along each dimension, which the guards
+    supply.  The geometry, the plan's view and the launch grid are
+    ``tp``'s; zero pads give ``tp`` itself."""
+    pads = dict(pad_key(pads))
+    if not pads:
+        return tp
+    unknown = sorted(set(pads) - {o.name for o in tp.operands})
+    if unknown:
+        raise ValueError(f"no operand {unknown} to pad")
+    ops = []
+    for o in tp.operands:
+        p = pads.get(o.name)
+        if p is not None:
+            if len(p) != len(o.shape) or min(min(q) for q in p) < 0:
+                raise ValueError(f"{o.name}: pads {p} do not fit a "
+                                 f"{len(o.shape)}-dimensional operand")
+            stored = tuple(n - lo - hi for n, (lo, hi) in zip(o.shape, p))
+            if min(stored) < 1:
+                raise ValueError(f"{o.name}: pads {p} leave nothing of "
+                                 f"shape {o.shape}")
+            o = replace(o, strides=_contiguous_strides(stored),
+                        lo=tuple(lo for lo, _ in p), stored=stored)
+        ops.append(o)
+    return replace(tp, operands=tuple(ops))
 
 
 # ---------------------------------------------------------------------------
@@ -506,10 +554,10 @@ class _Box:
         op = self.tp.operands[k]
         idx, guard, off = [], [], []
         for d, (a, s, b) in enumerate(affine(ref)):
-            dv = f"{var}_{d}"
+            dv, b = f"{var}_{d}", b - op.lo[d]  # the stored array's index
             rhs = f"{b}LL" if s == 0 else f"{a}LL * i{s} + ({b}LL)"
             idx.append(f"        const long long {dv} = {rhs};")
-            guard.append(f"{dv} >= 0 && {dv} < {op.shape[d]}LL")
+            guard.append(f"{dv} >= 0 && {dv} < {op.stored[d]}LL")
             off.append(f"{dv} * {op.strides[d]}LL")
         self.lines.append(f"      acc_t {var} = acc_t(0);")
         self.lines.append("      {")
@@ -607,19 +655,21 @@ def _window(tp: TileProgram, k: int, step: str, maps: _Maps) -> _Window:
     ds = op.dims.index(g.s_level)
     plane = [l for l in reversed(op.dims) if l in g.order]
     inner = [d for d in range(len(op.dims)) if d != ds]
+    lo = {l: op.lo[d] for d, l in enumerate(op.dims)}
+    # zz and the j<l> index the stored array (the pads taken off)
     head = [
-        f"      const int zz = z0 + ({step}) + {r.lead};",
-        f"      const bool zok = zz >= 0 && zz < {op.shape[ds]};",
+        f"      const int zz = z0 + ({step}) + {r.lead - lo[g.s_level]};",
+        f"      const bool zok = zz >= 0 && zz < {op.stored[ds]};",
         f"      const store_t* const src = zok ? in{ix} + (long long)zz * "
         f"{op.strides[ds]}LL : in{ix};",
     ]
     mp = maps.get(plane, [r.widths[l - 1] for l in plane])
-    elem = [f"        const int j{l} = t{l} + ({r.lo[l - 1]} + p{l});"
+    elem = [f"        const int j{l} = t{l} + ({r.lo[l - 1] - lo[l]} + p{l});"
             for l in plane]
-    guard = ["zok"] + [f"j{op.dims[d]} >= 0 && j{op.dims[d]} < {op.shape[d]}"
+    guard = ["zok"] + [f"j{op.dims[d]} >= 0 && j{op.dims[d]} < {op.stored[d]}"
                        for d in inner]
     off = _offset([(f"j{op.dims[d]}", op.strides[d]) for d in inner],
-                  _fits32(op.shape, op.strides, inner))
+                  _fits32(op.stored, op.strides, inner))
     pos = _offset([(f"p{l}", r.strides[l - 1]) for l in plane], True)
     return _Window(ix, head, mp, elem, guard, off, pos)
 
@@ -1044,7 +1094,8 @@ def emulate(tp: TileProgram, env: Mapping, summed: bool = False) -> dict:
 
     Values carry the block axis and one axis per loop level (size 1 where
     they do not vary).  Rank-0 aux, boxes, rings, their slots, the warm-up,
-    segment ends, staged planes, guarded loads and guarded stores all follow
+    segment ends, staged planes, guarded loads (against each operand's
+    stored shape, :func:`pad_operands`) and guarded stores all follow
     :func:`render_cuda` and read the schedule from ``tp.geometry``.  As in
     the kernel, the march runs in the operand dtype's compute type (float32
     for both half types) and each output is rounded once to the operand
@@ -1054,7 +1105,8 @@ def emulate(tp: TileProgram, env: Mapping, summed: bool = False) -> dict:
     g = tp.geometry
     m, s, B = g.m, g.s_level, g.n_tiles
     dt = _torch_dtype(KERNEL_DTYPES[tp.dtype].compute)
-    data = {o.name: env[o.name].to(dt) for o in tp.operands}
+    ops = {o.name: o for o in tp.operands}
+    data = {nm: env[nm].to(dt) for nm in ops}
     dev = data[tp.operands[0].name].device
     zero = torch.zeros((), dtype=dt, device=dev)
     scal = {nm: torch.as_tensor(env[nm]).to(device=dev, dtype=dt)
@@ -1113,10 +1165,10 @@ def emulate(tp: TileProgram, env: Mapping, summed: bool = False) -> dict:
                     return rings[rd.ring][slot][tuple(sl)]
                 val = memo.get(x)
                 if val is None:
-                    c = box["coords"]
+                    c, lo = box["coords"], ops[x.name].lo
                     val = memo[x] = load(data[x.name], [
-                        b if lv == 0 else a * c[lv] + b
-                        for a, lv, b in affine(x)])
+                        b - lo[d] if lv == 0 else a * c[lv] + (b - lo[d])
+                        for d, (a, lv, b) in enumerate(affine(x))])
                 return val
             if x.op == "call":
                 return getattr(torch, x.kids[0].name)(ev(x.kids[1]))
@@ -1158,7 +1210,8 @@ def emulate(tp: TileProgram, env: Mapping, summed: bool = False) -> dict:
                 continue
             c = coords(r.levels, r.lo, r.widths, step + r.lead)
             rings[o.ring][(step - g.k0) % r.depth] = load(
-                data[o.name], [c[l] for l in o.dims]).expand(
+                data[o.name], [c[l] - lo for l, lo in zip(o.dims, o.lo)]
+            ).expand(
                     [B] + list(r.widths))
         for k in sorted(range(n_aux), key=lambda k: g.rings[k].phase):
             r = g.rings[k]
@@ -1333,10 +1386,10 @@ class LoweredStencil:
             if t.dtype != dt:
                 raise ValueError(f"{o.name} is {t.dtype}, the kernel was "
                                  f"specialized for {dt}")
-            if tuple(t.shape) != lead + o.shape:
+            if tuple(t.shape) != lead + o.stored:
                 raise ValueError(f"{o.name} has shape {tuple(t.shape)}, the "
                                  f"kernel was specialized for "
-                                 f"{lead + o.shape}")
+                                 f"{lead + o.stored}")
             if not t.is_contiguous():
                 raise ValueError(f"{o.name} is not contiguous")
         for nm in tp.scalars:
@@ -1389,8 +1442,12 @@ class LoweredStencil:
 
 def specialize_stencil(plan: Plan, shapes: Mapping, dtypes: Mapping,
                        block_rows: int = 0, block_cols: int = 0,
-                       block_inner: int = 0) -> LoweredStencil:
+                       block_inner: int = 0, pads=None) -> LoweredStencil:
     """Build the kernel's wrapper for one environment signature (the CUDA
-    source is rendered here and compiled at the first launch on a card)."""
-    return LoweredStencil(lambda batch: tile_program(
-        plan, shapes, dtypes, block_rows, block_cols, block_inner, batch))
+    source is rendered here and compiled at the first launch on a card).
+    ``pads`` (``{operand: ((lo, hi) per dimension)}``): those operands come
+    without that zero pad around their shape in ``shapes``, and the kernel
+    reads them in place (:func:`pad_operands`)."""
+    return LoweredStencil(lambda batch: pad_operands(tile_program(
+        plan, shapes, dtypes, block_rows, block_cols, block_inner, batch),
+        pads))

@@ -35,8 +35,9 @@ The port's spans are also ``torch.profiler`` ranges, ``race.<span>``, with
 obs on or off, whenever the profiler records: a trace of any caller's code
 shows which layer of the port the host was in, on the device trace's
 clock, at a few microseconds a range.  With obs off that is all a span
-does (no registry, no span log).  :data:`PORT_SPANS` are the port's own
-spans, which the reference has no counterpart of.
+does (no registry, no span log).  :data:`PORT_SPANS` and :data:`PORT_METRICS`
+are the port's own spans and metrics, which the reference has no
+counterpart of.
 """
 from __future__ import annotations
 
@@ -75,6 +76,9 @@ OBS_SCHEMA = 1
 #: input moves), ``lookup`` (choosing its executor) and ``k1`` (K1's
 #: wrapper, ``LoweredStencil``: checks, launch or emulator, cast)
 PORT_SPANS = ("entry", "inputs", "lookup", "k1")
+#: the port's own metrics: ``race_adjoint_pads_total{how, kind}``, each
+#: padded feed of a backward, read in place by K1 or padded into a canvas
+PORT_METRICS = ("race_adjoint_pads_total",)
 
 _TRUTHY = ("1", "true", "yes", "on")
 

@@ -220,7 +220,7 @@ class ShardedRace:
             for spec in build.specs:
                 if spec.input not in wrt:
                     continue
-                adj_env = adj.assemble_adjoint_env(spec, env, g)
+                adj_env = adj.assemble_adjoint_env(spec, env, g, count=True)
                 ex = self._adjoint_executor(spec, adj_env)
                 val = ex(adj_env)[spec.gu]
                 grads[spec.input] = adj.finalize_adjoint(spec, env, val)

@@ -382,9 +382,7 @@ def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
     units = adjoint.adjoint_runs(build_, env, g, keys)
     assert [type(u).__name__ for u in units] == [
         "InputSpec", "InputSpec", "ScalarGroup"]
-    adj = [repro_torch.compile_plan(
-        u.result().plan, adjoint.assemble_adjoint_env(u, env, g))
-        for u in units]
+    adj = [adjoint.adjoint_executor(u, env, g) for u in units]
     assert all(ex.backend == "hopper" for ex in adj)
     before = [ex.kernel_launches for ex in adj]
     grads = torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],
@@ -398,6 +396,57 @@ def test_grad_through_run_launches_the_kernel_in_backward(cuda_device):
                                [g[k].double() for k in g])
     tol = default_tolerances(np.float32)["grad"]
     assert rel_err(dict(zip(keys, grads)), dict(zip(keys, want))) <= tol
+
+
+@pytest.mark.cuda
+def test_backward_reads_the_cotangent_in_place_on_card(cuda_device):
+    """j3d27pt's backward at 64^3 on the card under ``torch.profiler``:
+    inside ``autograd.grad`` K1 launches twice (``u``'s adjoint, reading
+    the cotangent in place, and the scalars' group) and no fill or strided
+    copy of a cotangent canvas is launched; the gradients are the canvas
+    path's bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    case = get_case("j3d27pt", 64)
+    res = repro_torch.race(case.program, reassociate=case.reassociate)
+    env = env_to_torch(build_env(case), cuda_device)
+    env.pop("j27")
+    keys = sorted(env)
+    p = {k: env[k].clone().requires_grad_() for k in keys}
+    out = res.run({**env, **p})
+    g = {k: torch.cos(torch.arange(v.numel(), device=cuda_device,
+                                   dtype=v.dtype)).reshape(v.shape)
+         for k, v in out.items()}
+
+    def grad():
+        return torch.autograd.grad([out[k] for k in g],
+                                   [p[k] for k in keys], [g[k] for k in g],
+                                   retain_graph=True)
+
+    grad()  # builds and loads the adjoint kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grads = dict(zip(keys, grad()))
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert sum("race_stencil_kernel" in k for k in kernels) == 2, kernels
+    assert not [k for k in kernels if "FillFunctor" in k
+                or k.startswith("void at::native::elementwise_kernel<")
+                or "constant_pad" in k], kernels
+    want = {}
+    for u in adjoint.adjoint_runs(adjoint.adjoint_build(case.program), env,
+                                  g, keys):
+        a = adjoint.assemble_adjoint_env(u, env, g)
+        ex = repro_torch.compile_plan(u.result().plan, a)
+        o = ex.run_sum(a) if u.scalar else ex(a)
+        want.update({s.input: adjoint.finalize_adjoint(s, env, o[s.gu])
+                     for s in u.members})
+    torch.cuda.synchronize()
+    assert set(want) == set(keys)
+    for k in keys:
+        assert torch.equal(grads[k], want[k]), k
 
 
 @pytest.mark.cuda
@@ -466,10 +515,7 @@ def test_batched_grad_launches_each_adjoint_kernel_once(cuda_device):
                                  stacked, g, keys)
     assert [type(u).__name__ for u in units] == ["InputSpec", "ScalarGroup"]
     for u in units:
-        a = adjoint.assemble_adjoint_env(u, stacked, g)
-        adj.append(repro_torch.compile_plan(
-            u.result().plan, executor.stacked_signature(a),
-            device=cuda_device))
+        adj.append(adjoint.adjoint_executor(u, stacked, g, batched=True))
     assert all(ex.backend == "hopper" for ex in adj)
     before = [ex.kernel_launches for ex in adj]
     grads = torch.autograd.grad([out[k] for k in g], [p[k] for k in keys],

@@ -227,10 +227,11 @@ def test_first_order_backward_runs_adjoints_bare(monkeypatch, backend):
         out = res.run({**env, **p}, backend, device="cpu")
         specs = [s for s in adjoint.adjoint_build(case.program).specs
                  if s.input in keys]
-        adj = [repro_torch.compile_plan(
-            s.result().plan, adjoint.assemble_adjoint_env(
-                s, env, {k: torch.ones_like(v) for k, v in out.items()}))
-            for s in specs]
+        # the backward's executors: under create_graph the cotangent
+        # requires grad, and the adjoint plans read its canvas
+        g = {k: torch.ones_like(v).requires_grad_(create)
+             for k, v in out.items()}
+        adj = [adjoint.adjoint_executor(s, env, g) for s in specs]
         before = [ex.calls for ex in adj]
         grads = torch.autograd.grad((out["U"] ** 2).sum(),
                                     [p[k] for k in keys], create_graph=create)
