@@ -8,10 +8,11 @@ cell's own sizes, for a short window (set-up and the comparison as in a
 benchmark run), and the numbers compared are printed.  For the first
 ``--control`` seeds the control is read as well: the plain reference
 computed in the cell's ``control_dtype`` (``limits/<cell>.json``: bfloat16
-for float32, float32 for float64) in the program's place.  One JSON line per seed; the limit of each
-number lies between the largest sound reading and the smallest control
-reading (``limits/<cell>.json``).  The benchmark's own runs do not run
-this.
+for float32, float32 for float64, ``float8_e4m3fn``, rounded operation by
+operation, for bfloat16) in the program's place.  One JSON line per seed;
+the limit of each number lies between the largest sound reading and the
+smallest control reading (``limits/<cell>.json``).  The benchmark's own
+runs do not run this.
 """
 import argparse
 import json

@@ -123,6 +123,10 @@ FAULTS = [
     ("j3d27pt.grad512", _altered_answers),
     ("j3d27pt.grad512", _stale_gradients),
     ("j3d27pt.grad512", _altered_gradient),
+    ("j3d27pt.sweep512.bf16", _stale_calls),
+    ("j3d27pt.sweep512.bf16", _altered_answers),
+    ("poisson.sweep512", _stale_calls),
+    ("poisson.sweep512", _altered_answers),
 ]
 
 

@@ -1,6 +1,7 @@
 """The benchmark's plain references against a float64 NumPy loop nest at
 small extents: j3d27pt's forward and its gradients (plain autograd through
-the reference), and psinv's forward; with and without a batch axis."""
+the reference), and psinv's and poisson's forwards; with and without a
+batch axis."""
 import sys
 from pathlib import Path
 
@@ -19,6 +20,8 @@ import verdict  # noqa: E402
 
 J = benchspec.module("reference", "j3d27pt")
 P = benchspec.module("reference", "psinv")
+Q = benchspec.module("reference", "poisson")
+REFERENCES = ["j3d27pt", "psinv", "poisson"]
 TAPS = [(di, dk, dj) for di in (-1, 0, 1) for dk in (-1, 0, 1)
         for dj in (-1, 0, 1)]
 
@@ -119,7 +122,20 @@ def test_psinv_forward_matches_the_loop_nest(shape):
                                rtol=1e-13, atol=1e-14)
 
 
-@pytest.mark.parametrize("name", ["j3d27pt", "psinv"])
+@pytest.mark.parametrize("shape", [(5, 5, 5), (7, 5, 9)])
+def test_poisson_forward_matches_the_loop_nest(shape):
+    """poisson is j3d27pt's loop nest with the weights (pc0, -pc1, -pc2, 0)
+    and no divisor."""
+    rng = np.random.default_rng(6)
+    u, c = rng.uniform(-1, 1, shape), rng.uniform(0.25, 1, 3)
+    got = Q.forward({"u": _t(u)}, {f"pc{m}": _t(c[m]) for m in range(3)})
+    assert set(got) == {"pois"}
+    np.testing.assert_allclose(got["pois"].numpy(),
+                               j3d27pt_loops(u, (c[0], -c[1], -c[2], 0), 1),
+                               rtol=1e-13, atol=1e-14)
+
+
+@pytest.mark.parametrize("name", REFERENCES)
 def test_a_batch_axis_is_the_examples_one_by_one(name):
     prog = benchspec.module("programs", name)
     ref = benchspec.module("reference", name)
@@ -137,13 +153,13 @@ def test_a_batch_axis_is_the_examples_one_by_one(name):
             torch.testing.assert_close(got[k][b], one[k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name", ["j3d27pt", "psinv"])
+@pytest.mark.parametrize("name", REFERENCES)
 def test_references_import_nothing_of_the_program(name):
     text = (HERE / "reference" / f"{name}.py").read_text()
     assert "repro" not in text and "jax" not in text
 
 
-@pytest.mark.parametrize("name", ["j3d27pt", "psinv"])
+@pytest.mark.parametrize("name", REFERENCES)
 def test_the_reference_computes_the_frozen_program(name):
     """At a small extent on the CPU, the port's plain evaluator of the
     frozen loop nest gives the reference's outputs: the two describe one

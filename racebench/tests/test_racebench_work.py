@@ -27,6 +27,10 @@ TABLE = [
      0.00031864922746268655, "bytes"),
     ("j3d27pt.grad512", "backward", 1_604_345_824, 11_540_637_000,
      0.0004789092011940298, "bytes"),
+    ("j3d27pt.sweep512.bf16", "forward", 533_737_456, 7_163_154_000,
+     0.00015932461373134327, "bytes"),
+    ("poisson.sweep512", "forward", 1_067_474_912, 2_785_671_000,
+     0.00031864922746268655, "bytes"),
 ]
 
 
@@ -56,7 +60,9 @@ def test_bounds_in_milliseconds():
                    ("psinv.sweep514.f64", "forward"): 0.9691,
                    ("j3d27pt.batch64x256", "forward"): 0.153,
                    ("j3d27pt.grad512", "forward"): 0.3186,
-                   ("j3d27pt.grad512", "backward"): 0.4789}
+                   ("j3d27pt.grad512", "backward"): 0.4789,
+                   ("j3d27pt.sweep512.bf16", "forward"): 0.1593,
+                   ("poisson.sweep512", "forward"): 0.3186}
 
 
 def test_psinv_operations_alone_would_take_far_less_than_its_bytes():
@@ -72,7 +78,7 @@ def _ops(expr, Node):
     return 1 + sum(_ops(k, Node) for k in expr.kids)
 
 
-@pytest.mark.parametrize("name", ["j3d27pt", "psinv"])
+@pytest.mark.parametrize("name", ["j3d27pt", "psinv", "poisson"])
 def test_counts_follow_the_frozen_source_program(name):
     """Operations a point are the frozen program's own, points are its
     iteration space, and the byte count's arrays and outputs are its."""
@@ -92,6 +98,7 @@ def test_counts_follow_the_frozen_source_program(name):
 @pytest.mark.parametrize("name,base", [
     ("j3d27pt", {"+": 26, "*": 27, "/": 1}),
     ("psinv", {"+": 27, "*": 4}),
+    ("poisson", {"+": 16, "-": 2, "*": 3}),
 ])
 def test_source_counts_are_the_papers_base(name, base):
     from repro_torch.core.ir import Node

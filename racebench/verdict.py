@@ -17,7 +17,12 @@ reference computes it (``reference``) and which numbers are compared
 
 The control puts the reference, computed in the cell's ``control_dtype``
 (``limits/<cell>.json``: the nearest precision below the cell's), in the
-program's place; ``calibrate.py`` reads it.
+program's place; ``calibrate.py`` reads it.  torch does no arithmetic in
+a 1-byte float such as ``float8_e4m3fn`` (the control of a bfloat16
+cell), so there the reference runs under :class:`Rounding`: every
+floating-point result of its operations (each input as it is read, each
+intermediate, each output) is rounded through that dtype and carried in
+float32.
 """
 from __future__ import annotations
 
@@ -25,8 +30,44 @@ import math
 import statistics
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 REFERENCE_DTYPE = torch.float64
+#: the dtype that carries a 1-byte float's values through arithmetic
+CARRIER = torch.float32
+
+
+def _round(x, dtype):
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype).to(CARRIER)
+    if type(x) in (tuple, list):
+        return type(x)(_round(v, dtype) for v in x)
+    return x
+
+
+class Rounding(TorchFunctionMode):
+    """Inside it, every floating-point tensor that a torch function
+    returns is rounded to ``dtype`` and handed on in :data:`CARRIER`: the
+    arithmetic of a dtype torch only stores, operation by operation.
+    Autograd's backward runs below torch functions, so it is not
+    rounded."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return _round(func(*args, **(kwargs or {})), self.dtype)
+
+
+def computed_in(kind, ref, program, env: dict, dtype):
+    """The reference's answer for one input set, computed in ``dtype``:
+    directly where torch computes in it, under :class:`Rounding` where it
+    is a 1-byte float."""
+    if dtype.is_floating_point and dtype.itemsize == 1:
+        with Rounding(dtype):
+            return kind.reference(ref, program, env, CARRIER)
+    return kind.reference(ref, program, env, dtype)
 
 
 def _leaves(program, env: dict, dtype) -> tuple:
@@ -111,7 +152,7 @@ def control(cell, program, kind, inputs: list) -> dict:
     worst = {}
     for env in inputs:
         want = kind.reference(ref, program, env, REFERENCE_DTYPE)
-        got = kind.reference(ref, program, env, low)
+        got = computed_in(kind, ref, program, env, low)
         for k, v in kind.gaps(got, want, program).items():
             worst[k] = max(worst.get(k, 0.0), v)
         del want, got
